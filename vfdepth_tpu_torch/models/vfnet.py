@@ -1,0 +1,238 @@
+"""Volumetric fusion (port of ``vfdepth_tpu/models/vfnet.py``, serving path).
+
+Layouts as in the JAX package: voxel features are channels-last
+``[b, n, C]`` with the flat voxel order (y, x, z), z fastest (so the
+frustum sampler's yxz volume and the pose path's z-into-channels fold are
+plain reshapes), and the frustum sample is ``[b, cams, h, w, d*C]`` with
+channel index ``d*C + c`` (``reduce_dim_0``'s weights transfer unpermuted).
+
+Ported: ``_project_cam_points``, the grouped back-projection (kernel K1),
+``fuse_depth`` (grouped form), ``project_voxel_into_image`` (kernel K3),
+``pose_voxel_to_bev`` and ``BEVFold``. The ungrouped back-projection (K1b:
+3-camera rigs, ``merge_backprojection: false``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .blocks import ConvBlock, PointwiseBlock
+from ..geometry.projection import (frustum_world_points, linspace_f32,
+                                   voxel_points_homo)
+from ..ops.backproject_sample import (backproject_grouped_raw,
+                                      backproject_grouped_raw_plain)
+from ..ops.resize import resize_bilinear
+from ..ops.sample3d import sample3d_trilinear, sample3d_trilinear_plain
+
+
+def _reflect_conv(x: torch.Tensor, weight: torch.Tensor,
+                  stride: int) -> torch.Tensor:
+    return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), weight,
+                    stride=stride)
+
+
+class BEVFold(nn.Module):
+    """Pose-path ``reduce_dim_0``: z-into-channels fold + reflect-padded 3x3
+    conv (stride 2), LeakyReLU 0.1.
+
+    ``weight`` covers the vz*gc folded feature channels, (z, c) z-major
+    (channel z*gc + c); ``weight_rel`` the vz rel-depth channels, computed
+    once and added to every frame group. Frame groups run as a group-major
+    batch through one conv.
+    """
+
+    def __init__(self, out_ch: int, gc: int, vz: int, vy: int, vx: int,
+                 stride: int = 2):
+        super().__init__()
+        self.gc, self.vz, self.vy, self.vx, self.stride = gc, vz, vy, vx, stride
+        self.weight = nn.Parameter(torch.empty(out_ch, vz * gc, 3, 3))
+        self.weight_rel = nn.Parameter(torch.empty(out_ch, vz, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, voxel_feat: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """voxel_feat [b, n((y,x,z)-flat), G*gc + 1] ((G, gc) channel chunks,
+        shared rel-depth last) -> [G*b, out_ch, hy, hx] (group-major batch)."""
+        b = voxel_feat.shape[0]
+        g, gc, vz, vy, vx = groups, self.gc, self.vz, self.vy, self.vx
+        main = voxel_feat[..., :-1].reshape(b, vy, vx, vz, g, gc)
+        main = main.permute(4, 0, 3, 5, 1, 2).reshape(g * b, vz * gc, vy, vx)
+        rel = voxel_feat[..., -1].reshape(b, vy, vx, vz).permute(0, 3, 1, 2)
+        y = _reflect_conv(main, self.weight, self.stride)
+        yr = _reflect_conv(rel, self.weight_rel, self.stride) \
+            + self.bias[:, None, None]
+        y = (y.reshape((g, b) + y.shape[1:]) + yr[None]).reshape(
+            (g * b,) + y.shape[1:])
+        return F.leaky_relu(y, negative_slope=0.1)
+
+
+def _project_cam_points(mask: torch.Tensor, intrinsics: torch.Tensor,
+                        extrinsics_inv: torch.Tensor, h_dim: int, w_dim: int, *,
+                        voxel_str_p: Sequence[float],
+                        voxel_unit_size: Sequence[float],
+                        voxel_size: Sequence[int]):
+    """Raw camera-plane voxel points for the sampler's in-kernel divide.
+
+    (K[:3,:3] @ E^-1[:3,:]) is a per-camera [3, 4] constant, so
+    cam3 = proj34 @ vox; cam3[..., 2] is the camera-frame depth.
+    mask [b, cams, H, W, 1]; intrinsics at the fusion scale.
+    Returns (cam3 [b, cams, n, 3], mask_lowres [b, cams, h, w, 1]).
+    """
+    vox = voxel_points_homo(voxel_str_p, voxel_unit_size,
+                            voxel_size).to(intrinsics.device)
+    proj34 = torch.einsum("bcij,bcjk->bcik", intrinsics[..., :3, :3].float(),
+                          extrinsics_inv[..., :3, :].float())
+    cam3 = torch.einsum("bcij,jn->bcni", proj34, vox)
+    mask_lowres = resize_bilinear(mask, (h_dim, w_dim), align_corners=True)
+    return cam3, mask_lowres
+
+
+def grouped_backprojection_ok(groups, num_cams: int) -> bool:
+    """Whether the group-reduced back-projection applies: the two static
+    camera groups partition the rig with EQUAL sizes."""
+    g1 = [c for c in groups[0] if c < num_cams]
+    g2 = [c for c in groups[1] if c < num_cams]
+    return (len(g1) == len(g2) and len(g1) > 0
+            and sorted(g1 + g2) == list(range(num_cams)))
+
+
+def backproject_features_grouped(feats_agg: torch.Tensor, mask: torch.Tensor,
+                                 intrinsics: torch.Tensor,
+                                 extrinsics_inv: torch.Tensor, *,
+                                 voxel_str_p: Sequence[float],
+                                 voxel_unit_size: Sequence[float],
+                                 voxel_size: Sequence[int], groups,
+                                 plain: bool = False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Image features [b, cams, h, w, C] -> camera-group sums of the masked
+    voxel features (kernel K1).
+
+    Returns (feat_g [b, 2, n, C+1] incl. the rel-depth channel, count
+    [b, n] = cameras that see each voxel). ``plain`` runs the kernel's plain
+    PyTorch version on any device (a reference run on the card).
+    """
+    h_dim, w_dim = feats_agg.shape[-3], feats_agg.shape[-2]
+    g1 = [c for c in groups[0] if c < feats_agg.shape[1]]
+    g2 = [c for c in groups[1] if c < feats_agg.shape[1]]
+    order = g1 + g2
+    # static group-major camera reorder
+    feats_agg = feats_agg[:, order]
+    mask = mask[:, order]
+    intrinsics = intrinsics[:, order]
+    extrinsics_inv = extrinsics_inv[:, order]
+    cam3, mask_lowres = _project_cam_points(
+        mask, intrinsics, extrinsics_inv, h_dim, w_dim,
+        voxel_str_p=voxel_str_p, voxel_unit_size=voxel_unit_size,
+        voxel_size=voxel_size)
+    b, cams = feats_agg.shape[:2]
+    sample = backproject_grouped_raw_plain if plain else backproject_grouped_raw
+    out, _ = sample(
+        feats_agg.reshape((b * cams,) + feats_agg.shape[2:]).contiguous(),
+        mask_lowres.reshape(b * cams, h_dim, w_dim).contiguous(),
+        cam3.reshape(b * cams, -1, 3).contiguous(),
+        1.0 / voxel_size[0], b, len(g1))
+    return out[..., :-1], out[..., -1].sum(dim=1)
+
+
+class VFNet(nn.Module):
+    """Surround fusion: fuse back-projected voxel features and re-project
+    them into each camera's frustum (depth), or collapse them to a BEV
+    feature (pose)."""
+
+    def __init__(self, feat_in_dim: int, feat_out_dim: int,
+                 model: str = "depth", *,
+                 voxel_str_p=(-50.0, -50.0, -15.0),
+                 voxel_unit_size=(1.0, 1.0, 1.5), voxel_size=(100, 100, 20),
+                 voxel_pre_dim=(64,), proj_d_bins: int = 50,
+                 proj_d_str: float = 2.0, proj_d_end: float = 50.0,
+                 num_cams: int = 6, fusion_level: int = 2,
+                 height: int = 384, width: int = 640):
+        super().__init__()
+        self.voxel_str_p = tuple(voxel_str_p)
+        self.voxel_unit_size = tuple(voxel_unit_size)
+        self.voxel_size = tuple(voxel_size)
+        self.proj_d_bins = proj_d_bins
+        self.proj_d_str, self.proj_d_end = proj_d_str, proj_d_end
+        self.num_cams = num_cams
+        self.img_h = height // (2 ** (fusion_level + 1))
+        self.img_w = width // (2 ** (fusion_level + 1))
+        vz, vy, vx = self.vol_dims
+        if model == "depth":
+            cin = feat_in_dim + 1    # + rel depth
+            self.n_pre = len(voxel_pre_dim)
+            for j, ch in enumerate(voxel_pre_dim):
+                self.add_module(f"conv_non_overlap_{j}",
+                                PointwiseBlock(cin, ch))
+                self.add_module(f"conv_overlap_{j}",
+                                PointwiseBlock(2 * cin if j == 0 else cin, ch))
+                cin = ch
+            self.reduce_dim_0 = ConvBlock(proj_d_bins * voxel_pre_dim[-1],
+                                          256, 3, stride=1)
+            self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=1)
+        else:
+            self.reduce_dim_0 = BEVFold(256, feat_in_dim, vz, vy, vx, stride=2)
+            self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=2)
+
+    @property
+    def vol_dims(self) -> Tuple[int, int, int]:
+        """(z, y, x) counts."""
+        vx, vy, vz = self.voxel_size
+        return vz, vy, vx
+
+    def fuse_depth(self, feat: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        """Overlap-aware fusion of the camera-group sums feat [b, 2, n, C]:
+        voxels seen by exactly one camera go through one MLP (on the total),
+        voxels seen by exactly two through another (on the two group sums
+        concatenated). Returns [b, n, voxel_pre_dim[-1]]."""
+        non_overlap = (count == 1).to(feat.dtype)[..., None]
+        overlap = (count == 2).to(feat.dtype)[..., None]
+        feat1, feat2 = feat[:, 0], feat[:, 1]
+        x_no = (feat1 + feat2) * non_overlap
+        x_o = torch.cat([feat1, feat2], dim=-1)
+        for j in range(self.n_pre):
+            x_no = getattr(self, f"conv_non_overlap_{j}")(x_no)
+            x_o = getattr(self, f"conv_overlap_{j}")(x_o)
+        return x_no * non_overlap + x_o * overlap
+
+    def frustum_coords(self, inv_k: torch.Tensor,
+                       extrinsics: torch.Tensor) -> torch.Tensor:
+        """Every camera's frustum points (pixel-major, depth bins fastest) in
+        the volume's NDC: [b, cams*h*w*d, 3] (x, y, z) in [-1, 1] inside."""
+        b = inv_k.shape[0]
+        dev = inv_k.device
+        bins = linspace_f32(self.proj_d_str, self.proj_d_end, self.proj_d_bins)
+        world = frustum_world_points(inv_k.float(), extrinsics.float(),
+                                     self.img_h, self.img_w,
+                                     bins.to(dev))     # [b, cams, d, P, 3]
+        str_p = torch.tensor(self.voxel_str_p, dtype=torch.float32)
+        end_p = str_p + torch.tensor(self.voxel_unit_size,
+                                     dtype=torch.float32) * (
+            torch.tensor(self.voxel_size, dtype=torch.float32) - 1.0)
+        ndc = ((world - str_p.to(dev)) / (end_p - str_p).to(dev)) * 2.0 - 1.0
+        # pixel-major points: the sample comes out as [b, cams, h, w, d*C]
+        return ndc.transpose(-3, -2).reshape(b, -1, 3).contiguous()
+
+    def project_voxel_into_image(self, voxel_feat: torch.Tensor,
+                                 inv_k: torch.Tensor, extrinsics: torch.Tensor,
+                                 plain: bool = False) -> torch.Tensor:
+        """Voxel volume [b, n, C] -> per-camera frustum features (kernel K3)
+        -> reduced 2-D feature, packed NCHW [b*cams, feat_out_dim, h, w].
+        ``plain`` runs the kernel's plain version on any device."""
+        b, c = voxel_feat.shape[0], voxel_feat.shape[-1]
+        vz, vy, vx = self.vol_dims
+        vol = voxel_feat.reshape(b, vy, vx, vz, c).contiguous()
+        sample = sample3d_trilinear_plain if plain else sample3d_trilinear
+        sampled = sample(vol, self.frustum_coords(inv_k, extrinsics))
+        feat2d = sampled.reshape(b * self.num_cams, self.img_h, self.img_w,
+                                 self.proj_d_bins * c)
+        return self.reduce_dim_1(self.reduce_dim_0(feat2d.permute(0, 3, 1, 2)))
+
+    def pose_voxel_to_bev(self, feat: torch.Tensor, count: torch.Tensor,
+                          frame_groups: int = 1) -> torch.Tensor:
+        """Camera-group sums [b, 2, n, C] -> visibility-weighted camera mean
+        -> BEVFold -> [G*b, feat_out_dim, hy, hx] (NCHW, group-major)."""
+        voxel_feat = (feat[:, 0] + feat[:, 1]) / (count[..., None] + 1e-7)
+        return self.reduce_dim_1(
+            self.reduce_dim_0(voxel_feat, groups=frame_groups))

@@ -15,6 +15,10 @@ from vfdepth_tpu_torch.training.model import VFDepthModel
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "vfdepth_tpu_torch"
+# the training slice's modules, named so a lost module fails loudly
+TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
+                    "losses.composite", "ops.warp", "ops.ties",
+                    "training.step")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|vfdepth_tpu)\b",
                        re.M)
 
@@ -33,14 +37,19 @@ def test_port_imports_without_jax():
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'vfdepth_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import vfdepth_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "print('imported', len(sys.modules))\n")
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print('imported', ' '.join(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert "imported" in res.stdout
+    imported = set(res.stdout.split())
+    for name in TRAINING_MODULES:
+        assert f"vfdepth_tpu_torch.{name}" in imported, name
 
 
 def test_no_jax_imports_in_sources():
@@ -99,7 +108,9 @@ def test_kernel_build_needs_nvcc_and_keys_by_source(tmp_path, monkeypatch):
     name changes with its source, so an edited kernel is never stale."""
     from vfdepth_tpu_torch.ops import _build
 
-    assert _build.kernel_names() == ["backproject_sample", "sample3d"]
+    assert _build.kernel_names() == [
+        "backproject_sample", "backproject_sample_bwd", "sample3d",
+        "sample3d_bwd", "warp_image_mask"]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     src = csrc / "k.cu"

@@ -16,6 +16,14 @@ held here against the JAX functions the CUDA kernels replace:
 * K3 (trilinear frustum sampler) against ``grid_sample_3d_packed(..., "f32",
   "yxz")`` in interpret mode: identical f32 arithmetic up to summation
   order, 1e-5.
+* K2 (K1's backward, through the ``BackprojectGroupedRaw`` Function)
+  against ``jax.vjp`` of the grouped raw Pallas sampler in interpret mode,
+  whose backward kernel rounds the cotangent to bf16 and emits bf16: 3e-2 of
+  the largest entry, as the forward; and against torch autograd of the
+  port's own plain K1: the same f32 products summed in another order, 1e-5.
+* K4 (K3's backward, through ``Sample3dTrilinear``) against ``jax.vjp`` of
+  ``grid_sample_3d_packed(..., "f32", "yxz")`` (interpret mode, f32
+  updates): 1e-5 of the largest entry.
 
 tests/test_torch_kernels_cuda.py holds each CUDA kernel against its plain
 version on the card.
@@ -35,8 +43,13 @@ from vfdepth_tpu.ops.sample3d_packed import grid_sample_3d_packed
 from vfdepth_tpu_torch.models.vfnet import backproject_features_grouped
 from vfdepth_tpu_torch.ops import resize as tresize
 from vfdepth_tpu_torch.ops.backproject_sample import (
-    backproject_grouped_raw, backproject_grouped_raw_plain)
-from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
+    BackprojectGroupedRaw, backproject_grouped_raw,
+    backproject_grouped_raw_bwd, backproject_grouped_raw_bwd_plain,
+    backproject_grouped_raw_plain)
+from vfdepth_tpu_torch.ops.sample3d import (Sample3dTrilinear,
+                                            sample3d_trilinear,
+                                            sample3d_trilinear_bwd,
+                                            sample3d_trilinear_bwd_plain,
                                             sample3d_trilinear_plain)
 
 jax.config.update("jax_platforms", "cpu")
@@ -191,3 +204,87 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         sample3d_trilinear(vol.to("meta"), torch.zeros(1, 5, 3, device="meta"))
 
+
+
+def _backproject_grad(feats, mask, cam3, g, b, gs, rel_scale):
+    """dfeats through the port's Function (plain versions on the CPU)."""
+    f = torch.from_numpy(feats).requires_grad_()
+    out, _ = BackprojectGroupedRaw.apply(f, torch.from_numpy(mask),
+                                         torch.from_numpy(cam3), rel_scale,
+                                         b, gs)
+    (out * torch.from_numpy(g)).sum().backward()
+    return f.grad.numpy()
+
+
+@pytest.mark.parametrize("b,gs", [(1, 3), (2, 2)])
+def test_backproject_backward_matches_pallas_interpret(b, gs):
+    rel_scale = 1.0 / 24.0
+    feats, mask, cam3 = _raw_inputs(10 + gs, b=b, gs=gs, n=1200)
+    n, c = cam3.shape[1], feats.shape[-1]
+    g = np.random.RandomState(gs).randn(b, 2, n, c + 2).astype(np.float32)
+    g[..., -1] = 0.0                 # the valid column has no cotangent in JAX
+    _, vjp = jax.vjp(lambda f: sample_backproject_grouped_raw_pallas(
+        f, jnp.asarray(mask[..., None]), jnp.asarray(cam3), rel_scale, b, gs),
+        jnp.asarray(feats))
+    (want,) = vjp((jnp.asarray(g[..., :-1]), jnp.zeros((b, 2, n))))
+    want = np.asarray(want, np.float32)
+    got = _backproject_grad(feats, mask, cam3, g, b, gs, rel_scale)
+    assert np.isfinite(got).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=3e-2 * np.abs(want).max())
+
+
+def test_backproject_backward_matches_autograd_of_plain_forward():
+    b, gs, rel_scale = 1, 3, 0.5
+    feats, mask, cam3 = _raw_inputs(12, b=b, gs=gs, n=900)
+    g = np.random.RandomState(1).randn(b, 2, 900, feats.shape[-1] + 2)
+    g = g.astype(np.float32)
+    f = torch.from_numpy(feats).requires_grad_()
+    out, _ = backproject_grouped_raw_plain(f, torch.from_numpy(mask),
+                                           torch.from_numpy(cam3), rel_scale,
+                                           b, gs)
+    (want,) = torch.autograd.grad(out, f, torch.from_numpy(g))
+    got = _backproject_grad(feats, mask, cam3, g, b, gs, rel_scale)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_sample3d_backward_matches_packed_interpret():
+    vol, coords = _sample3d_inputs(8)
+    g = np.random.RandomState(9).randn(*coords.shape[:2], vol.shape[-1])
+    g = g.astype(np.float32)
+    _, vjp = jax.vjp(lambda v: grid_sample_3d_packed(
+        v, jnp.asarray(coords), "f32", "yxz"), jnp.asarray(vol))
+    (want,) = vjp(jnp.asarray(g))
+    want = np.asarray(want)
+    v = torch.from_numpy(vol).requires_grad_()
+    (Sample3dTrilinear.apply(v, torch.from_numpy(coords))
+     * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(v.grad.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_backward_wrappers_take_plain_version_on_cpu_and_check_inputs():
+    feats, mask, cam3 = (torch.from_numpy(a) for a in _raw_inputs(13, n=300))
+    _, valid = backproject_grouped_raw(feats, mask, cam3, 0.5, 1, 3)
+    g = torch.randn(1, 2, 300, feats.shape[-1] + 2)
+    h, w, c = feats.shape[1:]
+    torch.testing.assert_close(
+        backproject_grouped_raw_bwd(g, cam3, valid, h, w, c, 3),
+        backproject_grouped_raw_bwd_plain(g, cam3, valid, h, w, c, 3),
+        rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        backproject_grouped_raw_bwd(g[:, :, :10], cam3, valid, h, w, c, 3)
+    with pytest.raises(TypeError):
+        backproject_grouped_raw_bwd(g.double(), cam3, valid, h, w, c, 3)
+    vol, coords = (torch.from_numpy(a) for a in _sample3d_inputs(14))
+    g3 = torch.randn(*coords.shape[:2], vol.shape[-1])
+    torch.testing.assert_close(
+        sample3d_trilinear_bwd(g3, coords, vol.shape),
+        sample3d_trilinear_bwd_plain(g3, coords, vol.shape), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        sample3d_trilinear_bwd(g3[..., :2], coords, vol.shape)
+    with pytest.raises(ValueError):
+        sample3d_trilinear_bwd(g3.to("meta"), coords.to("meta"), vol.shape)
+    assert backproject_grouped_raw_bwd.launches == 0
+    assert sample3d_trilinear_bwd.launches == 0

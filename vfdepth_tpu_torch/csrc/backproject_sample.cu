@@ -34,9 +34,12 @@
 // (tap bookkeeping per element), so for C % 4 == 0 (C = 768 in production)
 // a thread makes 4 channels of one point from float4 tap reads. Points no
 // camera sees cost only shared-memory reads. All offsets into the tensors
-// are 64-bit: at b=4 the output alone passes 2^31 elements.
+// are 64-bit: at b=4 the output alone passes 2^31 elements. The tap rule
+// lives in backproject_taps.cuh, shared with the backward (K2).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "backproject_taps.cuh"
 
 namespace {
 
@@ -73,43 +76,22 @@ backproject_grouped_raw_kernel(const float* __restrict__ feats,
     const int64_t pt = n0 + p;
     if (k < gs && pt < n) {
       const int64_t cam = cam0 + k;
-      const float* q = cam3 + (cam * n + pt) * 3;
-      const float u = q[0], v = q[1], z = q[2];
-      const float zp = z + 1e-8f;
-      const float big = 2.0f * (float)w;
-      float x = u / zp;
-      float y = v / zp;
-      if (isnan(x)) x = big;
-      if (isnan(y)) y = big;
-      x = fminf(fmaxf(x, -big), big);
-      y = fminf(fmaxf(y, -big), big);
-      const bool live = (z > 0.0f) && (x >= 0.0f) && (x <= (float)(w - 1)) &&
-                        (y >= 0.0f) && (y <= (float)(h - 1));
+      const RawPoint q = raw_point(cam3 + (cam * n + pt) * 3, h, w);
       Taps t;
       float valid = 0.0f;
       for (int j = 0; j < 4; ++j) { t.off[j] = -1; t.w[j] = 0.0f; }
-      if (live) {
-        const float x0 = floorf(x), y0 = floorf(y);
-        const float fx = x - x0, fy = y - y0;
-        const int ix = (int)x0, iy = (int)y0;
-        const int xn = ix + (fx > 0.5f ? 1 : 0);
-        const int yn = iy + (fy > 0.5f ? 1 : 0);
+      if (q.live) {
+        const int xn = q.ix + (q.fx > 0.5f ? 1 : 0);
+        const int yn = q.iy + (q.fy > 0.5f ? 1 : 0);
         const float m = (xn < w && yn < h)
                             ? mask[(cam * h + yn) * (int64_t)w + xn] : 0.0f;
         if (m > 0.5f) {
           valid = 1.0f;
-          const int64_t row0 = (cam * h + iy) * (int64_t)w + ix;
-          const bool xin = ix + 1 < w, yin = iy + 1 < h;
-          // tap order (x0,y0), (x0+1,y0), (x0,y0+1), (x0+1,y0+1)
-          t.off[0] = row0 * c;
-          t.w[0] = (1.0f - fx) * (1.0f - fy);
-          if (xin) { t.off[1] = (row0 + 1) * c; t.w[1] = fx * (1.0f - fy); }
-          if (yin) { t.off[2] = (row0 + w) * c; t.w[2] = (1.0f - fx) * fy; }
-          if (xin && yin) { t.off[3] = (row0 + w + 1) * c; t.w[3] = fx * fy; }
+          bilinear_taps(q, cam, h, w, c, t.off, t.w);
         }
       }
       t.valid = valid;
-      t.rel = valid != 0.0f ? z * rel_scale : 0.0f;  // select: no NaN * 0
+      t.rel = valid != 0.0f ? q.z * rel_scale : 0.0f;  // select: no NaN * 0
       taps[k][p] = t;
       valid_out[cam * n + pt] = valid;
     }

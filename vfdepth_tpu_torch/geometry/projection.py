@@ -1,4 +1,5 @@
-"""Pixel / voxel / frustum grids (port of ``vfdepth_tpu/geometry/projection.py``).
+"""Pixel / voxel / frustum grids and the pinhole warp coordinates (port of
+``vfdepth_tpu/geometry/projection.py``).
 
 Grids are built in float32 on the CPU and moved to the caller's device, so
 a CPU run and a CUDA run see bit-identical voxel centres and depth bins (a
@@ -37,6 +38,39 @@ def pixel_grid_homo(height: int, width: int) -> torch.Tensor:
                             indexing="ij")
     return torch.stack([gx.reshape(-1), gy.reshape(-1),
                         torch.ones(height * width)], dim=0)
+
+
+def backproject(inv_k: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Depth [..., H, W, 1] -> homogeneous camera points [..., 4, H*W]
+    (rays inv_K[:3, :3] @ (x, y, 1) scaled by depth)."""
+    h, w = depth.shape[-3], depth.shape[-2]
+    grid = pixel_grid_homo(h, w).to(depth.device, depth.dtype)
+    rays = torch.einsum("...ij,jn->...in", inv_k[..., :3, :3], grid)
+    pts = rays * depth.reshape(depth.shape[:-3] + (1, h * w))
+    return torch.cat([pts, torch.ones_like(pts[..., :1, :])], dim=-2)
+
+
+def reproject(k: torch.Tensor, points3d: torch.Tensor,
+              transform: torch.Tensor, height: int,
+              width: int) -> torch.Tensor:
+    """Transform + project homogeneous points [..., 4, H*W] to normalised
+    sample coordinates [..., H, W, 2]: (K @ T)[:3] @ P, divide by z + 1e-7,
+    then x * 2/(W-1) - 1 and y * 2/(H-1) - 1 (align_corners)."""
+    proj = torch.einsum("...ij,...jk->...ik", k, transform)[..., :3, :]
+    pts2d = torch.einsum("...ij,...jn->...in", proj, points3d)
+    xy = pts2d[..., :2, :] / (pts2d[..., 2:3, :] + 1e-7)
+    scale = torch.tensor([2.0 / (width - 1), 2.0 / (height - 1)],
+                         dtype=xy.dtype, device=xy.device)
+    xy = (xy * scale[:, None] - 1.0).transpose(-1, -2)
+    return xy.reshape(xy.shape[:-2] + (height, width, 2))
+
+
+def project_coords(depth: torch.Tensor, transform: torch.Tensor,
+                   inv_k: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Warp coordinates of every target pixel: back-project with the
+    target's depth and inv_K, transform, project with the source's K."""
+    h, w = depth.shape[-3], depth.shape[-2]
+    return reproject(k, backproject(inv_k, depth), transform, h, w)
 
 
 def voxel_points_homo(voxel_str_p: Sequence[float],

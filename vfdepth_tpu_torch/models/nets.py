@@ -15,6 +15,7 @@ from .blocks import ConvBlock, pack_cam_feat, unpack_cam_feat
 from .decoders import FusionDepthDecoder, PoseDecoder
 from .resnet import ResnetEncoder, num_ch_enc
 from .vfnet import VFNet
+from ..ops import ties
 from ..ops.resize import resize_bilinear
 
 
@@ -124,4 +125,4 @@ class FusedPoseNet(nn.Module):
         bev = self.fusion_net.pose_voxel_to_bev(feat, count,
                                                 frame_groups=n_ctx)
         axisangle, translation = self.pose_decoder(bev)
-        return axisangle, torch.clamp(translation, -4.0, 4.0)
+        return axisangle, ties.clip(translation, -4.0, 4.0)

@@ -6,10 +6,11 @@ frustum sampler's yxz volume and the pose path's z-into-channels fold are
 plain reshapes), and the frustum sample is ``[b, cams, h, w, d*C]`` with
 channel index ``d*C + c`` (``reduce_dim_0``'s weights transfer unpermuted).
 
-Ported: ``_project_cam_points``, the grouped back-projection (kernel K1),
-``fuse_depth`` (grouped form), ``project_voxel_into_image`` (kernel K3),
-``pose_voxel_to_bev`` and ``BEVFold``. The ungrouped back-projection (K1b:
-3-camera rigs, ``merge_backprojection: false``) is not ported yet.
+Ported: ``_project_cam_points``, the grouped back-projection (kernel K1,
+backward K2), ``fuse_depth`` (grouped form), ``project_voxel_into_image``
+(kernel K3, backward K4), ``pose_voxel_to_bev`` and ``BEVFold``. The
+ungrouped back-projection (K1b: 3-camera rigs, ``merge_backprojection:
+false``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,10 +23,10 @@ from torch import nn
 from .blocks import ConvBlock, PointwiseBlock
 from ..geometry.projection import (frustum_world_points, linspace_f32,
                                    voxel_points_homo)
-from ..ops.backproject_sample import (backproject_grouped_raw,
-                                      backproject_grouped_raw_plain)
+from ..ops.backproject_sample import BackprojectGroupedRaw
+from ..ops import ties
 from ..ops.resize import resize_bilinear
-from ..ops.sample3d import sample3d_trilinear, sample3d_trilinear_plain
+from ..ops.sample3d import Sample3dTrilinear
 
 
 def _reflect_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -65,7 +66,7 @@ class BEVFold(nn.Module):
             + self.bias[:, None, None]
         y = (y.reshape((g, b) + y.shape[1:]) + yr[None]).reshape(
             (g * b,) + y.shape[1:])
-        return F.leaky_relu(y, negative_slope=0.1)
+        return ties.leaky_relu(y, 0.1)
 
 
 def _project_cam_points(mask: torch.Tensor, intrinsics: torch.Tensor,
@@ -107,11 +108,12 @@ def backproject_features_grouped(feats_agg: torch.Tensor, mask: torch.Tensor,
                                  plain: bool = False
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Image features [b, cams, h, w, C] -> camera-group sums of the masked
-    voxel features (kernel K1).
+    voxel features (kernel K1; its backward, K2, gives ``feats_agg`` its
+    gradient).
 
     Returns (feat_g [b, 2, n, C+1] incl. the rel-depth channel, count
-    [b, n] = cameras that see each voxel). ``plain`` runs the kernel's plain
-    PyTorch version on any device (a reference run on the card).
+    [b, n] = cameras that see each voxel). ``plain`` runs the kernels' plain
+    PyTorch versions on any device (a reference run on the card).
     """
     h_dim, w_dim = feats_agg.shape[-3], feats_agg.shape[-2]
     g1 = [c for c in groups[0] if c < feats_agg.shape[1]]
@@ -127,12 +129,11 @@ def backproject_features_grouped(feats_agg: torch.Tensor, mask: torch.Tensor,
         voxel_str_p=voxel_str_p, voxel_unit_size=voxel_unit_size,
         voxel_size=voxel_size)
     b, cams = feats_agg.shape[:2]
-    sample = backproject_grouped_raw_plain if plain else backproject_grouped_raw
-    out, _ = sample(
+    out, _ = BackprojectGroupedRaw.apply(
         feats_agg.reshape((b * cams,) + feats_agg.shape[2:]).contiguous(),
         mask_lowres.reshape(b * cams, h_dim, w_dim).contiguous(),
         cam3.reshape(b * cams, -1, 3).contiguous(),
-        1.0 / voxel_size[0], b, len(g1))
+        1.0 / voxel_size[0], b, len(g1), plain)
     return out[..., :-1], out[..., -1].sum(dim=1)
 
 
@@ -217,14 +218,15 @@ class VFNet(nn.Module):
     def project_voxel_into_image(self, voxel_feat: torch.Tensor,
                                  inv_k: torch.Tensor, extrinsics: torch.Tensor,
                                  plain: bool = False) -> torch.Tensor:
-        """Voxel volume [b, n, C] -> per-camera frustum features (kernel K3)
-        -> reduced 2-D feature, packed NCHW [b*cams, feat_out_dim, h, w].
-        ``plain`` runs the kernel's plain version on any device."""
+        """Voxel volume [b, n, C] -> per-camera frustum features (kernel K3,
+        backward K4) -> reduced 2-D feature, packed NCHW [b*cams,
+        feat_out_dim, h, w]. ``plain`` runs the kernels' plain versions on
+        any device."""
         b, c = voxel_feat.shape[0], voxel_feat.shape[-1]
         vz, vy, vx = self.vol_dims
         vol = voxel_feat.reshape(b, vy, vx, vz, c).contiguous()
-        sample = sample3d_trilinear_plain if plain else sample3d_trilinear
-        sampled = sample(vol, self.frustum_coords(inv_k, extrinsics))
+        sampled = Sample3dTrilinear.apply(
+            vol, self.frustum_coords(inv_k, extrinsics), plain)
         feat2d = sampled.reshape(b * self.num_cams, self.img_h, self.img_w,
                                  self.proj_d_bins * c)
         return self.reduce_dim_1(self.reduce_dim_0(feat2d.permute(0, 3, 1, 2)))

@@ -1,33 +1,46 @@
-"""The serving path of the surround-fusion model (port of
-``vfdepth_tpu/training/model.py``).
+"""The surround-fusion model (port of ``vfdepth_tpu/training/model.py``).
 
-``VFDepthModel.predict(batch)`` returns the prediction part of the JAX
-``VFDepthModel.forward`` outputs — ``cam_T_cam`` and ``disp/{s}``,
-``depth/{s}`` per scale — computed as ``predict_pose_depth`` does: both
-nets' aggregated feature maps go through ONE merged, group-reduced
-back-projection (kernel K1), the pose branch takes its channels plus the
-shared rel-depth channel, the depth branch the rest, then the frustum
-sample (kernel K3), the decoder and ``to_depth``'s fx/300 metric scale. No
-loss and no view rendering: those belong to the training slice. BatchNorm
-runs in eval mode.
+Both entry points compute the prediction as the JAX ``predict_pose_depth``
+does: both nets' aggregated feature maps go through ONE merged,
+group-reduced back-projection (kernel K1), the pose branch takes its
+channels plus the shared rel-depth channel, the depth branch the rest, then
+the frustum sample (kernel K3), the decoder and ``to_depth``'s fx/300
+metric scale.
+
+* ``predict(batch)`` serves: BatchNorm in eval mode, under
+  ``torch.inference_mode``; returns ``cam_T_cam`` and ``disp/{s}``,
+  ``depth/{s}`` per scale.
+* ``forward(batch, step, noise)`` trains, the counterpart of JAX
+  ``forward(train=True)``: BatchNorm in train mode (flax's running
+  statistics), then ``relative_cam_poses``, ``render_views`` (kernel K5)
+  and ``total_loss``; returns (outputs, loss, logs). Its backward runs the
+  kernels K2 (of K1), K4 (of K3) and K5's coordinate gradient.
 
 Not ported yet (raise ``NotImplementedError``): the 'fsm' nets, rigs whose
 overlap groups are unequal (the ungrouped sampler, K1b),
-``merge_backprojection: false``, unbatched pose frames, mixed precision.
-The ``tpu.sampler_2d`` / ``tpu.sampler_3d`` keys name TPU alternates of one
-function: every value maps onto the port's one implementation (the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors).
+``merge_backprojection: false``, unbatched pose frames, mixed precision,
+the depth-synthesis branch (``predict`` skips it, ``forward`` raises).
+Config keys that name TPU alternates of one
+function map onto the port's one implementation (the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors): ``tpu.sampler_2d``,
+``tpu.sampler_3d`` (every value, ``packed_f32grad`` included: the port
+accumulates in f32), ``tpu.warp_op`` and ``tpu.warp_window`` (the port's
+warps are dense; the JAX windows give the same loss by construction).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+import contextlib
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..config import Config
 from ..device import resolve_device
-from ..geometry import distribute_pose, invert_pose, vec_to_matrix
+from ..geometry import (distribute_pose, invert_pose, relative_cam_poses,
+                        vec_to_matrix)
+from ..geometry.view_rendering import render_views
+from ..losses import LossConfig, total_loss
 from ..models import (FusedDepthNet, FusedPoseNet, backproject_features_grouped,
                       grouped_backprojection_ok)
 from ..ops.resize import resize_bilinear
@@ -35,6 +48,31 @@ from ..weights import init_random
 
 _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
 _SAMPLERS_3D = (None, "packed", "packed_f32grad", "gather")
+_WARP_OPS = (None, "auto", "mxu", "quad")
+
+
+def loss_config_from(cfg: Config) -> LossConfig:
+    return LossConfig(
+        frame_ids=tuple(cfg.frame_ids),
+        scales=tuple(cfg.scales),
+        disparity_smoothness=cfg.disparity_smoothness,
+        spatio_coeff=cfg.spatio_coeff,
+        spatio_tempo_coeff=cfg.spatio_tempo_coeff,
+        pose_loss_coeff=cfg.pose_loss_coeff,
+        depth_con_coeff=cfg.get("depth_con_coeff", 0.03),
+        depth_sm_coeff=cfg.get("depth_sm_coeff", 0.05),
+        spatio=cfg.spatio,
+        spatio_temporal=cfg.spatio_temporal,
+        aug_depth=cfg.aug_depth,
+        pose_model=cfg.pose_model,
+        warmup_steps=int(cfg.get("cold_start_warmup_steps", 0)),
+        ramp_steps=int(cfg.get("cold_start_ramp_steps", 0)),
+        stagger_ramps=bool(cfg.get("cold_start_stagger_ramps", False)),
+        pose_prior_coeff=float(cfg.get("cold_start_pose_coeff", 1.0)),
+        pose_prior_floor=float(cfg.get("cold_start_pose_floor", 0.1)),
+        pose_prior_ceil=float(cfg.get("cold_start_pose_ceil", 1.0)),
+        disp_anchor_coeff=float(cfg.get("cold_start_disp_coeff", 0.1)),
+    )
 
 
 class VFDepthModel(nn.Module):
@@ -53,6 +91,7 @@ class VFDepthModel(nn.Module):
                  seed: int = 0):
         super().__init__()
         self.device = resolve_device(device)
+        self.cfg = cfg
         if cfg.depth_model != "fusion" or cfg.pose_model != "fusion":
             raise NotImplementedError("only the fusion nets are ported")
         if cfg.get("mixed_precision", False):
@@ -67,6 +106,8 @@ class VFDepthModel(nn.Module):
             raise ValueError(f"unknown sampler_2d {cfg.get('sampler_2d')!r}")
         if cfg.get("sampler_3d") not in _SAMPLERS_3D:
             raise ValueError(f"unknown sampler_3d {cfg.get('sampler_3d')!r}")
+        if cfg.get("warp_op") not in _WARP_OPS:
+            raise ValueError(f"unknown warp_op {cfg.get('warp_op')!r}")
         self.groups = tuple(map(tuple, cfg.overlap_groups))
         if not grouped_backprojection_ok(self.groups, cfg.num_cams):
             raise NotImplementedError(
@@ -78,6 +119,8 @@ class VFDepthModel(nn.Module):
         self.fusion_level = cfg.fusion_level
         self.min_depth, self.max_depth = cfg.min_depth, cfg.max_depth
         self.focal_length_scale = cfg.focal_length_scale
+        self.loss_cfg = loss_config_from(cfg)
+        self.intensity_align = bool(cfg.intensity_align)
         self.plain_samplers = False
         self.voxel = dict(voxel_str_p=tuple(cfg.voxel_str_p),
                           voxel_unit_size=tuple(cfg.voxel_unit_size),
@@ -96,7 +139,21 @@ class VFDepthModel(nn.Module):
         # does not hold; the JAX package skips it in that case too
         init_random(self, torch.Generator().manual_seed(seed))
         self.to(self.device)
+        # [cams, 2] neighbour indices, -1 = none (not a buffer: no state)
+        self.rel_cam = torch.as_tensor(cfg.rel_cam_array,
+                                       device=self.device).long()
         self.eval()
+
+    @contextlib.contextmanager
+    def _bn_mode(self, train: bool):
+        """BatchNorm (the only mode-dependent layer) in train or eval mode
+        for the block, restored after it."""
+        was = self.training
+        self.train(train)
+        try:
+            yield
+        finally:
+            self.train(was)
 
     def to_depth(self, disp: torch.Tensor, k0: torch.Tensor) -> torch.Tensor:
         """Disparity [b, cams, h, w, 1] -> metric depth at full resolution:
@@ -110,26 +167,28 @@ class VFDepthModel(nn.Module):
         fx = k0[..., 0:1, 0:1]                 # [b, cams, 1, 1]
         return depth * fx[..., None] / self.focal_length_scale
 
-    @torch.inference_mode()
-    def predict(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """Batch dict (NHWC numpy arrays or tensors, the JAX package's
-        contract) -> {'cam_T_cam' [b, cams, n_ctx, 4, 4], 'disp/{s}',
-        'depth/{s}' [b, cams, H, W, 1]} on this model's device."""
-        fk = f"K/{self.fusion_level + 1}"
-        fik = f"inv_K/{self.fusion_level + 1}"
-        ctx = self.frame_ids[1:]
-        keys = {fk, fik, "K/0", "mask", "extrinsics", "color_aug/0/0",
-                *(f"color_aug/{f}/0" for f in ctx)}
-        if "extrinsics_inv" in batch:
-            keys.add("extrinsics_inv")
+    def _to_device(self, batch: Mapping, keys=None) -> Dict[str, torch.Tensor]:
+        """The batch's arrays (those named by ``keys``, else all) as f32
+        tensors on this model's device."""
+        keys = batch.keys() if keys is None else keys & batch.keys()
         x = {k: torch.as_tensor(batch[k]).to(self.device, torch.float32)
              for k in keys}
         if "extrinsics_inv" not in x:
             x["extrinsics_inv"] = invert_pose(x["extrinsics"])
+        return x
+
+    def _predict_pose_depth(self, x: Mapping[str, torch.Tensor]
+                            ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+        """(cam_T_cam [b, cams, n_ctx, 4, 4], {scale: disp [b, cams, h, w,
+        1]}) from a batch already on the device."""
+        fk = f"K/{self.fusion_level + 1}"
+        fik = f"inv_K/{self.fusion_level + 1}"
+        ctx = self.frame_ids[1:]
         n_ctx = len(ctx)
         bsz = x["color_aug/0/0"].shape[0]
 
-        # time-ordered context pairs, group-major along batch
+        # time-ordered context pairs, group-major along batch (one BatchNorm
+        # batch for all pairs, as in the JAX package)
         curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"] for f in ctx])
         nxts = torch.cat([x[f"color_aug/{0 if f < 0 else f}/0"] for f in ctx])
         pose_feats = self.pose_net.encode_aggregate(curs, nxts, n_ctx=n_ctx)
@@ -143,7 +202,10 @@ class VFDepthModel(nn.Module):
             torch.cat([pose_feats, depth_feats], dim=-1), x["mask"], x[fk],
             x["extrinsics_inv"], groups=self.groups, plain=self.plain_samplers,
             **self.voxel)
-        # the trailing rel-depth channel is shared by both branches
+        # the trailing rel-depth channel is shared by both branches. Autograd
+        # of these slices and this cat already gives the merged cotangent as
+        # the JAX package's custom VJP writes it (_split_merged_channels: one
+        # concat plus the rel-column add), so no Function is needed here.
         feat_pose = torch.cat([feat[..., :cp], feat[..., -1:]], dim=-1)
         feat_depth = feat[..., cp:]
 
@@ -154,14 +216,75 @@ class VFDepthModel(nn.Module):
         mats = [distribute_pose(vec_to_matrix(aa[i], tr[i], invert=(f < 0)),
                                 x["extrinsics"], x["extrinsics_inv"])
                 for i, f in enumerate(ctx)]
-        outputs = {"cam_T_cam": torch.stack(mats, dim=2)}
 
         skips = [dfeats[i] for i in range(self.fusion_level)]
         disps = self.depth_net.decode_from_backprojection(
             feat_depth, count, skips, x[fik], x["extrinsics"],
             plain=self.plain_samplers)
+        return (torch.stack(mats, dim=2),
+                {s: disps[f"disp/{s}"] for s in self.scales})
+
+    @torch.inference_mode()
+    def predict(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """Batch dict (NHWC numpy arrays or tensors, the JAX package's
+        contract) -> {'cam_T_cam' [b, cams, n_ctx, 4, 4], 'disp/{s}',
+        'depth/{s}' [b, cams, H, W, 1]} on this model's device. BatchNorm
+        runs in eval mode."""
+        lev = self.fusion_level + 1
+        keys = {f"K/{lev}", f"inv_K/{lev}", "K/0", "mask", "extrinsics",
+                "extrinsics_inv",
+                *(f"color_aug/{f}/0" for f in self.frame_ids)}
+        x = self._to_device(batch, keys)
+        with self._bn_mode(False):
+            cam_t_cam, disps = self._predict_pose_depth(x)
+        outputs = {"cam_T_cam": cam_t_cam}
         for s in self.scales:
-            outputs[f"disp/{s}"] = disps[f"disp/{s}"]
-            outputs[f"depth/{s}"] = self.to_depth(disps[f"disp/{s}"],
-                                                  x["K/0"])
+            outputs[f"disp/{s}"] = disps[s]
+            outputs[f"depth/{s}"] = self.to_depth(disps[s], x["K/0"])
         return outputs
+
+    def noise_shape(self, batch: Mapping) -> Tuple[int, ...]:
+        """Shape of ``forward``'s tie-break noise: [n_scales, b, cams,
+        n_ctx, H, W, 1]."""
+        b, cams, h, w = batch["color/0/0"].shape[:4]
+        return (len(self.scales), b, cams, len(self.frame_ids) - 1, h, w, 1)
+
+    def forward(self, batch: Mapping, step=None,
+                noise: Optional[torch.Tensor] = None):
+        """One training forward with the loss -> (outputs, loss, logs).
+
+        BatchNorm runs in train mode: batch statistics, running statistics
+        updated in place. ``step`` drives the cold-start schedule when the
+        config sets one. ``noise`` [n_scales, b, cams, n_ctx, H, W, 1]
+        (``noise_shape``) holds the standard normals of the identity-loss
+        tie-break (the JAX package draws them from its key; see
+        ``training/step.py train_step``).
+        """
+        if self.loss_cfg.aug_depth:
+            raise NotImplementedError("the depth-synthesis branch is not "
+                                      "ported")
+        x = self._to_device(batch)
+        if noise is None or tuple(noise.shape) != self.noise_shape(x):
+            raise ValueError(f"noise must have shape {self.noise_shape(x)}")
+        with self._bn_mode(True):
+            cam_t_cam, disps = self._predict_pose_depth(x)
+        k0 = x["K/0"]
+        depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
+        spatio_pose, st_pose = relative_cam_poses(
+            x["extrinsics"], x["extrinsics_inv"], cam_t_cam, self.rel_cam)
+        colors = {f: x[f"color/{f}/0"] for f in self.frame_ids}
+        rendered = {s: render_views(
+            colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
+            spatio_pose, st_pose, self.rel_cam, self.frame_ids,
+            do_intensity_align=self.intensity_align,
+            spatio=self.loss_cfg.spatio,
+            spatio_temporal=self.loss_cfg.spatio_temporal,
+            plain=self.plain_samplers) for s in self.scales}
+        loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
+                                disps, depths, cam_t_cam, rendered,
+                                step=step)
+        outputs = {"cam_T_cam": cam_t_cam}
+        for s in self.scales:
+            outputs[f"disp/{s}"] = disps[s]
+            outputs[f"depth/{s}"] = depths[s]
+        return outputs, loss, logs

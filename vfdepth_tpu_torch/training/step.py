@@ -1,0 +1,115 @@
+"""One training step (port of ``vfdepth_tpu/training/step.py``'s optimizer
+and ``build_train_step`` body).
+
+Optimizer parity with the JAX package (optax): one Adam over both nets
+(b1 0.9, b2 0.999, eps 1e-8, eps_root 0 -- ``torch.optim.Adam``'s update
+lr * m_hat / (sqrt(v_hat) + eps) is optax's), StepLR(``scheduler_step_size``
+epochs, gamma 0.1) as a per-step schedule that scales the rate once
+``count >= boundary`` (optax ``piecewise_constant_schedule``), and the
+cold-start pose-net LR boost as the pose net's own parameter group, fading
+linearly to exactly 1.0. ``count`` is the number of updates already made,
+as optax counts. The schedule's numbers ride in each parameter group, so
+the optimizer alone carries them.
+
+The trainer loop, checkpoints and the CLIs are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+
+from .model import VFDepthModel
+
+
+def make_lr_schedule(learning_rate: float, scheduler_step_size: int,
+                     steps_per_epoch: int, gamma: float = 0.1
+                     ) -> Callable[[int], float]:
+    """StepLR(step_size epochs, gamma) over global steps: the rate at update
+    ``count``. ``steps_per_epoch <= 0`` gives a constant rate."""
+    boundary = (scheduler_step_size * steps_per_epoch
+                if steps_per_epoch > 0 else None)
+    return lambda count: _scheduled(learning_rate, boundary, gamma, count)
+
+
+def _scheduled(lr: float, boundary: Optional[int], gamma: float,
+               count: int) -> float:
+    return lr * gamma if boundary is not None and count >= boundary else lr
+
+
+def boost_factor(count: int, pose_boost: float, fade_start: int,
+                 fade_steps: int) -> float:
+    """The pose net's LR multiplier at update ``count``: ``pose_boost``
+    until ``fade_start``, then linear to exactly 1.0 over ``fade_steps``."""
+    f = min(max((count - fade_start) / max(fade_steps, 1), 0.0), 1.0)
+    return 1.0 if f >= 1.0 else pose_boost + (1.0 - pose_boost) * f
+
+
+def lr_at(group: Mapping, count: int) -> float:
+    """The learning rate of one parameter group at update ``count``."""
+    lr = _scheduled(group["base_lr"], group["boundary"], group["gamma"], count)
+    if group["pose_boost"] > 1.0:
+        lr *= boost_factor(count, group["pose_boost"], group["fade_start"],
+                           group["fade_steps"])
+    return lr
+
+
+def make_optimizer(model: VFDepthModel, learning_rate: float,
+                   scheduler_step_size: int, steps_per_epoch: int,
+                   pose_boost: float = 1.0, boost_fade_start: int = 0,
+                   boost_fade_steps: int = 1) -> torch.optim.Adam:
+    """Adam over the depth net and the pose net (one parameter group each),
+    the StepLR schedule and, with ``pose_boost > 1``, the pose net's LR
+    boost (``boost_factor``)."""
+    boundary = (scheduler_step_size * steps_per_epoch
+                if steps_per_epoch > 0 else None)
+    sched = dict(base_lr=float(learning_rate), boundary=boundary, gamma=0.1,
+                 fade_start=int(boost_fade_start),
+                 fade_steps=int(boost_fade_steps))
+    groups = [dict(params=list(model.depth_net.parameters()),
+                   name="depth_net", pose_boost=1.0, **sched),
+              dict(params=list(model.pose_net.parameters()),
+                   name="pose_net", pose_boost=float(pose_boost), **sched)]
+    opt = torch.optim.Adam(groups, lr=float(learning_rate),
+                           betas=(0.9, 0.999), eps=1e-8)
+    for group in opt.param_groups:
+        group["lr"] = lr_at(group, 0)
+    return opt
+
+
+def create_train_state(model: VFDepthModel,
+                       steps_per_epoch: int = 0) -> torch.optim.Adam:
+    """The optimizer for ``model`` as its config sets it up: the pose boost
+    is active only under the cold-start schedule, and fades with its last
+    ramp (the joint ramp [warm, warm+ramp] by default, the staggered
+    spatio-temporal ramp [warm+ramp, warm+2*ramp] under
+    ``cold_start_stagger_ramps``). The model holds the parameters and the
+    BatchNorm statistics; the caller counts steps from 0."""
+    cfg = model.cfg
+    warm = int(cfg.get("cold_start_warmup_steps", 0))
+    ramp = int(cfg.get("cold_start_ramp_steps", 0))
+    boost = (float(cfg.get("cold_start_pose_lr_boost", 1.0))
+             if (warm or ramp) else 1.0)
+    stagger = bool(cfg.get("cold_start_stagger_ramps", False))
+    return make_optimizer(model, cfg.learning_rate, cfg.scheduler_step_size,
+                          steps_per_epoch, pose_boost=boost,
+                          boost_fade_start=(warm + ramp) if stagger else warm,
+                          boost_fade_steps=max(ramp, 1))
+
+
+def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
+               batch: Mapping, step: int,
+               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Forward, loss, backward and one Adam update at global step ``step``
+    (the number of updates made before it). The identity tie-break noise
+    is drawn from ``generator`` (on its device). Returns the scalar logs,
+    detached, on the model's device."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr_at(group, step)
+    optimizer.zero_grad(set_to_none=True)
+    noise = torch.randn(model.noise_shape(batch), generator=generator,
+                        device=generator.device)
+    _, loss, logs = model(batch, step=step, noise=noise)
+    loss.backward()
+    optimizer.step()
+    return {k: v.detach() for k, v in logs.items() if v.dim() == 0}

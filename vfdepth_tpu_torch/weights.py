@@ -13,7 +13,8 @@ leaf maps by its path with three renames (``Conv_0`` -> ``conv``,
 * ``BEVFold.kernel`` / ``kernel_rel`` -> ``weight`` / ``weight_rel``.
 
 It raises if a flax leaf finds no port tensor, or if a port parameter or
-buffer is left unset.
+buffer is left unset. ``load_optax_adam_state`` carries an optax Adam state
+over onto ``torch.optim.Adam`` by the same paths.
 """
 from __future__ import annotations
 
@@ -78,6 +79,55 @@ def load_flax_params(model: nn.Module, params: Mapping,
     if unused or unset:
         raise ValueError(f"flax leaves without a port tensor: {sorted(unused)}; "
                          f"port tensors left unset: {sorted(unset)}")
+
+
+def _find_adam_state(opt_state):
+    """optax's ``ScaleByAdamState`` (anything with ``mu``, ``nu`` and
+    ``count``) inside an optax state, which may nest it in tuples."""
+    if all(hasattr(opt_state, k) for k in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _find_adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: nn.Module,
+                          opt_state) -> None:
+    """Set ``optimizer``'s Adam state from an optax Adam state (numpy
+    leaves): ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``, ``count`` ->
+    ``step`` (the updates made so far, which bias correction counts), each
+    moment tree keyed like the flax params and carried over with the same
+    paths and layouts as ``load_flax_params``. Raises unless every
+    parameter of the optimizer gets both moments."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (mu, nu, count) found")
+    params = dict(model.named_parameters())
+    moments: dict = {}
+    for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        for path, value in _leaves(tree):
+            name = _torch_name(path)
+            if name not in params:
+                raise ValueError(f"optax leaf {'/'.join(path)} has no port "
+                                 f"parameter ({name})")
+            p = params[name]
+            value = _to_torch_layout(path[-1], value)
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{'/'.join(path)} {value.shape} does not fit "
+                                 f"{name} {tuple(p.shape)}")
+            moments.setdefault(id(p), {})[key] = torch.tensor(
+                np.ascontiguousarray(value), dtype=p.dtype, device=p.device)
+    count = float(np.asarray(adam.count))
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            m = moments.get(id(p), {})
+            if set(m) != {"exp_avg", "exp_avg_sq"}:
+                raise ValueError("the optax state leaves an optimizer "
+                                 "parameter without its moments")
+            optimizer.state[p] = {"step": torch.tensor(count), **m}
 
 
 def init_random(model: nn.Module, generator: torch.Generator) -> None:

@@ -9,37 +9,50 @@ checkout of the repository. Imports nothing of JAX or ``vfdepth_tpu``.
 
 Phases (any failure exits non-zero):
  1. device: the card's name and power limit;
- 2. build: the five CUDA kernels (one nvcc each, in parallel), with nvcc's
+ 2. build: the five CUDA sources (one nvcc each, in parallel), with nvcc's
     register report;
  3. each kernel against its plain PyTorch version at the main paths'
-    shapes, plus special inputs: K1 (grouped raw back-projection, serving
-    shapes) and K2 (its backward, training shapes): points behind the
-    camera, out of the image, non-finite, at near-zero depth, N not a
+    shapes, plus special inputs: K1 (grouped raw back-projection, 6-camera
+    serving shapes) and K2 (its backward, training shapes): points behind
+    the camera, out of the image, non-finite, at near-zero depth, N not a
     multiple of the tile, cotangent rows that no camera may read set to
-    NaN; K3 (trilinear frustum sampler) and K4 (its backward): the real
-    frustum coordinates plus out-of-range and non-finite ones; K5 (image +
-    mask warp): temporal-warp coordinates plus non-finite, huge finite and
-    border ones, and its autograd coordinate gradient;
+    NaN; K1 again with normalised coordinates; K3 (trilinear frustum
+    sampler) and K4 (its backward): the real frustum coordinates plus
+    out-of-range and non-finite ones; K5 (image + mask warp):
+    temporal-warp coordinates plus non-finite, huge finite and border
+    ones, and its autograd coordinate gradient; K1b (the per-camera
+    sampler, 3-camera serving shapes) in its raw back-projection mode and
+    its three normalised modes, with the same special inputs and exact
+    nearest-pick ties (fraction 0.5); K2b (its backward, 3-camera training
+    shapes) gated, with the rows of invalid points NaN, and ungated;
  4. timing with CUDA events (warm-up, then the median of 20 runs) of each
     kernel, its plain version and a PyTorch yardstick the port never calls
-    (K3: 5-D ``F.grid_sample``; K4: the autograd backward of 5-D
-    ``F.grid_sample`` with respect to its input; K5: 2-D ``F.grid_sample``
-    on the RGB), beside the bound: bytes over 3.35 TB/s or f32 operations
-    over 67 TFLOP/s, whichever is larger, counted from this run's inputs;
- 5. serving path: ``configs/ddad/ddad_surround_fusion.yaml`` at full width
-    with seeded random weights answers 3 requests (one 6-camera frameset
-    with its -1/+1 context frames each) through ``VFDepthModel.predict``;
-    checks shapes, finiteness, the metric depth range, one launch of K1 and
-    K3 per request, and request 1 against the same model run with the plain
-    versions; then one more request under ``torch.profiler``;
- 6. training path: the same config at full width, batch 2 (the config's),
-    seeded weights, ``FakeDataset``: one warm-up step, then 3 timed steps
+    (K1, K1b: 2-D ``F.grid_sample`` on the same points, which computes
+    less; K2, K2b: its autograd input gradient; K3: 5-D ``F.grid_sample``;
+    K4: the autograd backward of 5-D ``F.grid_sample`` with respect to its
+    input; K5: 2-D ``F.grid_sample`` on the RGB), beside the bound: bytes
+    over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger,
+    counted from this run's inputs;
+ 5. each path below twice, for ``configs/ddad/ddad_surround_fusion.yaml``
+    (6 cameras, ``FakeDataset``'s even rig) and for the 3-camera front rig
+    (``presets.build_config(cameras=DDAD_CAM_LIST[:3])``, its "nuscenes"
+    rig), at full width with seeded random weights, the launch counts set
+    to 0 just before each path and read just after:
+    serving: 3 requests (one frameset with its -1/+1 context frames each)
+    through ``VFDepthModel.predict``; checks shapes, finiteness, the metric
+    depth range, launches per request (6 cameras: K1 1, K3 1; 3 cameras:
+    K1b 1, K3 1), and request 1 against the same model run with the plain
+    versions; one more request under ``torch.profiler``;
+    unmerged request: request 1 with ``merge_backprojection`` off (each
+    net back-projects its own features: K1 or K1b twice), held against the
+    merged output;
+ 6. training: batch 2 (the config's): one warm-up step, then 3 timed steps
     through ``train_step`` (forward, loss, backward, Adam); checks a finite
     loss, finite gradients non-zero in both nets, moved parameters and
-    BatchNorm statistics, and launches per step K1 1, K2 1, K3 1, K4 1,
-    K5 4; step 1 again from the same state with the plain versions (loss
-    and every gradient within stated tolerances); one more step under
-    ``torch.profiler``.
+    BatchNorm statistics, and launches per step (K1 or K1b 1, K2 or K2b 1,
+    K3 1, K4 1, K5 4); step 1 again from the same state with the plain
+    versions (loss and every gradient within stated tolerances); one more
+    step under ``torch.profiler``.
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the model is an f32 model, and
 the comparisons must see only the kernels' differences.
@@ -253,10 +266,10 @@ def k5_inputs(cfg, device, gen, special: bool):
 
 def check_k1(cfg, device, gen):
     from vfdepth_tpu_torch.ops.backproject_sample import (
-        backproject_grouped_raw, backproject_grouped_raw_plain)
+        backproject_grouped, backproject_grouped_plain)
     feats, mask, cam3, rel_scale, gs = k1_inputs(cfg, device, gen, True)
-    out, valid = backproject_grouped_raw(feats, mask, cam3, rel_scale, 1, gs)
-    ref, ref_valid = backproject_grouped_raw_plain(feats, mask, cam3,
+    out, valid = backproject_grouped(feats, mask, cam3, rel_scale, 1, gs)
+    ref, ref_valid = backproject_grouped_plain(feats, mask, cam3,
                                                    rel_scale, 1, gs)
     torch.cuda.synchronize()
     check(torch.equal(valid, ref_valid), "K1 per-camera validity differs")
@@ -293,11 +306,11 @@ def k2_inputs(cfg, device, gen, special: bool):
     per-camera validity from the kernel, and a random cotangent [2, 2, N,
     770] whose rows no camera of their group sees are NaN (the kernel must
     not read them)."""
-    from vfdepth_tpu_torch.ops.backproject_sample import backproject_grouped_raw
+    from vfdepth_tpu_torch.ops.backproject_sample import backproject_grouped
     b = cfg.batch_size
     feats, mask, cam3, rel_scale, gs = k1_inputs(cfg, device, gen, special,
                                                  batch=b)
-    _, valid = backproject_grouped_raw(feats, mask, cam3, rel_scale, b, gs)
+    _, valid = backproject_grouped(feats, mask, cam3, rel_scale, b, gs)
     n, c = cam3.shape[1], feats.shape[-1]
     g = torch.randn(b, 2, n, c + 2, generator=gen).to(device)
     seen = valid.reshape(b, 2, gs, n).amax(dim=2) > 0
@@ -307,10 +320,10 @@ def k2_inputs(cfg, device, gen, special: bool):
 
 def check_k2(cfg, device, gen):
     from vfdepth_tpu_torch.ops.backproject_sample import (
-        backproject_grouped_raw_bwd, backproject_grouped_raw_bwd_plain)
+        backproject_grouped_bwd, backproject_grouped_bwd_plain)
     g, cam3, valid, h, w, c, gs, _ = k2_inputs(cfg, device, gen, True)
-    out = backproject_grouped_raw_bwd(g, cam3, valid, h, w, c, gs)
-    ref = backproject_grouped_raw_bwd_plain(g, cam3, valid, h, w, c, gs)
+    out = backproject_grouped_bwd(g, cam3, valid, h, w, c, gs)
+    ref = backproject_grouped_bwd_plain(g, cam3, valid, h, w, c, gs)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "K2 output not finite")
     err = (out - ref).abs().max().item()
@@ -370,6 +383,230 @@ def check_k5(cfg, device, gen):
     return err
 
 
+def three_cam_config():
+    """The 3-camera front rig at full width: ``presets.build_config`` with
+    DDAD's front three cameras (ResNet-18, fusion dim 256, 100x100x20
+    voxels, 50 depth bins, 384x640, batch 2)."""
+    from vfdepth_tpu_torch import presets
+    from vfdepth_tpu_torch.config import DDAD_CAM_LIST
+    return presets.build_config(cameras=DDAD_CAM_LIST[:3])
+
+
+def k1b_inputs(cfg3, device, gen, special: bool, batch: int = 1):
+    """Main-path K1b inputs (the 3-camera serving path, raw mode): merged
+    pose+depth features [3*batch, 48, 80, 768], a random 0/1 low-res mask
+    with holes, and the voxel points of ``FakeDataset``'s "nuscenes" rig
+    (front and +-55 degrees) through ``_project_cam_points``. ``special``
+    appends points behind the camera, off the image, non-finite, at
+    near-zero depth and at exact nearest-pick ties (z = 1, pixel k + 0.5;
+    N is then not a multiple of the kernel's 32-point tile)."""
+    from vfdepth_tpu_torch.data import FakeDataset
+    from vfdepth_tpu_torch.models.vfnet import _project_cam_points
+
+    lev = cfg3.fusion_level
+    h, w = cfg3.height // 2 ** (lev + 1), cfg3.width // 2 ** (lev + 1)
+    c = 3 * cfg3.fusion_feat_in_dim          # pose (2 context pairs) + depth
+    sample = FakeDataset(num_samples=1, num_cams=cfg3.num_cams,
+                         height=cfg3.height, width=cfg3.width,
+                         fusion_level=lev, rig="nuscenes").batch([0])
+    k = torch.from_numpy(sample[f"K/{lev + 1}"]).to(device)
+    ext_inv = torch.from_numpy(sample["extrinsics_inv"]).to(device)
+    ones = torch.ones(1, cfg3.num_cams, cfg3.height, cfg3.width, 1,
+                      device=device)
+    cam3, _ = _project_cam_points(
+        ones, k, ext_inv, h, w, voxel_str_p=tuple(cfg3.voxel_str_p),
+        voxel_unit_size=tuple(cfg3.voxel_unit_size),
+        voxel_size=tuple(cfg3.voxel_size))
+    cam3 = cam3[0]
+    cams = cam3.shape[0]
+    if special:
+        extra = torch.rand(cams, 45, 3, generator=gen).to(device) * 50.0
+        extra[:, 0:5, 2] *= -1.0                 # behind the camera
+        extra[:, 5:10, 0] += 1e4                 # right of the image
+        extra[:, 10:13, 0] = float("nan")
+        extra[:, 13:16, 1] = float("inf")
+        extra[:, 16:18, 2] = float("nan")
+        extra[:, 18:20, 2] = 1e30                # far away: projects to (0, 0)
+        extra[:, 20:23, 2] = 1e-9                # near-zero depth
+        ties = torch.tensor([[10.5, 7.5], [0.5, 0.5], [w - 1.5, h - 1.5],
+                             [3.5, 20.0], [41.0, 11.5], [w - 1.0, 0.5]],
+                            device=device)
+        extra[:, 23:29, :2] = ties               # z + 1e-8 rounds to 1.0
+        extra[:, 23:29, 2] = 1.0
+        cam3 = torch.cat([cam3, extra], dim=1)
+    cam3 = cam3.repeat(batch, 1, 1)
+    cams = cam3.shape[0]
+    feats = torch.randn(cams, h, w, c, generator=gen).to(device)
+    mask = (torch.rand(cams, h, w, generator=gen) > 0.15).float().to(device)
+    mask[:, h // 3:h // 2, w // 4:w // 3] = 0.0   # a hole, as a car body
+    return feats, mask, cam3.contiguous(), 1.0 / cfg3.voxel_size[0]
+
+
+def _norm_ties(size: int, count: int):
+    """``count`` normalised coordinates whose f32 pixel, (c + 1) * (0.5 *
+    (size - 1)), has a fraction of exactly 0.5 (a nearest-pick tie),
+    repeated where the size has fewer."""
+    s = torch.tensor(0.5 * (size - 1), dtype=torch.float32)
+    one = torch.tensor(1.0)
+    found = []
+    for k in range(size - 1):
+        lo = hi = torch.tensor((k + 0.5) / (0.5 * (size - 1)),
+                               dtype=torch.float32)
+        cands = [lo]
+        for _ in range(4):           # a few ulps either side
+            lo, hi = torch.nextafter(lo, one * 0), torch.nextafter(hi, one * 3)
+            cands += [lo, hi]
+        for cand in cands:
+            if ((cand - one + one) * s).item() == k + 0.5:
+                found.append((cand - one).item())
+                break
+    check(len(found) > 0, f"no normalised ties for size {size}")
+    return [found[i % len(found)] for i in range(count)]
+
+
+def normalise(cam3, h: int, w: int, special: bool, gen=None,
+              sanitize: bool = True):
+    """Camera-plane points [B, N, 3] -> normalised (x, y) [B, N, 2] as the
+    JAX package's ``_project_voxel_coords`` forms them (divide by z + 1e-8,
+    NaN -> 2w, clip +-2w, align corners), points behind the camera or off
+    the image sent to -3 (``sanitize``); ``special`` appends exact
+    nearest-pick ties on one and both axes, non-finite and huge
+    coordinates."""
+    z = cam3[..., 2:3]
+    big = 2.0 * w
+    xy = torch.clamp(torch.nan_to_num(cam3[..., :2] / (z + 1e-8), nan=big,
+                                      posinf=big, neginf=-big), -big, big)
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=cam3.device)
+    pix = xy * scale - 1.0
+    if sanitize:
+        ok = (z[..., 0] > 0) & (pix.abs() <= 1.0).all(-1)
+        pix = torch.where(ok[..., None], pix, -3.0)
+    if special:
+        tx, ty = _norm_ties(w, 6), _norm_ties(h, 6)
+        extra = (torch.rand(pix.shape[0], 20, 2, generator=gen) * 2.6
+                 - 1.3).to(cam3.device)
+        extra[:, 0:6, 0] = torch.tensor(tx)
+        extra[:, 0:6, 1] = torch.tensor(ty)
+        extra[:, 6:12, 0] = torch.tensor(tx)
+        extra[:, 12, 0] = float("nan")
+        extra[:, 13, 1] = float("inf")
+        extra[:, 14] = torch.tensor([1e30, -3e9])
+        extra[:, 15] = torch.tensor([-1.0, 1.0])
+        pix = torch.cat([pix, extra], dim=1)
+    return pix.contiguous()
+
+
+def check_k1b(cfg3, device, gen):
+    """K1b in the model's raw mode at the 3-camera serving shapes, then in
+    the three normalised modes on the same points normalised."""
+    from vfdepth_tpu_torch.ops.backproject_sample import sample2d, sample2d_plain
+    feats, mask, cam3, rel_scale = k1b_inputs(cfg3, device, gen, True)
+    h, w, c = feats.shape[1:]
+    errs = {}
+    out, valid = sample2d(feats, mask, cam3, "backproject", rel_scale, True)
+    ref, ref_valid = sample2d_plain(feats, mask, cam3, "backproject",
+                                    rel_scale, True)
+    torch.cuda.synchronize()
+    check(torch.equal(valid, ref_valid), "K1b per-camera validity differs")
+    check(torch.equal(out[..., -1], ref[..., -1]), "K1b rel column differs")
+    check(bool(torch.isfinite(out).all()), "K1b output not finite")
+    n_valid = int(valid.sum().item())
+    check(0 < n_valid < valid.numel(), "K1b validity is degenerate")
+    errs["raw backproject"] = (out - ref).abs().max().item()
+    del out, ref
+    tol = K1_TOL * feats.abs().max().item()
+    pix = normalise(cam3, h, w, True, gen)
+    rel = torch.cat([cam3[..., 2] * rel_scale,
+                     torch.ones(cam3.shape[0], pix.shape[1] - cam3.shape[1],
+                                device=device)], dim=1)
+    for mode, coords in (("bilinear", pix), ("mask", pix),
+                         ("backproject", torch.cat([pix, rel[..., None]],
+                                                   dim=-1).contiguous())):
+        m = None if mode == "bilinear" else mask
+        out, v = sample2d(feats, m, coords, mode)
+        ref, rv = sample2d_plain(feats, m, coords, mode)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K1b {mode} output not finite")
+        if mode != "bilinear":
+            check(torch.equal(out[..., -1], ref[..., -1]),
+                  f"K1b {mode}: the last column differs")
+        if v is not None:
+            check(torch.equal(v, rv), f"K1b {mode}: validity differs")
+        errs[mode] = (out - ref).abs().max().item()
+        del out, ref
+    print(f"K1b check: N={cam3.shape[1]} (normalised {pix.shape[1]}) "
+          f"max_abs_err {({k: f'{e:.3e}' for k, e in errs.items()})} (tol "
+          f"{tol:.3e}); valid camera-points={n_valid}", flush=True)
+    check(max(errs.values()) <= tol, f"K1b differs from its plain version: "
+                                     f"{errs} > {tol}")
+    return max(errs.values())
+
+
+def check_k1_normalised(cfg, device, gen):
+    """K1 (grouped) with normalised coordinates on the 6-camera inputs."""
+    from vfdepth_tpu_torch.ops.backproject_sample import (
+        backproject_grouped, backproject_grouped_plain)
+    feats, mask, cam3, rel_scale, gs = k1_inputs(cfg, device, gen, True)
+    pix = normalise(cam3, feats.shape[1], feats.shape[2], False)
+    coords = torch.cat([pix, cam3[..., 2:] * rel_scale], dim=-1).contiguous()
+    out, valid = backproject_grouped(feats, mask, coords, 1.0, 1, gs, False)
+    ref, ref_valid = backproject_grouped_plain(feats, mask, coords, 1.0, 1,
+                                               gs, False)
+    torch.cuda.synchronize()
+    check(torch.equal(valid, ref_valid), "normalised K1 validity differs")
+    check(bool(torch.isfinite(out).all()), "normalised K1 output not finite")
+    err = (out - ref).abs().max().item()
+    tol = K1_TOL * feats.abs().max().item()
+    print(f"K1 (normalised coordinates) check: max_abs_err={err:.3e} (tol "
+          f"{tol:.3e})", flush=True)
+    check(err <= tol, f"normalised K1 differs from its plain version: {err}")
+    return err
+
+
+def k2b_inputs(cfg3, device, gen, special: bool):
+    """K2b at the 3-camera training path's shapes (batch 2): K1b's inputs,
+    its validity from the kernel, and a random cotangent [6, N, 769] whose
+    rows of invalid points are NaN (the kernel must not read them)."""
+    from vfdepth_tpu_torch.ops.backproject_sample import sample2d
+    b = cfg3.batch_size
+    feats, mask, cam3, rel_scale = k1b_inputs(cfg3, device, gen, special,
+                                              batch=b)
+    _, valid = sample2d(feats, mask, cam3, "backproject", rel_scale, True)
+    n, c = cam3.shape[1], feats.shape[-1]
+    g = torch.randn(cam3.shape[0], n, c + 1, generator=gen).to(device)
+    g = torch.where(valid[..., None] > 0, g, float("nan"))
+    return g, cam3, valid, feats.shape[1], feats.shape[2], c
+
+
+def check_k2b(cfg3, device, gen):
+    """K2b gated (the model's raw mode, NaN rows unread) and ungated (the
+    bilinear mode's backward on the normalised points)."""
+    from vfdepth_tpu_torch.ops.backproject_sample import (sample2d_bwd,
+                                                          sample2d_bwd_plain)
+    g, cam3, valid, h, w, c = k2b_inputs(cfg3, device, gen, True)
+    errs, tols = [], []
+    for gate in (True, False):
+        if gate:
+            coords, v, raw = cam3, valid, True
+        else:
+            coords, v, raw = normalise(cam3, h, w, False), None, False
+            g = torch.randn(cam3.shape[0], cam3.shape[1], c,
+                            generator=gen).to(device)
+        out = sample2d_bwd(g, coords, v, h, w, c, raw)
+        ref = sample2d_bwd_plain(g, coords, v, h, w, c, raw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "K2b output not finite")
+        errs.append((out - ref).abs().max().item())
+        tols.append(K2_TOL * ref.abs().max().item())
+        del out, ref
+    print(f"K2b check: g {list(g.shape[:2])} x {c}(+1) max_abs_err gated "
+          f"{errs[0]:.3e} (tol {tols[0]:.3e}), ungated {errs[1]:.3e} (tol "
+          f"{tols[1]:.3e})", flush=True)
+    check(all(e <= t for e, t in zip(errs, tols)),
+          f"K2b differs from its plain version: {errs} > {tols}")
+    return max(errs)
+
+
 def _row(name, source, replaces, err, ms, plain_ms, bytes_, flops,
          library_ms, shapes):
     b_ms, b_by = bound(bytes_, flops)
@@ -381,13 +618,36 @@ def _row(name, source, replaces, err, ms, plain_ms, bytes_, flops,
                 flops=flops)
 
 
-def time_kernels(cfg, device, gen, errs):
+def _grid_sample_2d(feats, pix):
+    """The yardstick of the 2-D samplers: ``F.grid_sample`` (bilinear, zeros
+    padding, align corners) of NCHW features [B, C, h, w] at normalised
+    points [B, N, 2] -> [B, C, 1, N]."""
+    return F.grid_sample(feats, pix[:, None], mode="bilinear",
+                         padding_mode="zeros", align_corners=True)
+
+
+def _library_bwd(feats, pix, g):
+    """The backward yardstick: the autograd input gradient of
+    ``_grid_sample_2d`` for the cotangent g [B, N, C] (its forward runs
+    once, outside the timing)."""
+    x = feats.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    out = _grid_sample_2d(x, pix)
+    gt = g.transpose(1, 2)[:, :, None].contiguous()
+    return lambda: torch.autograd.grad(out, x, gt, retain_graph=True)
+
+
+def time_kernels(cfg, cfg3, device, gen, errs):
     """Each kernel, its plain version and its yardstick at the main paths'
-    shapes: K1 and K3 at the serving path's (batch 1), K2, K4 and K5 at the
-    training path's (batch 2; K5 one call, the 24 temporal warps)."""
+    shapes: K1 and K3 at the 6-camera serving path's (batch 1), K1b at the
+    3-camera serving path's, K2, K4 and K5 at the 6-camera training path's
+    (batch 2; K5 one call, the 24 temporal warps), K2b at the 3-camera
+    training path's. The 2-D yardstick, ``F.grid_sample``, computes less
+    than K1, K1b (mask pick, validity, rel column, K1's group sum) and
+    their backward kernels (validity gate)."""
     from vfdepth_tpu_torch.ops.backproject_sample import (
-        backproject_grouped_raw, backproject_grouped_raw_bwd,
-        backproject_grouped_raw_bwd_plain, backproject_grouped_raw_plain)
+        backproject_grouped, backproject_grouped_bwd,
+        backproject_grouped_bwd_plain, backproject_grouped_plain, sample2d,
+        sample2d_bwd, sample2d_bwd_plain, sample2d_plain)
     from vfdepth_tpu_torch.ops.sample3d import (
         sample3d_trilinear, sample3d_trilinear_bwd,
         sample3d_trilinear_bwd_plain, sample3d_trilinear_plain)
@@ -395,38 +655,94 @@ def time_kernels(cfg, device, gen, errs):
                                             warp_image_mask_maps_plain)
     rows = {}
     feats, mask, cam3, rel_scale, gs = k1_inputs(cfg, device, gen, False)
-    out, valid = backproject_grouped_raw(feats, mask, cam3, rel_scale, 1, gs)
+    out, valid = backproject_grouped(feats, mask, cam3, rel_scale, 1, gs)
     live_pairs = valid.sum().item()
+    feats_nchw = feats.permute(0, 3, 1, 2).contiguous()
+    pix = normalise(cam3, feats.shape[1], feats.shape[2], False)
     rows["K1"] = _row(
-        "backproject_grouped_raw", "backproject_sample.cu",
+        "backproject_grouped", "backproject_sample.cu",
         "vfdepth_tpu/ops/pallas_sample.py:176", errs["K1"],
-        time_ms(lambda: backproject_grouped_raw(feats, mask, cam3, rel_scale,
-                                                1, gs)),
-        time_ms(lambda: backproject_grouped_raw_plain(
+        time_ms(lambda: backproject_grouped(feats, mask, cam3, rel_scale,
+                                            1, gs)),
+        time_ms(lambda: backproject_grouped_plain(
             feats, mask, cam3, rel_scale, 1, gs), reps=10),
         nbytes(feats, mask, cam3, out, valid),
-        live_pairs * feats.shape[-1] * 4 * 2, None,
+        live_pairs * feats.shape[-1] * 4 * 2,
+        time_ms(lambda: _grid_sample_2d(feats_nchw, pix)),
         dict(feats=feats.shape, cam3=cam3.shape, out=out.shape))
-    del feats, mask, cam3, out, valid
+    del feats, mask, cam3, out, valid, feats_nchw, pix
+
+    feats, mask, cam3, rel_scale = k1b_inputs(cfg3, device, gen, False)
+    out, valid = sample2d(feats, mask, cam3, "backproject", rel_scale, True)
+    h, w = feats.shape[1:3]
+    feats_nchw = feats.permute(0, 3, 1, 2).contiguous()
+    pix = normalise(cam3, h, w, False)
+    bil, _ = sample2d(feats, None, pix, "bilinear")
+    lib = _grid_sample_2d(feats_nchw, pix)
+    lib_err = (lib[:, :, 0].transpose(1, 2) - bil).abs().max().item()
+    bil_ms = time_ms(lambda: sample2d(feats, None, pix, "bilinear"))
+    print(f"K1b bilinear mode vs F.grid_sample on the same points: "
+          f"max_abs_diff={lib_err:.3e}; bilinear mode {bil_ms:.4f} ms",
+          flush=True)
+    del lib, bil
+    rows["K1b"] = _row(
+        "sample2d", "backproject_sample.cu",
+        "vfdepth_tpu/ops/pallas_sample.py:176", errs["K1b"],
+        time_ms(lambda: sample2d(feats, mask, cam3, "backproject", rel_scale,
+                                 True)),
+        time_ms(lambda: sample2d_plain(feats, mask, cam3, "backproject",
+                                       rel_scale, True), reps=10),
+        nbytes(feats, mask, cam3, out, valid),
+        valid.sum().item() * feats.shape[-1] * 4 * 2,
+        time_ms(lambda: _grid_sample_2d(feats_nchw, pix)),
+        dict(feats=feats.shape, cam3=cam3.shape, out=out.shape))
+    rows["K1b"]["bilinear_mode_ms"] = bil_ms
+    del feats, mask, cam3, out, valid, feats_nchw, pix
+    torch.cuda.empty_cache()
 
     # K2: the bytes a run must move are the cotangent rows of the points
     # some camera of their group sees (the others are never read), cam3,
     # valid and the feature gradient
     g, cam3, valid, h, w, c, gs, seen = k2_inputs(cfg, device, gen, False)
-    dfeat = backproject_grouped_raw_bwd(g, cam3, valid, h, w, c, gs)
+    dfeat = backproject_grouped_bwd(g, cam3, valid, h, w, c, gs)
     k2_bytes = (int(seen.sum().item()) * c * 4
                 + nbytes(cam3, valid, dfeat))
+    # yardstick: the input gradient of F.grid_sample per camera, each
+    # camera reading its group's cotangent
+    g_cam = g[..., :c].repeat_interleave(gs, dim=1).reshape(
+        -1, g.shape[2], c).nan_to_num()
+    lib2 = _library_bwd(torch.zeros(cam3.shape[0], h, w, c, device=device),
+                        normalise(cam3, h, w, False), g_cam)
     rows["K2"] = _row(
-        "backproject_grouped_raw_bwd", "backproject_sample_bwd.cu",
+        "backproject_grouped_bwd", "backproject_sample_bwd.cu",
         "vfdepth_tpu/ops/pallas_sample.py:301", errs["K2"],
-        time_ms(lambda: backproject_grouped_raw_bwd(g, cam3, valid, h, w, c,
-                                                    gs)),
-        time_ms(lambda: backproject_grouped_raw_bwd_plain(
+        time_ms(lambda: backproject_grouped_bwd(g, cam3, valid, h, w, c,
+                                                gs)),
+        time_ms(lambda: backproject_grouped_bwd_plain(
             g, cam3, valid, h, w, c, gs), reps=5),
-        k2_bytes, valid.sum().item() * c * 4 * 2, None,
+        k2_bytes, valid.sum().item() * c * 4 * 2, time_ms(lib2, reps=5),
         dict(g=g.shape, cam3=cam3.shape, valid=valid.shape,
              dfeat=dfeat.shape))
-    del g, cam3, valid, dfeat, seen
+    del g, cam3, valid, dfeat, seen, g_cam, lib2
+    torch.cuda.empty_cache()
+
+    # K2b: the cotangent rows of valid points, cam3, valid, the gradient
+    g, cam3, valid, h, w, c = k2b_inputs(cfg3, device, gen, False)
+    dfeat = sample2d_bwd(g, cam3, valid, h, w, c, True)
+    lib2b = _library_bwd(torch.zeros(cam3.shape[0], h, w, c, device=device),
+                         normalise(cam3, h, w, False),
+                         g[..., :c].nan_to_num())
+    rows["K2b"] = _row(
+        "sample2d_bwd", "backproject_sample_bwd.cu",
+        "vfdepth_tpu/ops/pallas_sample.py:301", errs["K2b"],
+        time_ms(lambda: sample2d_bwd(g, cam3, valid, h, w, c, True)),
+        time_ms(lambda: sample2d_bwd_plain(g, cam3, valid, h, w, c, True),
+                reps=5),
+        int(valid.sum().item()) * c * 4 + nbytes(cam3, valid, dfeat),
+        valid.sum().item() * c * 4 * 2, time_ms(lib2b, reps=5),
+        dict(g=g.shape, cam3=cam3.shape, valid=valid.shape,
+             dfeat=dfeat.shape))
+    del g, cam3, valid, dfeat, lib2b
     torch.cuda.empty_cache()
 
     vol, coords = k3_inputs(cfg, device, gen, False)
@@ -519,11 +835,12 @@ def time_kernels(cfg, device, gen, errs):
 def kernel_counters():
     """The launch-counting wrapper of each kernel, by row key."""
     from vfdepth_tpu_torch.ops.backproject_sample import (
-        backproject_grouped_raw, backproject_grouped_raw_bwd)
+        backproject_grouped, backproject_grouped_bwd, sample2d, sample2d_bwd)
     from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
                                                 sample3d_trilinear_bwd)
     from vfdepth_tpu_torch.ops.warp import warp_image_mask_maps
-    return {"K1": backproject_grouped_raw, "K2": backproject_grouped_raw_bwd,
+    return {"K1": backproject_grouped, "K1b": sample2d,
+            "K2": backproject_grouped_bwd, "K2b": sample2d_bwd,
             "K3": sample3d_trilinear, "K4": sample3d_trilinear_bwd,
             "K5": warp_image_mask_maps}
 
@@ -537,23 +854,32 @@ def read_counts():
     return {k: fn.launches for k, fn in kernel_counters().items()}
 
 
-def run_serving_path(cfg, device):
-    """3 full-width requests through ``VFDepthModel.predict``; returns
-    (launches per kernel over the 3 requests, per-request ms)."""
+def launches(**counts):
+    """Expected launches by kernel: the given ones, 0 for every other."""
+    return {k: counts.get(k, 0) for k in kernel_counters()}
+
+
+def _dataset(cfg, n: int, rig: str):
     from vfdepth_tpu_torch.data import FakeDataset
+    return FakeDataset(num_samples=n, num_cams=cfg.num_cams,
+                       height=cfg.height, width=cfg.width,
+                       frame_ids=tuple(cfg.frame_ids),
+                       fusion_level=cfg.fusion_level, rig=rig)
+
+
+def run_serving_path(cfg, device, label: str, per_request, rig: str):
+    """3 full-width requests through ``VFDepthModel.predict``; returns
+    (launches per kernel over the 3 requests, per-request ms, the model,
+    the requests, their outputs)."""
     from vfdepth_tpu_torch.training.model import VFDepthModel
 
-    per_request = {"K1": 1, "K2": 0, "K3": 1, "K4": 0, "K5": 0}
     t0 = time.perf_counter()
     model = VFDepthModel(cfg, device=device, seed=0)
-    ds = FakeDataset(num_samples=N_REQUESTS, num_cams=cfg.num_cams,
-                     height=cfg.height, width=cfg.width,
-                     frame_ids=tuple(cfg.frame_ids),
-                     fusion_level=cfg.fusion_level)
+    ds = _dataset(cfg, N_REQUESTS, rig)
     requests = [ds.batch([i]) for i in range(N_REQUESTS)]
     model.predict(requests[0])                  # warm-up (not counted)
     torch.cuda.synchronize()
-    print(f"serving path set-up (model, data, warm-up): "
+    print(f"{label} serving path set-up (model, data, warm-up): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     reset_counts()
@@ -566,11 +892,11 @@ def run_serving_path(cfg, device):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
         delta = {k: n - before[k] for k, n in read_counts().items()}
-        check(delta == per_request, f"request {i}: kernel launches {delta}, "
-                                    f"expected {per_request}")
+        check(delta == per_request, f"{label} request {i}: kernel launches "
+                                    f"{delta}, expected {per_request}")
         outputs.append(out)
-        print(f"request {i}: {ms[-1]:.2f} ms", flush=True)
-    launches = read_counts()
+        print(f"{label} request {i}: {ms[-1]:.2f} ms", flush=True)
+    counts = read_counts()
 
     b, cams, h, w = 1, cfg.num_cams, cfg.height, cfg.width
     n_ctx = len(cfg.frame_ids) - 1
@@ -596,8 +922,9 @@ def run_serving_path(cfg, device):
             check(bool(((depth >= lo * (1 - 1e-5))
                         & (depth <= hi * (1 + 1e-5))).all()),
                   "depth outside the metric range")
-        print(f"request {i}: depth/0 in [{outputs[i]['depth/0'].min().item():.3f},"
-              f" {outputs[i]['depth/0'].max().item():.3f}] m; |t| max "
+        print(f"{label} request {i}: depth/0 in "
+              f"[{outputs[i]['depth/0'].min().item():.3f}, "
+              f"{outputs[i]['depth/0'].max().item():.3f}] m; |t| max "
               f"{cam[..., :3, 3].abs().max().item():.4f}", flush=True)
 
     # request 1 again with the plain versions of the kernels (same weights)
@@ -605,42 +932,66 @@ def run_serving_path(cfg, device):
     ref = model.predict(requests[1])
     torch.cuda.synchronize()
     model.plain_samplers = False
-    check(read_counts() == launches,
+    check(read_counts() == counts,
           "the plain reference run launched a kernel")
-    for key, val in outputs[1].items():
+    compare_outputs(f"{label} request 1 kernels vs plain", outputs[1], ref)
+    profile(f"{label} request", lambda: model.predict(requests[2]))
+    return counts, ms, model, requests, outputs
+
+
+def compare_outputs(what, got, ref):
+    """Poses within POSE_ATOL, every other output within FWD_RTOL of its
+    magnitude."""
+    for key, val in got.items():
         diff = (val - ref[key]).abs().max().item()
         if key == "cam_T_cam":
             tol = POSE_ATOL
         else:
             tol = FWD_RTOL * ref[key].abs().max().item()
-        print(f"request 1 kernels vs plain: {key} max_abs_diff={diff:.3e} "
-              f"(tol {tol:.3e})", flush=True)
-        check(diff <= tol, f"{key}: kernels and plain versions disagree")
-    profile("request", lambda: model.predict(requests[2]))
-    return launches, ms
+        print(f"{what}: {key} max_abs_diff={diff:.3e} (tol {tol:.3e})",
+              flush=True)
+        check(diff <= tol, f"{what}: {key} disagrees")
+
+
+def run_unmerged(model, request, merged_out, label: str, per_request):
+    """One request with ``merge_backprojection: false`` (each net
+    back-projects its own features) from the serving model's weights, held
+    against that model's merged output for the same request, after one
+    uncounted warm-up request (the separate nets' shapes are new to cuDNN);
+    returns (the launches, ms)."""
+    model.merge_backproject = False
+    model.predict(request)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = model.predict(request)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+    model.merge_backproject = True
+    check(counts == per_request, f"{label} unmerged request: kernel launches "
+                                 f"{counts}, expected {per_request}")
+    print(f"{label} unmerged request: {ms:.2f} ms", flush=True)
+    compare_outputs(f"{label} unmerged vs merged", out, merged_out)
+    return counts, ms
 
 
 def _grads(model):
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def run_training_path(cfg, device):
+def run_training_path(cfg, device, label: str, per_step, rig: str):
     """Full-width training steps at the config's batch through
     ``train_step``; returns (launches per kernel over the timed steps,
     per-step ms)."""
-    from vfdepth_tpu_torch.data import FakeDataset
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
 
-    per_step = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 4}
     b = cfg.batch_size
     t0 = time.perf_counter()
     model = VFDepthModel(cfg, device=device, seed=0)
     opt = create_train_state(model)
-    ds = FakeDataset(num_samples=b * (N_STEPS + 1), num_cams=cfg.num_cams,
-                     height=cfg.height, width=cfg.width,
-                     frame_ids=tuple(cfg.frame_ids),
-                     fusion_level=cfg.fusion_level)
+    ds = _dataset(cfg, b * (N_STEPS + 1), rig)
     batches = [ds.batch(list(range(i * b, (i + 1) * b)))
                for i in range(N_STEPS + 1)]
 
@@ -649,7 +1000,7 @@ def run_training_path(cfg, device):
 
     logs0 = train_step(model, opt, batches[0], 0, noise_gen(0))   # warm-up
     torch.cuda.synchronize()
-    print(f"training path set-up (model, data, warm-up step): "
+    print(f"{label} training path set-up (model, data, warm-up step): "
           f"{time.perf_counter() - t0:.1f} s; step 0 loss "
           f"{logs0['total_loss'].item():.6f}", flush=True)
     params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -666,19 +1017,20 @@ def run_training_path(cfg, device):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
         delta = {k: n - before[k] for k, n in read_counts().items()}
-        check(delta == per_step, f"step {step}: kernel launches {delta}, "
-                                 f"expected {per_step}")
+        check(delta == per_step, f"{label} step {step}: kernel launches "
+                                 f"{delta}, expected {per_step}")
         losses.append(logs["total_loss"].item())
         if step == 1:
             grads1, logs1 = _grads(model), logs
-        print(f"step {step}: {ms[-1]:.2f} ms, loss {losses[-1]:.6f}, "
+        print(f"{label} step {step}: {ms[-1]:.2f} ms, loss {losses[-1]:.6f}, "
               f"reproj {logs['reproj_loss'].item():.6f}, spatio "
               f"{logs['spatio_loss'].item():.6f}, spatio-temporal "
               f"{logs['spatio_tempo_loss'].item():.6f}, auto-mask cover "
               f"{logs['amask_cover'].item():.4f}", flush=True)
-    launches = read_counts()
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"training path: peak device memory {peak:.2f} GiB", flush=True)
+    print(f"{label} training path: peak device memory {peak:.2f} GiB",
+          flush=True)
 
     check(all(math.isfinite(v) for v in losses), "training loss not finite")
     for name, g in grads1.items():
@@ -691,7 +1043,8 @@ def run_training_path(cfg, device):
     moved = [k for k in tracked if not torch.equal(params0[k], state[k])]
     for kind in ("weight", "running_mean", "running_var"):
         check(any(k.endswith(kind) for k in moved), f"no {kind} moved")
-    print(f"training path: {len(moved)} of {len(tracked)} parameters and "
+    print(f"{label} training path: {len(moved)} of {len(tracked)} "
+          f"parameters and "
           f"BatchNorm statistics moved", flush=True)
 
     # step 1 again from the same state and batch, plain versions
@@ -701,14 +1054,14 @@ def run_training_path(cfg, device):
     logs_p = train_step(model, opt, batches[1], 1, noise_gen(1))
     torch.cuda.synchronize()
     model.plain_samplers = False
-    check(read_counts() == launches, "the plain reference step launched a "
-                                     "kernel")
+    check(read_counts() == counts, "the plain reference step launched a "
+                                   "kernel")
     lk, lp = logs1["total_loss"].item(), logs_p["total_loss"].item()
     n_pix = b * cfg.num_cams * cfg.height * cfg.width
     flips = abs(logs1["amask_cover"].item()
                 - logs_p["amask_cover"].item()) * n_pix
-    print(f"step 1 kernels vs plain: auto-mask cover differs by {flips:.0f}"
-          f" of {n_pix} pixels (net flips)", flush=True)
+    print(f"{label} step 1 kernels vs plain: auto-mask cover differs by "
+          f"{flips:.0f} of {n_pix} pixels (net flips)", flush=True)
     check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp),
           f"step 1 loss: kernels {lk} vs plain {lp}")
     worst, worst_name = 0.0, ""
@@ -717,7 +1070,7 @@ def run_training_path(cfg, device):
         rel = ((grads1[name] - ref).norm() / ref.norm().clamp_min(1e-30)).item()
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"step 1 kernels vs plain: loss {lk:.7f} vs {lp:.7f} (rel "
+    print(f"{label} step 1 kernels vs plain: loss {lk:.7f} vs {lp:.7f} (rel "
           f"{abs(lk - lp) / abs(lp):.2e}, tol {STEP_LOSS_RTOL:.0e}); worst "
           f"gradient relative L2 difference {worst:.2e} ({worst_name}; tol "
           f"{STEP_GRAD_RTOL:.0e})", flush=True)
@@ -726,9 +1079,9 @@ def run_training_path(cfg, device):
     del grads1, params0, opt0, logs_p
     opt.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
-    profile("training step", lambda: train_step(
+    profile(f"{label} training step", lambda: train_step(
         model, opt, batches[0], N_STEPS + 1, noise_gen(N_STEPS + 1)))
-    return launches, ms
+    return counts, ms
 
 
 def profile(label, fn, top: int = 14):
@@ -772,8 +1125,8 @@ def profile(label, fn, top: int = 14):
         print(f"  {us / 1e3:8.3f} ms {100 * us / summed:5.1f}%  x{count:<5d} "
               f"{key[:110]}", flush=True)
     ours = {k: (us, count) for k, us, count in rows
-            if any(n in k for n in ("backproject_grouped_raw", "sample3d_",
-                                    "warp_image_mask"))}
+            if any(n in k for n in ("backproject_grouped", "sample2d",
+                                    "sample3d_", "warp_image_mask"))}
     for key, (us, count) in sorted(ours.items()):
         print(f"  port kernel {key[:80]}: {us / 1e3:.3f} ms x{count}",
               flush=True)
@@ -813,32 +1166,60 @@ def main() -> int:
                 print(f"  {res.name}: {line.strip()}", flush=True)
 
     cfg = get_config(str(CONFIG))
+    cfg3 = three_cam_config()
     gen = torch.Generator().manual_seed(0)
     errs = {"K1": check_k1(cfg, device, gen), "K3": check_k3(cfg, device, gen),
             "K2": check_k2(cfg, device, gen), "K4": check_k4(cfg, device, gen),
             "K5": check_k5(cfg, device, gen)}
+    errs["K1"] = max(errs["K1"], check_k1_normalised(cfg, device, gen))
+    errs["K1b"] = check_k1b(cfg3, device, gen)
+    errs["K2b"] = check_k2b(cfg3, device, gen)
     torch.cuda.empty_cache()
-    rows = time_kernels(cfg, device, gen, errs)
+    rows = time_kernels(cfg, cfg3, device, gen, errs)
 
-    serving, req_ms = run_serving_path(cfg, device)
-    print(f"serving path: {N_REQUESTS} requests, per-request ms "
-          f"{[round(m, 3) for m in req_ms]}, "
-          f"{1e3 * N_REQUESTS / sum(req_ms):.3f} framesets/s", flush=True)
-    torch.cuda.empty_cache()
-    training, step_ms = run_training_path(cfg, device)
-    print(f"training path: {N_STEPS} steps at batch {cfg.batch_size}, "
-          f"per-step ms {[round(m, 3) for m in step_ms]}, "
-          f"{1e3 * N_STEPS * cfg.batch_size / sum(step_ms):.3f} framesets/s "
-          f"trained", flush=True)
+    # each path: the counts set to 0 just before it, read just after
+    paths = {}
+
+    def serve(c, label, rig, per_request, unmerged):
+        counts, ms, model, requests, outputs = run_serving_path(
+            c, device, label, per_request, rig)
+        print(f"{label} serving path: {N_REQUESTS} requests, per-request ms "
+              f"{[round(m, 3) for m in ms]}, "
+              f"{1e3 * N_REQUESTS / sum(ms):.3f} framesets/s", flush=True)
+        paths[f"{label} serving"] = dict(launches=counts, ms=ms)
+        counts, ms = run_unmerged(model, requests[1], outputs[1], label,
+                                  unmerged)
+        paths[f"{label} unmerged request"] = dict(launches=counts, ms=[ms])
+        del model, outputs
+        torch.cuda.empty_cache()
+
+    def train(c, label, rig, per_step):
+        counts, ms = run_training_path(c, device, label, per_step, rig)
+        print(f"{label} training path: {N_STEPS} steps at batch "
+              f"{c.batch_size}, per-step ms {[round(m, 3) for m in ms]}, "
+              f"{1e3 * N_STEPS * c.batch_size / sum(ms):.3f} framesets/s "
+              f"trained", flush=True)
+        paths[f"{label} training"] = dict(launches=counts, ms=ms)
+        torch.cuda.empty_cache()
+
+    serve(cfg, "6-camera", "even", launches(K1=1, K3=1),
+          launches(K1=2, K3=1))
+    train(cfg, "6-camera", "even", launches(K1=1, K2=1, K3=1, K4=1, K5=4))
+    serve(cfg3, "3-camera", "nuscenes", launches(K1b=1, K3=1),
+          launches(K1b=2, K3=1))
+    # K5's calls do not depend on the rig: one temporal, one spatial and
+    # one spatio-temporal warp per context frame
+    train(cfg3, "3-camera", "nuscenes",
+          launches(K1b=1, K2b=1, K3=1, K4=1, K5=4))
     for key, row in rows.items():
-        row["launches"] = training[key]
-        row["launches_per_step"] = training[key] / N_STEPS
-        row["launches_serving"] = serving[key]
-        row["launches_per_request"] = serving[key] / N_REQUESTS
+        by_path = {p: v["launches"][key] for p, v in paths.items()}
+        check(sum(by_path.values()) > 0, f"{key} launched on no path")
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)],
-                      "device": kind, "power": smi, "request_ms": req_ms,
-                      "step_ms": step_ms, "batch": cfg.batch_size}),
-          flush=True)
+                      "device": kind, "power": smi,
+                      "paths": {p: v["ms"] for p, v in paths.items()},
+                      "batch": cfg.batch_size}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from vfdepth_tpu_torch.config import get_config
+from vfdepth_tpu_torch.data import FakeDataset
 from vfdepth_tpu_torch.training.model import VFDepthModel
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -71,15 +72,28 @@ def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_configs_raise():
-    cfg = get_config("configs/tiny_fake.yaml")
-    cfg.set("merge_backprojection", False)
-    with pytest.raises(NotImplementedError):
-        VFDepthModel(cfg, device="cpu")
-    cfg = get_config("configs/tiny_fake.yaml")
-    cfg.set("cameras", ["camera_01", "camera_05", "camera_06"])
-    cfg.set("num_cams", 3)
-    with pytest.raises(NotImplementedError, match="overlap groups"):
-        VFDepthModel(cfg, device="cpu")
+    """What is not ported raises: the fsm nets, mixed precision, unbatched
+    pose frames with more than one context frame, and the depth-synthesis
+    forward. (The 3-camera rig and ``merge_backprojection: false`` run.)"""
+    def cfg_with(**over):
+        cfg = get_config("configs/tiny_fake.yaml")
+        for key, value in over.items():
+            cfg.set(key, value)
+        return cfg
+
+    for over in ({"depth_model": "fsm"}, {"pose_model": "fsm"},
+                 {"mixed_precision": True}, {"batch_pose_frames": False}):
+        with pytest.raises(NotImplementedError):
+            VFDepthModel(cfg_with(**over), device="cpu")
+    assert VFDepthModel(cfg_with(batch_pose_frames=False, frame_ids=[0, 1]),
+                        device="cpu").frame_ids == (0, 1)
+    cfg = cfg_with(aug_depth=True)
+    model = VFDepthModel(cfg, device="cpu")
+    batch = FakeDataset(num_samples=1, num_cams=cfg.num_cams,
+                        height=cfg.height, width=cfg.width,
+                        fusion_level=cfg.fusion_level).batch([0])
+    with pytest.raises(NotImplementedError, match="depth-synthesis"):
+        model(batch, step=0, noise=torch.zeros(model.noise_shape(batch)))
 
 
 def _run_smoke(cwd):

@@ -7,11 +7,11 @@ Imports no JAX, so it runs on a GPU machine without it:
 (``--noconftest``: the suite's conftest configures JAX). Every test skips
 where there is no CUDA device. Tolerances, relative to the largest input
 magnitude: K1 1e-4 (bilinear taps and a group sum of up to 8 cameras,
-fma-contracted in the kernel), K3 1e-5 (an 8-term weighted sum);
-validity is exact. The backward kernels add with atomics in a varying
-order: K2 1e-4 and K4 1e-5 of the largest output magnitude times the
-square root of the most additions one address receives (a rounding error
-per addition, random in sign). K5: 1e-6 (a 4-tap weighted sum of inputs in
+fma-contracted in the kernel; K1b and the normalised K1 the same), K3
+1e-5 (an 8-term weighted sum); validity and nearest mask values are exact. The backward kernels add with atomics in a varying
+order: K2, K2b 1e-4 and K4 1e-5 of the largest output magnitude times
+the square root of the mean additions one address receives (a rounding
+error per addition, random in sign). K5: 1e-6 (a 4-tap weighted sum of inputs in
 [0, 1], fma-contracted), masks exact, its coordinate gradient 1e-5 of its
 largest entry.
 """
@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from vfdepth_tpu_torch.ops.backproject_sample import (
-    backproject_grouped_raw, backproject_grouped_raw_bwd,
-    backproject_grouped_raw_bwd_plain, backproject_grouped_raw_plain)
+    backproject_grouped, backproject_grouped_bwd,
+    backproject_grouped_bwd_plain, backproject_grouped_plain, sample2d,
+    sample2d_bwd, sample2d_bwd_plain, sample2d_plain)
 from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
                                             sample3d_trilinear_bwd,
                                             sample3d_trilinear_bwd_plain,
@@ -56,10 +57,10 @@ def _raw_inputs(seed, b, gs, h=16, w=24, c=8, n=5003):
 def test_backproject_kernel_matches_plain(b, gs, c):
     _need_cuda()
     feats, mask, cam3 = _raw_inputs(b * 10 + gs, b, gs, c=c)
-    before = backproject_grouped_raw.launches
-    out, valid = backproject_grouped_raw(feats, mask, cam3, 0.25, b, gs)
-    assert backproject_grouped_raw.launches == before + 1
-    ref, ref_valid = backproject_grouped_raw_plain(feats, mask, cam3, 0.25,
+    before = backproject_grouped.launches
+    out, valid = backproject_grouped(feats, mask, cam3, 0.25, b, gs)
+    assert backproject_grouped.launches == before + 1
+    ref, ref_valid = backproject_grouped_plain(feats, mask, cam3, 0.25,
                                                    b, gs)
     torch.cuda.synchronize()
     torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
@@ -94,16 +95,16 @@ def test_sample3d_kernel_matches_plain(c):
 def test_backproject_bwd_kernel_matches_plain(b, gs, c):
     _need_cuda()
     feats, mask, cam3 = _raw_inputs(b * 10 + gs + 1, b, gs, c=c)
-    _, valid = backproject_grouped_raw(feats, mask, cam3, 0.25, b, gs)
+    _, valid = backproject_grouped(feats, mask, cam3, 0.25, b, gs)
     g = torch.randn(b, 2, cam3.shape[1], c + 2, device="cuda")
     g[..., :5, :] = float("nan")          # rows no camera may read
     g[..., :5, :] = torch.where(valid.reshape(b, 2, gs, -1)[..., :5].amax(
         2)[..., None] > 0, 1.0, g[..., :5, :])
     h, w = feats.shape[1:3]
-    before = backproject_grouped_raw_bwd.launches
-    got = backproject_grouped_raw_bwd(g, cam3, valid, h, w, c, gs)
-    assert backproject_grouped_raw_bwd.launches == before + 1
-    ref = backproject_grouped_raw_bwd_plain(g, cam3, valid, h, w, c, gs)
+    before = backproject_grouped_bwd.launches
+    got = backproject_grouped_bwd(g, cam3, valid, h, w, c, gs)
+    assert backproject_grouped_bwd.launches == before + 1
+    ref = backproject_grouped_bwd_plain(g, cam3, valid, h, w, c, gs)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     hits = valid.sum().item() * 4 / (valid.shape[0] * h * w) + 1
@@ -164,3 +165,103 @@ def test_warp_kernel_matches_plain(n):
         grads.append(c.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=0,
                                atol=1e-5 * grads[1].abs().max().item())
+
+
+def _cams(seed, c, b=3):
+    """b cameras of features, masks and camera-plane points."""
+    feats, mask, cam3 = _raw_inputs(seed, 2, 1, c=c)
+    return feats[:b].contiguous(), mask[:b].contiguous(), cam3[:b].contiguous()
+
+
+def _norm_coords(seed, b, n, ncols):
+    """Normalised points over and past the image, with corners, exact
+    nearest-pick ties, non-finite and huge coordinates, and (ncols 3) a rel
+    column."""
+    rng = np.random.RandomState(seed)
+    coords = rng.uniform(-1.3, 1.3, (b, n, ncols)).astype(np.float32)
+    coords[:, :4, :2] = [[-1, -1], [1, 1], [-1, 1], [1, -1]]
+    coords[:, 4:8, :2] = (np.arange(4)[:, None] + 0.5) / 11.5 - 1.0  # ties
+    coords[:, 10, 0] = np.nan
+    coords[:, 11, 1] = np.inf
+    coords[:, 12, :2] = [1e30, -3e9]
+    return torch.from_numpy(coords).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,raw,c", [
+    ("bilinear", False, 8), ("bilinear", False, 5), ("mask", False, 768),
+    ("mask", False, 6), ("backproject", False, 768),
+    ("backproject", True, 768), ("backproject", True, 7)])
+def test_sample2d_kernel_matches_plain(mode, raw, c):
+    _need_cuda()
+    b = 3
+    feats, mask, cam3 = _cams(c + raw, c, b)
+    coords = cam3 if raw else _norm_coords(
+        c, b, cam3.shape[1], 3 if mode == "backproject" else 2)
+    if not raw and mode == "backproject":
+        coords[:, 100:200, :2] = -3.0        # caller-sanitised points
+        coords[:, 100:150, 2] = float("nan")
+    m = None if mode == "bilinear" else mask
+    before = sample2d.launches
+    out, valid = sample2d(feats, m, coords, mode, 0.25, raw)
+    assert sample2d.launches == before + 1
+    ref, ref_valid = sample2d_plain(feats, m, coords, mode, 0.25, raw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    if valid is not None:
+        torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+        assert 0 < valid.sum() < valid.numel()
+    if mode != "bilinear":
+        torch.testing.assert_close(out[..., -1], ref[..., -1], rtol=0, atol=0)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * feats.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw", [False, True])
+def test_normalised_or_raw_grouped_kernel_matches_plain(raw):
+    _need_cuda()
+    feats, mask, cam3 = _raw_inputs(40 + raw, 1, 3, c=768)
+    coords = cam3 if raw else _norm_coords(41, 6, cam3.shape[1], 3)
+    out, valid = backproject_grouped(feats, mask, coords, 0.25, 1, 3, raw)
+    ref, ref_valid = backproject_grouped_plain(feats, mask, coords, 0.25, 1,
+                                               3, raw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * feats.abs().max().item())
+    g = torch.randn(1, 2, coords.shape[1], 770, device="cuda")
+    got = backproject_grouped_bwd(g, coords, valid, 16, 24, 768, 3, raw)
+    want = backproject_grouped_bwd_plain(g, coords, valid, 16, 24, 768, 3,
+                                         raw)
+    torch.cuda.synchronize()
+    hits = valid.sum().item() * 4 / (valid.shape[0] * 16 * 24) + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * hits ** 0.5
+                               * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate,raw,c,ldg", [
+    (True, True, 768, 769), (True, False, 768, 769), (False, False, 8, 8),
+    (False, False, 8, 9), (True, True, 5, 6)])
+def test_sample2d_bwd_kernel_matches_plain(gate, raw, c, ldg):
+    _need_cuda()
+    b = 3
+    feats, mask, cam3 = _cams(60 + c, c, b)
+    n = cam3.shape[1]
+    coords = cam3 if raw else _norm_coords(c, b, n, 3)
+    valid = None
+    g = torch.randn(b, n, ldg, device="cuda")
+    if gate:
+        _, valid = sample2d(feats, mask, coords, "backproject", 0.25, raw)
+        g = torch.where(valid[..., None] > 0, g, float("nan"))  # unread rows
+    before = sample2d_bwd.launches
+    got = sample2d_bwd(g, coords, valid, 16, 24, c, raw)
+    assert sample2d_bwd.launches == before + 1
+    ref = sample2d_bwd_plain(g, coords, valid, 16, 24, c, raw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    used = n if valid is None else valid.sum().item() / b
+    hits = used * 4 / (16 * 24) + 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * hits ** 0.5
+                               * ref.abs().max().item())

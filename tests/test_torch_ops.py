@@ -16,7 +16,7 @@ held here against the JAX functions the CUDA kernels replace:
 * K3 (trilinear frustum sampler) against ``grid_sample_3d_packed(..., "f32",
   "yxz")`` in interpret mode: identical f32 arithmetic up to summation
   order, 1e-5.
-* K2 (K1's backward, through the ``BackprojectGroupedRaw`` Function)
+* K2 (K1's backward, through the ``BackprojectGrouped`` Function)
   against ``jax.vjp`` of the grouped raw Pallas sampler in interpret mode,
   whose backward kernel rounds the cotangent to bf16 and emits bf16: 3e-2 of
   the largest entry, as the forward; and against torch autograd of the
@@ -43,9 +43,9 @@ from vfdepth_tpu.ops.sample3d_packed import grid_sample_3d_packed
 from vfdepth_tpu_torch.models.vfnet import backproject_features_grouped
 from vfdepth_tpu_torch.ops import resize as tresize
 from vfdepth_tpu_torch.ops.backproject_sample import (
-    BackprojectGroupedRaw, backproject_grouped_raw,
-    backproject_grouped_raw_bwd, backproject_grouped_raw_bwd_plain,
-    backproject_grouped_raw_plain)
+    BackprojectGrouped, backproject_grouped,
+    backproject_grouped_bwd, backproject_grouped_bwd_plain,
+    backproject_grouped_plain)
 from vfdepth_tpu_torch.ops.sample3d import (Sample3dTrilinear,
                                             sample3d_trilinear,
                                             sample3d_trilinear_bwd,
@@ -115,7 +115,7 @@ def test_backproject_plain_matches_pallas_interpret():
     _, valid_j = _fwd_call_grouped(
         jnp.asarray(feats.reshape(cams, h * w, c)), jnp.asarray(cam3),
         jnp.asarray(mask), h, w, b, gs, raw=True, rel_scale=rel_scale)
-    out, valid = backproject_grouped_raw_plain(
+    out, valid = backproject_grouped_plain(
         torch.from_numpy(feats), torch.from_numpy(mask),
         torch.from_numpy(cam3), rel_scale, b, gs)
     assert out.shape == (b, 2, n, c + 2) and valid.shape == (cams, n)
@@ -175,16 +175,16 @@ def test_wrappers_take_plain_version_on_cpu():
     feats, mask, cam3 = _raw_inputs(5, gs=2, n=300)
     args = (torch.from_numpy(feats), torch.from_numpy(mask),
             torch.from_numpy(cam3), 0.5, 1, 2)
-    before = backproject_grouped_raw.launches
-    for a, b in zip(backproject_grouped_raw(*args),
-                    backproject_grouped_raw_plain(*args)):
+    before = backproject_grouped.launches
+    for a, b in zip(backproject_grouped(*args),
+                    backproject_grouped_plain(*args)):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
     vol, coords = _sample3d_inputs(6)
     torch.testing.assert_close(
         sample3d_trilinear(torch.from_numpy(vol), torch.from_numpy(coords)),
         sample3d_trilinear_plain(torch.from_numpy(vol),
                                  torch.from_numpy(coords)), rtol=0, atol=0)
-    assert backproject_grouped_raw.launches == before
+    assert backproject_grouped.launches == before
     assert sample3d_trilinear.launches == 0
 
 
@@ -192,11 +192,11 @@ def test_wrappers_reject_bad_inputs():
     feats, mask, cam3 = (torch.from_numpy(a) for a in _raw_inputs(7, gs=2,
                                                                     n=64))
     with pytest.raises(TypeError):
-        backproject_grouped_raw(feats.double(), mask, cam3, 0.5, 1, 2)
+        backproject_grouped(feats.double(), mask, cam3, 0.5, 1, 2)
     with pytest.raises(ValueError):
-        backproject_grouped_raw(feats, mask, cam3, 0.5, 2, 2)
+        backproject_grouped(feats, mask, cam3, 0.5, 2, 2)
     with pytest.raises(ValueError):
-        backproject_grouped_raw(feats.to("meta"), mask.to("meta"),
+        backproject_grouped(feats.to("meta"), mask.to("meta"),
                                 cam3.to("meta"), 0.5, 1, 2)
     vol = torch.zeros(1, 4, 4, 4, 2)
     with pytest.raises(TypeError):
@@ -209,7 +209,7 @@ def test_wrappers_reject_bad_inputs():
 def _backproject_grad(feats, mask, cam3, g, b, gs, rel_scale):
     """dfeats through the port's Function (plain versions on the CPU)."""
     f = torch.from_numpy(feats).requires_grad_()
-    out, _ = BackprojectGroupedRaw.apply(f, torch.from_numpy(mask),
+    out, _ = BackprojectGrouped.apply(f, torch.from_numpy(mask),
                                          torch.from_numpy(cam3), rel_scale,
                                          b, gs)
     (out * torch.from_numpy(g)).sum().backward()
@@ -240,7 +240,7 @@ def test_backproject_backward_matches_autograd_of_plain_forward():
     g = np.random.RandomState(1).randn(b, 2, 900, feats.shape[-1] + 2)
     g = g.astype(np.float32)
     f = torch.from_numpy(feats).requires_grad_()
-    out, _ = backproject_grouped_raw_plain(f, torch.from_numpy(mask),
+    out, _ = backproject_grouped_plain(f, torch.from_numpy(mask),
                                            torch.from_numpy(cam3), rel_scale,
                                            b, gs)
     (want,) = torch.autograd.grad(out, f, torch.from_numpy(g))
@@ -266,17 +266,17 @@ def test_sample3d_backward_matches_packed_interpret():
 
 def test_backward_wrappers_take_plain_version_on_cpu_and_check_inputs():
     feats, mask, cam3 = (torch.from_numpy(a) for a in _raw_inputs(13, n=300))
-    _, valid = backproject_grouped_raw(feats, mask, cam3, 0.5, 1, 3)
+    _, valid = backproject_grouped(feats, mask, cam3, 0.5, 1, 3)
     g = torch.randn(1, 2, 300, feats.shape[-1] + 2)
     h, w, c = feats.shape[1:]
     torch.testing.assert_close(
-        backproject_grouped_raw_bwd(g, cam3, valid, h, w, c, 3),
-        backproject_grouped_raw_bwd_plain(g, cam3, valid, h, w, c, 3),
+        backproject_grouped_bwd(g, cam3, valid, h, w, c, 3),
+        backproject_grouped_bwd_plain(g, cam3, valid, h, w, c, 3),
         rtol=0, atol=0)
     with pytest.raises(ValueError):
-        backproject_grouped_raw_bwd(g[:, :, :10], cam3, valid, h, w, c, 3)
+        backproject_grouped_bwd(g[:, :, :10], cam3, valid, h, w, c, 3)
     with pytest.raises(TypeError):
-        backproject_grouped_raw_bwd(g.double(), cam3, valid, h, w, c, 3)
+        backproject_grouped_bwd(g.double(), cam3, valid, h, w, c, 3)
     vol, coords = (torch.from_numpy(a) for a in _sample3d_inputs(14))
     g3 = torch.randn(*coords.shape[:2], vol.shape[-1])
     torch.testing.assert_close(
@@ -286,5 +286,5 @@ def test_backward_wrappers_take_plain_version_on_cpu_and_check_inputs():
         sample3d_trilinear_bwd(g3[..., :2], coords, vol.shape)
     with pytest.raises(ValueError):
         sample3d_trilinear_bwd(g3.to("meta"), coords.to("meta"), vol.shape)
-    assert backproject_grouped_raw_bwd.launches == 0
+    assert backproject_grouped_bwd.launches == 0
     assert sample3d_trilinear_bwd.launches == 0

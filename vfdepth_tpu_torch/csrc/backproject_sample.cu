@@ -1,41 +1,51 @@
-// Grouped raw-mode back-projection sampler (kernel K1).
+// Back-projection sampler: grouped (kernel K1) and ungrouped (kernel K1b).
 //
 // Replaces the TPU kernel vfdepth_tpu/ops/pallas_sample.py:176 `_fwd_kernel`
-// in its grouped raw mode, as launched by `_fwd_call_grouped`
-// (pallas_sample.py:431; entry `sample_backproject_grouped_raw_pallas`).
+// in all of its modes: grouped, as launched by `_fwd_call_grouped`
+// (pallas_sample.py:431; entries `sample_backproject_grouped_raw_pallas`
+// :806 and `sample_backproject_grouped_pallas` :766), and ungrouped, as
+// launched by `_fwd_call` (:382; entries `sample_bilinear_pallas` :643,
+// `sample_bilinear_with_nearest_mask_pallas` :655,
+// `sample_backproject_pallas` :705, `sample_backproject_raw_pallas` :793).
+// The tap rule (raw camera-plane or normalised coordinates, bilinear taps,
+// nearest mask pick) is in backproject_taps.cuh, shared with the backward
+// kernels (K2, K2b).
 //
-// What it computes, per (batch b, camera group g, voxel point n):
-//   for each camera k of the group (cameras are ordered group-major):
-//     (u, v, z) = cam3[cam, n];  x = u / (z + 1e-8), y = v / (z + 1e-8)
-//     NaN -> 2w, then clip to +-2w (both axes, as the TPU kernel does)
-//     live  = z > 0 and 0 <= x <= w-1 and 0 <= y <= h-1
-//     feat  = bilinear sample of feats[cam] at (x, y), zeros padding
-//     m     = mask[cam] at the NEAREST tap, picked by "f32 frac > 0.5 takes
-//             the upper tap" (not round-half-even)
-//     valid = live and m > 0.5
-//   out[b, g, n] = sum_k [feat * valid, z * rel_scale * valid, valid]
+// K1, per (batch b, camera group g, voxel point n), over the group's cameras
+// k (ordered group-major):
+//   valid = live and the nearest mask value > 0.5
+//   rel   = z * rel_scale (raw) or the third coordinate column (normalised)
+//   out[b, g, n] = sum_k [feat * valid, rel * valid, valid]
 //   valid_out[cam, n] = valid    (per camera; the backward's gate)
+// K1b, per (camera or image B, point n), one output row each, by mode:
+//   0 bilinear:    out [B, N, C]   = bilinear feat (live points)
+//   1 mask:        out [B, N, C+1] = [bilinear feat, nearest mask value]
+//   2 backproject: out [B, N, C+1] = [feat * valid, rel * valid],
+//                  valid_out [B, N] = valid
+// `rel * valid` is a select (a NaN depth of an invalid point gives 0: XLA
+// simplifies the JAX kernel's multiply to one).
 //
-// What bounds it on Hopper: bytes. The [b, 2, N, C+2] output is ~93% of the
-// compulsory traffic at the production shapes (1.23 GB of 1.32 GB per
-// frameset in f32); the feature maps (71 MB) stay resident in the 50 MB L2
-// a camera at a time, and the bilinear tap reads hit it.
+// What bounds them on Hopper: bytes. The output is ~93% of the compulsory
+// traffic at the production shapes (K1: [1, 2, 200000, 770] f32, 1.23 GB;
+// K1b: [3, 200000, 769] f32, 1.85 GB); the feature maps (71 MB / 35 MB)
+// stay resident in the 50 MB L2 a camera at a time, and the tap reads hit
+// it.
 //
 // Design: the TPU kernel builds one-hot weight matrices and runs them on the
 // MXU only because TPU gathers are slow; on Hopper a direct 4-tap gather is
-// the natural form. One block owns a tile of kTile points of one
-// (b, group). Phase 1: one thread per (camera, point) computes the taps once
-// into shared memory (row offsets, weights, validity, rel). Phase 2: the
-// block walks the tile's output as ONE contiguous run of kTile*(C+2) floats
-// (consecutive points' rows are adjacent), channel-fastest, so both the
-// NHWC tap-row reads and the output writes are coalesced; the group sum is
-// accumulated in registers over the group's cameras, in camera order — no
-// atomics. Phase 2 is instruction-bound when each thread makes one output
-// (tap bookkeeping per element), so for C % 4 == 0 (C = 768 in production)
-// a thread makes 4 channels of one point from float4 tap reads. Points no
-// camera sees cost only shared-memory reads. All offsets into the tensors
-// are 64-bit: at b=4 the output alone passes 2^31 elements. The tap rule
-// lives in backproject_taps.cuh, shared with the backward (K2).
+// the natural form. One block owns a tile of kTile points of one (b, group)
+// (K1) or one camera (K1b). Phase 1: one thread per (camera, point) computes
+// the taps once into shared memory (row offsets, weights, validity, rel or
+// mask value). Phase 2: the block walks the tile's output rows
+// channel-fastest, so the NHWC tap-row reads and the output writes are
+// coalesced; K1's group sum is accumulated in registers over the group's
+// cameras, in camera order - no atomics. Phase 2 is instruction-bound when
+// each thread makes one output (tap bookkeeping per element), so for
+// C % 4 == 0 (C = 768 in production) a thread makes 4 channels of one point
+// from float4 tap reads and stores them as wide as the row stride allows
+// (K1b's C+1 rows are only 4-byte aligned: scalar stores). Points no camera
+// sees cost only shared-memory reads. All offsets into the tensors are
+// 64-bit: at b=4 K1's output alone passes 2^31 elements.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,19 +60,26 @@ constexpr int kMaxGroup = kThreads / kTile;
 struct Taps {
   int64_t off[4];  // element offsets of the 4 bilinear tap rows, -1 = none
   float w[4];
-  float valid;     // 0 or 1
-  float rel;       // valid ? z * rel_scale : 0
+  float keep;      // 0 or 1: the point's features are sampled
+  float extra;     // K1: rel * valid; K1b: mask value (mode 1), rel (mode 2)
 };
 
-template <bool kVec4>
+// rel-depth of a point: z * rel_scale (raw) or the third coordinate column
+template <bool kRaw>
+__device__ __forceinline__ float rel_of(const TapPoint& t, const float* q,
+                                        float rel_scale) {
+  return kRaw ? t.z * rel_scale : q[2];
+}
+
+template <bool kRaw, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-backproject_grouped_raw_kernel(const float* __restrict__ feats,
-                               const float* __restrict__ mask,
-                               const float* __restrict__ cam3,
-                               float* __restrict__ out,
-                               float* __restrict__ valid_out,
-                               int gs, int h, int w, int64_t c, int64_t n,
-                               float rel_scale) {
+backproject_grouped_kernel(const float* __restrict__ feats,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ coords,
+                           float* __restrict__ out,
+                           float* __restrict__ valid_out,
+                           int gs, int h, int w, int64_t c, int64_t n,
+                           float rel_scale) {
   __shared__ Taps taps[kMaxGroup][kTile];
   const int g = blockIdx.y;
   const int64_t bi = blockIdx.z;
@@ -76,22 +93,19 @@ backproject_grouped_raw_kernel(const float* __restrict__ feats,
     const int64_t pt = n0 + p;
     if (k < gs && pt < n) {
       const int64_t cam = cam0 + k;
-      const RawPoint q = raw_point(cam3 + (cam * n + pt) * 3, h, w);
+      const float* q = coords + (cam * n + pt) * 3;
+      const TapPoint tp = tap_point<kRaw>(q, h, w);
       Taps t;
       float valid = 0.0f;
       for (int j = 0; j < 4; ++j) { t.off[j] = -1; t.w[j] = 0.0f; }
-      if (q.live) {
-        const int xn = q.ix + (q.fx > 0.5f ? 1 : 0);
-        const int yn = q.iy + (q.fy > 0.5f ? 1 : 0);
-        const float m = (xn < w && yn < h)
-                            ? mask[(cam * h + yn) * (int64_t)w + xn] : 0.0f;
-        if (m > 0.5f) {
-          valid = 1.0f;
-          bilinear_taps(q, cam, h, w, c, t.off, t.w);
-        }
+      if (tp.live && nearest_mask(tp, mask + cam * h * (int64_t)w, h, w) >
+                         0.5f) {
+        valid = 1.0f;
+        bilinear_taps(tp, cam, h, w, c, t.off, t.w);
       }
-      t.valid = valid;
-      t.rel = valid != 0.0f ? q.z * rel_scale : 0.0f;  // select: no NaN * 0
+      t.keep = valid;
+      // a select: no NaN * 0
+      t.extra = valid != 0.0f ? rel_of<kRaw>(tp, q, rel_scale) : 0.0f;
       taps[k][p] = t;
       valid_out[cam * n + pt] = valid;
     }
@@ -113,7 +127,7 @@ backproject_grouped_raw_kernel(const float* __restrict__ feats,
       float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       for (int k = 0; k < gs; ++k) {
         const Taps& t = taps[k][p];
-        if (t.valid == 0.0f) continue;
+        if (t.keep == 0.0f) continue;
         float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         for (int j = 0; j < 4; ++j) {
           if (t.off[j] < 0) continue;
@@ -129,59 +143,206 @@ backproject_grouped_raw_kernel(const float* __restrict__ feats,
         acc.z += val.z;
         acc.w += val.w;
       }
-      float2* o = reinterpret_cast<float2*>(dst + p * co + ch);
-      o[0] = make_float2(acc.x, acc.y);
-      o[1] = make_float2(acc.z, acc.w);
+      store4(dst + p * co + ch, acc, 2);
     }
     for (int idx = threadIdx.x; idx < rows * 2; idx += kThreads) {
       const int p = idx / 2;
       float acc = 0.0f;
       for (int k = 0; k < gs; ++k)
-        acc += (idx & 1) ? taps[k][p].valid : taps[k][p].rel;
+        acc += (idx & 1) ? taps[k][p].keep : taps[k][p].extra;
       dst[p * co + (int)c + (idx & 1)] = acc;
     }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < rows * co; idx += kThreads) {
-    const int p = idx / co;
-    const int ch = idx - p * co;
-    float acc = 0.0f;
-    if (ch < c) {
-      for (int k = 0; k < gs; ++k) {
-        const Taps& t = taps[k][p];
-        if (t.valid == 0.0f) continue;
-        float val = 0.0f;
-        for (int j = 0; j < 4; ++j)
-          if (t.off[j] >= 0) val += t.w[j] * __ldg(feats + t.off[j] + ch);
-        acc += val;
+  } else {
+    for (int idx = threadIdx.x; idx < rows * co; idx += kThreads) {
+      const int p = idx / co;
+      const int ch = idx - p * co;
+      float acc = 0.0f;
+      if (ch < c) {
+        for (int k = 0; k < gs; ++k) {
+          const Taps& t = taps[k][p];
+          if (t.keep == 0.0f) continue;
+          float val = 0.0f;
+          for (int j = 0; j < 4; ++j)
+            if (t.off[j] >= 0) val += t.w[j] * __ldg(feats + t.off[j] + ch);
+          acc += val;
+        }
+      } else if (ch == c) {
+        for (int k = 0; k < gs; ++k) acc += taps[k][p].extra;
+      } else {
+        for (int k = 0; k < gs; ++k) acc += taps[k][p].keep;
       }
-    } else if (ch == c) {
-      for (int k = 0; k < gs; ++k) acc += taps[k][p].rel;
-    } else {
-      for (int k = 0; k < gs; ++k) acc += taps[k][p].valid;
+      dst[idx] = acc;
     }
-    dst[idx] = acc;
   }
+}
+
+// K1b. kMode: 0 bilinear, 1 bilinear + nearest mask value, 2 back-projection
+// epilogue (raw or normalised coordinates; the others take normalised ones).
+template <bool kRaw, int kMode, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+sample2d_kernel(const float* __restrict__ feats,
+                const float* __restrict__ mask,
+                const float* __restrict__ coords,
+                float* __restrict__ out, float* __restrict__ valid_out,
+                int h, int w, int64_t c, int64_t n, int ncols,
+                float rel_scale, int out_vec) {
+  __shared__ Taps taps[kTile];
+  const int64_t cam = blockIdx.y;
+  const int64_t n0 = (int64_t)blockIdx.x * kTile;
+
+  // phase 1: one thread per point of the tile
+  if (threadIdx.x < kTile) {
+    const int p = threadIdx.x;
+    const int64_t pt = n0 + p;
+    if (pt < n) {
+      const float* q = coords + (cam * n + pt) * ncols;
+      const TapPoint tp = tap_point<kRaw>(q, h, w);
+      Taps t;
+      float keep = 0.0f, extra = 0.0f;
+      for (int j = 0; j < 4; ++j) { t.off[j] = -1; t.w[j] = 0.0f; }
+      if (tp.live) {
+        if (kMode == 0) {
+          keep = 1.0f;
+        } else {
+          const float m = nearest_mask(tp, mask + cam * h * (int64_t)w, h, w);
+          if (kMode == 1) {
+            keep = 1.0f;
+            extra = m;
+          } else {
+            keep = m > 0.5f ? 1.0f : 0.0f;
+          }
+        }
+        if (keep != 0.0f) bilinear_taps(tp, cam, h, w, c, t.off, t.w);
+      }
+      if (kMode == 2) {
+        // a select: no NaN * 0
+        extra = keep != 0.0f ? rel_of<kRaw>(tp, q, rel_scale) : 0.0f;
+        valid_out[cam * n + pt] = keep;
+      }
+      t.keep = keep;
+      t.extra = extra;
+      taps[p] = t;
+    }
+  }
+  __syncthreads();
+
+  // phase 2: the tile's output rows are one contiguous run
+  const int co = (int)c + (kMode == 0 ? 0 : 1);
+  const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
+  float* dst = out + (cam * n + n0) * co;
+  if (kVec4) {
+    // one thread per (point, 4 channels): float4 tap reads
+    const int c4 = (int)c / 4;
+    for (int idx = threadIdx.x; idx < rows * c4; idx += kThreads) {
+      const int p = idx / c4;
+      const int ch = (idx - p * c4) * 4;
+      const Taps& t = taps[p];
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (t.keep != 0.0f) {
+        for (int j = 0; j < 4; ++j) {
+          if (t.off[j] < 0) continue;
+          const float4 f =
+              __ldg(reinterpret_cast<const float4*>(feats + t.off[j] + ch));
+          acc.x += t.w[j] * f.x;
+          acc.y += t.w[j] * f.y;
+          acc.z += t.w[j] * f.z;
+          acc.w += t.w[j] * f.w;
+        }
+      }
+      store4(dst + p * co + ch, acc, out_vec);
+    }
+    if (kMode != 0)
+      for (int p = threadIdx.x; p < rows; p += kThreads)
+        dst[p * co + (int)c] = taps[p].extra;
+  } else {
+    for (int idx = threadIdx.x; idx < rows * co; idx += kThreads) {
+      const int p = idx / co;
+      const int ch = idx - p * co;
+      const Taps& t = taps[p];
+      float acc = 0.0f;
+      if (ch < c) {
+        if (t.keep != 0.0f)
+          for (int j = 0; j < 4; ++j)
+            if (t.off[j] >= 0) acc += t.w[j] * __ldg(feats + t.off[j] + ch);
+      } else {
+        acc = t.extra;
+      }
+      dst[idx] = acc;
+    }
+  }
+}
+
+template <bool kRaw, int kMode>
+void launch_sample2d(const dim3& grid, cudaStream_t s, bool vec4,
+                     const float* feats, const float* mask,
+                     const float* coords, float* out, float* valid, int h,
+                     int w, int64_t c, int64_t n, int ncols, float rel_scale,
+                     int out_vec) {
+  if (vec4)
+    sample2d_kernel<kRaw, kMode, true><<<grid, kThreads, 0, s>>>(
+        feats, mask, coords, out, valid, h, w, c, n, ncols, rel_scale,
+        out_vec);
+  else
+    sample2d_kernel<kRaw, kMode, false><<<grid, kThreads, 0, s>>>(
+        feats, mask, coords, out, valid, h, w, c, n, ncols, rel_scale,
+        out_vec);
 }
 
 }  // namespace
 
-extern "C" int vf_backproject_grouped_raw(
-    const float* feats, const float* mask, const float* cam3, float* out,
+// K1: feats [b*2*gs, h, w, c], mask [b*2*gs, h, w], coords [b*2*gs, n, 3]
+// (raw (u, v, z), or normalised (x, y, rel)) -> out [b, 2, n, c+2], valid
+// [b*2*gs, n].
+extern "C" int vf_backproject_grouped(
+    const float* feats, const float* mask, const float* coords, float* out,
     float* valid, int64_t b, int64_t gs, int64_t h, int64_t w, int64_t c,
-    int64_t n, float rel_scale, void* stream) {
+    int64_t n, float rel_scale, int raw, void* stream) {
   if (gs < 1 || gs > kMaxGroup) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n + kTile - 1) / kTile), 2, (unsigned)b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 8 == 0) {
-    backproject_grouped_raw_kernel<true><<<grid, kThreads, 0, s>>>(
-        feats, mask, cam3, out, valid, (int)gs, (int)h, (int)w, c, n,
-        rel_scale);
+  const bool vec4 = c % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(feats) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 8 == 0;
+#define VF_GROUPED(RAW, VEC)                                                 \
+  backproject_grouped_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(            \
+      feats, mask, coords, out, valid, (int)gs, (int)h, (int)w, c, n,        \
+      rel_scale)
+  if (raw) {
+    if (vec4) VF_GROUPED(true, true); else VF_GROUPED(true, false);
   } else {
-    backproject_grouped_raw_kernel<false><<<grid, kThreads, 0, s>>>(
-        feats, mask, cam3, out, valid, (int)gs, (int)h, (int)w, c, n,
-        rel_scale);
+    if (vec4) VF_GROUPED(false, true); else VF_GROUPED(false, false);
   }
+#undef VF_GROUPED
+  return (int)cudaGetLastError();
+}
+
+// K1b: feats [B, h, w, c], mask [B, h, w] (modes 1, 2; else unused), coords
+// [B, n, ncols] -> out [B, n, c (+1 in modes 1, 2)], valid [B, n] (mode 2).
+extern "C" int vf_sample2d(const float* feats, const float* mask,
+                           const float* coords, float* out, float* valid,
+                           int64_t B, int64_t h, int64_t w, int64_t c,
+                           int64_t n, int64_t ncols, int mode, int raw,
+                           float rel_scale, void* stream) {
+  if (mode < 0 || mode > 2 || (raw && mode != 2) || ncols < 2 ||
+      ((raw || mode == 2) && ncols < 3) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = c % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const int out_vec = vec_width(out, c + (mode == 0 ? 0 : 1));
+  const int nc = (int)ncols;
+  if (mode == 0)
+    launch_sample2d<false, 0>(grid, s, vec4, feats, mask, coords, out, valid,
+                              (int)h, (int)w, c, n, nc, rel_scale, out_vec);
+  else if (mode == 1)
+    launch_sample2d<false, 1>(grid, s, vec4, feats, mask, coords, out, valid,
+                              (int)h, (int)w, c, n, nc, rel_scale, out_vec);
+  else if (raw)
+    launch_sample2d<true, 2>(grid, s, vec4, feats, mask, coords, out, valid,
+                             (int)h, (int)w, c, n, nc, rel_scale, out_vec);
+  else
+    launch_sample2d<false, 2>(grid, s, vec4, feats, mask, coords, out, valid,
+                              (int)h, (int)w, c, n, nc, rel_scale, out_vec);
   return (int)cudaGetLastError();
 }

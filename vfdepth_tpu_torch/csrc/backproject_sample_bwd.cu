@@ -1,36 +1,45 @@
-// Backward of the grouped raw-mode back-projection sampler (kernel K2).
+// Backward of the back-projection sampler: grouped (kernel K2) and
+// ungrouped (kernel K2b).
 //
 // Replaces the TPU kernel vfdepth_tpu/ops/pallas_sample.py:301 `_bwd_kernel`
-// as launched by `_bwd_call` (pallas_sample.py:497) from the grouped raw
-// backward `_pallas_backproject_grouped_bwd` (:748).
+// as launched by `_bwd_call` (pallas_sample.py:497): with group_size > 0
+// from the grouped backward `_pallas_backproject_grouped_bwd` (:748), K2;
+// with group_size = 0 from `_pallas_sample_bwd` (:605),
+// `_pallas_sample_masked_bwd` (:629) and `_pallas_backproject_bwd` (:686),
+// K2b.
 //
-// What it computes, for every camera `cam` of group g of batch b and every
-// voxel point n that the forward (K1) marked valid for that camera:
-//   dfeat[cam, tap pixel, c] += W_tap(n) * g[b, g, n, c]   (c < C)
-// over the 4 bilinear taps of the point, recomputed from cam3 exactly as K1
-// computes them (backproject_taps.cuh). Only the feature channels get a
-// gradient: the trailing rel and valid columns of g are ignored, the mask
-// and the coordinates get none. The forward's per-camera `valid` gates as a
-// select, never a multiply: a point that is not valid adds nothing, even
-// where its cotangent row is not finite.
+// What it computes, for every camera `cam` and every point n that its
+// forward sampled for that camera (K2 and gated K2b: marked valid; ungated
+// K2b: live):
+//   dfeat[cam, tap pixel, c] += W_tap(n) * g[row(cam), n, c]   (c < C)
+// over the 4 bilinear taps of the point, recomputed from the coordinates
+// exactly as the forward computes them (backproject_taps.cuh). K2's row is
+// the camera's group (b, g): each camera reads its group's cotangent; K2b's
+// row is the camera's own. Only the first C columns of g are read: the
+// trailing mask, rel and valid columns get no gradient, nor do the mask and
+// the coordinates. The forward's validity gates as a select, never a
+// multiply: a point that is not valid adds nothing, even where its
+// cotangent row is not finite.
 //
-// What bounds it on Hopper: bytes. At the production shapes (b=2, 6 cameras
-// of 48x80 merged features, C = 768, 200,000 voxel points) the cotangent g
-// is 2.46 GB, and only the rows of points some camera sees (~16%) need to
-// be read; the output (141 MB) is small. The TPU kernel builds transposed
-// one-hot matrices for its MXU; on Hopper the natural form is a scatter-add.
-// Design: vectorised atomics. One block owns a tile of kTile points of one
-// (b, group); phase 1 computes each (camera, point)'s taps once into shared
-// memory (as K1 does), phase 2 walks the tile's (point, 4 channels) pairs,
-// reads the group's cotangent row once (two float2 loads: rows of C+2
-// floats start 8-byte aligned) for all the cameras that see the point, and
-// adds w * g into the feature map with one float4 atomicAdd per tap
-// (sm_90 has 16-byte atomics). Each (pixel, channel) address receives ~34
-// additions on the fake rig, from points that are neighbours in the voxel
-// order, so contention is local; the sums are taken in a varying order (a
-// run-to-run difference of a few ulp). A deterministic alternative - bucket
-// the point-taps by pixel (a counting sort) and sum each list in a block -
-// costs two more passes and a sort; it is left for a later change.
+// What bounds it on Hopper: bytes. At the production shapes (K2: b=2, 6
+// cameras of 48x80 merged features, C = 768, 200,000 voxel points; K2b: the
+// same for 3 cameras with their own rows) the cotangent is 2.46 GB (K2) or
+// 3.69 GB (K2b), and only the rows of points some camera sees need to be
+// read; the output (141 MB / 71 MB) is small. The TPU kernel builds
+// transposed one-hot matrices for its MXU; on Hopper the natural form is a
+// scatter-add. Design: vectorised atomics. One block owns a tile of kTile
+// points of one (b, group) (K2) or one camera (K2b); phase 1 computes each
+// (camera, point)'s taps once into shared memory (as the forward does),
+// phase 2 walks the tile's (point, 4 channels) pairs, reads the cotangent
+// row once (as wide as its stride allows: K2b's C+1 rows are only 4-byte
+// aligned) for all the cameras that use it, and adds w * g into the feature
+// map with one float4 atomicAdd per tap (sm_90 has 16-byte atomics). Each
+// (pixel, channel) address receives tens of additions, from points that are
+// neighbours in the voxel order, so contention is local; the sums are taken
+// in a varying order (a run-to-run difference of a few ulp). A
+// deterministic alternative - bucket the point-taps by pixel (a counting
+// sort) and sum each list in a block - costs two more passes and a sort; it
+// is left for a later change.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,13 +56,71 @@ struct BwdTaps {
   float w[4];
 };
 
+// The taps of (camera, point) if its forward used it, else none; returns
+// whether it has any.
+template <bool kRaw>
+__device__ __forceinline__ bool point_taps(const float* coords,
+                                           const float* valid, int64_t cam,
+                                           int64_t pt, int64_t n, int ncols,
+                                           int h, int w, int64_t c,
+                                           BwdTaps& t) {
+  for (int j = 0; j < 4; ++j) { t.off[j] = -1; t.w[j] = 0.0f; }
+  if (valid != nullptr && valid[cam * n + pt] == 0.0f) return false;
+  const TapPoint q = tap_point<kRaw>(coords + (cam * n + pt) * ncols, h, w);
+  if (!q.live) return false;
+  bilinear_taps(q, cam, h, w, c, t.off, t.w);
+  return true;
+}
+
+// One block: the cotangent rows src[p * ldg] (p < rows) scattered into the
+// taps of the `cams` cameras of taps[k][p].
 template <bool kVec4>
+__device__ __forceinline__ void scatter_tile(const float* __restrict__ src,
+                                             BwdTaps (*taps)[kTile],
+                                             const int* seen, int cams,
+                                             int rows, int64_t c, int64_t ldg,
+                                             int gvec,
+                                             float* __restrict__ dfeat) {
+  if (kVec4) {
+    const int c4 = (int)c / 4;
+    for (int idx = threadIdx.x; idx < rows * c4; idx += kThreads) {
+      const int p = idx / c4;
+      if (!seen[p]) continue;
+      const int ch = (idx - p * c4) * 4;
+      const float4 gv = load4(src + p * ldg + ch, gvec);
+      for (int k = 0; k < cams; ++k) {
+        const BwdTaps& t = taps[k][p];
+        for (int j = 0; j < 4; ++j) {
+          if (t.off[j] < 0) continue;
+          const float wt = t.w[j];
+          atomicAdd(reinterpret_cast<float4*>(dfeat + t.off[j] + ch),
+                    make_float4(wt * gv.x, wt * gv.y, wt * gv.z, wt * gv.w));
+        }
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * (int)c; idx += kThreads) {
+      const int p = idx / (int)c;
+      if (!seen[p]) continue;
+      const int ch = idx - p * (int)c;
+      const float gv = __ldg(src + p * ldg + ch);
+      for (int k = 0; k < cams; ++k) {
+        const BwdTaps& t = taps[k][p];
+        for (int j = 0; j < 4; ++j)
+          if (t.off[j] >= 0) atomicAdd(dfeat + t.off[j] + ch, t.w[j] * gv);
+      }
+    }
+  }
+}
+
+template <bool kRaw, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-backproject_grouped_raw_bwd_kernel(const float* __restrict__ g,
-                                   const float* __restrict__ cam3,
-                                   const float* __restrict__ valid,
-                                   float* __restrict__ dfeat, int gs, int h,
-                                   int w, int64_t c, int64_t ldg, int64_t n) {
+backproject_grouped_bwd_kernel(const float* __restrict__ g,
+                               const float* __restrict__ coords,
+                               const float* __restrict__ valid,
+                               float* __restrict__ dfeat, int gs, int h,
+                               int w, int64_t c, int64_t ldg, int64_t n,
+                               int gvec) {
   __shared__ BwdTaps taps[kMaxGroup][kTile];
   __shared__ int seen[kTile];   // some camera of the group sees the point
   const int grp = blockIdx.y;
@@ -69,74 +136,93 @@ backproject_grouped_raw_bwd_kernel(const float* __restrict__ g,
     const int p = threadIdx.x % kTile;
     const int64_t pt = n0 + p;
     if (k < gs && pt < n) {
-      const int64_t cam = cam0 + k;
-      BwdTaps t;
-      for (int j = 0; j < 4; ++j) { t.off[j] = -1; t.w[j] = 0.0f; }
-      if (valid[cam * n + pt] != 0.0f) {
-        const RawPoint q = raw_point(cam3 + (cam * n + pt) * 3, h, w);
-        bilinear_taps(q, cam, h, w, c, t.off, t.w);
+      if (point_taps<kRaw>(coords, valid, cam0 + k, pt, n, 3, h, w, c,
+                           taps[k][p]))
         seen[p] = 1;
-      }
-      taps[k][p] = t;
     }
   }
   __syncthreads();
 
   const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
-  const float* src = g + ((bi * 2 + grp) * n + n0) * ldg;
-  if (kVec4) {
-    const int c4 = (int)c / 4;
-    for (int idx = threadIdx.x; idx < rows * c4; idx += kThreads) {
-      const int p = idx / c4;
-      if (!seen[p]) continue;
-      const int ch = (idx - p * c4) * 4;
-      const float2* row = reinterpret_cast<const float2*>(src + p * ldg + ch);
-      const float2 a = __ldg(row), b = __ldg(row + 1);
-      for (int k = 0; k < gs; ++k) {
-        const BwdTaps& t = taps[k][p];
-        for (int j = 0; j < 4; ++j) {
-          if (t.off[j] < 0) continue;
-          const float wt = t.w[j];
-          atomicAdd(reinterpret_cast<float4*>(dfeat + t.off[j] + ch),
-                    make_float4(wt * a.x, wt * a.y, wt * b.x, wt * b.y));
-        }
-      }
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * (int)c; idx += kThreads) {
-      const int p = idx / (int)c;
-      if (!seen[p]) continue;
-      const int ch = idx - p * (int)c;
-      const float gv = __ldg(src + p * ldg + ch);
-      for (int k = 0; k < gs; ++k) {
-        const BwdTaps& t = taps[k][p];
-        for (int j = 0; j < 4; ++j)
-          if (t.off[j] >= 0) atomicAdd(dfeat + t.off[j] + ch, t.w[j] * gv);
-      }
-    }
+  scatter_tile<kVec4>(g + ((bi * 2 + grp) * n + n0) * ldg, taps, seen, gs,
+                      rows, c, ldg, gvec, dfeat);
+}
+
+template <bool kRaw, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+sample2d_bwd_kernel(const float* __restrict__ g,
+                    const float* __restrict__ coords,
+                    const float* __restrict__ valid,
+                    float* __restrict__ dfeat, int h, int w, int64_t c,
+                    int64_t ldg, int64_t n, int ncols, int gvec) {
+  __shared__ BwdTaps taps[1][kTile];
+  __shared__ int seen[kTile];
+  const int64_t cam = blockIdx.y;
+  const int64_t n0 = (int64_t)blockIdx.x * kTile;
+
+  if (threadIdx.x < kTile) {
+    const int64_t pt = n0 + threadIdx.x;
+    seen[threadIdx.x] =
+        pt < n && point_taps<kRaw>(coords, valid, cam, pt, n, ncols, h, w, c,
+                                   taps[0][threadIdx.x]);
   }
+  __syncthreads();
+
+  const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
+  scatter_tile<kVec4>(g + (cam * n + n0) * ldg, taps, seen, 1, rows, c, ldg,
+                      gvec, dfeat);
 }
 
 }  // namespace
 
-// g [b, 2, n, ldg] (the forward output's cotangent, ldg >= c), cam3 [b*2*gs,
-// n, 3], valid [b*2*gs, n] -> dfeat [b*2*gs, h, w, c], which the caller
-// zeroes.
-extern "C" int vf_backproject_grouped_raw_bwd(
-    const float* g, const float* cam3, const float* valid, float* dfeat,
+// K2: g [b, 2, n, ldg] (the forward output's cotangent, ldg >= c), coords
+// [b*2*gs, n, 3], valid [b*2*gs, n] -> dfeat [b*2*gs, h, w, c], which the
+// caller zeroes.
+extern "C" int vf_backproject_grouped_bwd(
+    const float* g, const float* coords, const float* valid, float* dfeat,
     int64_t b, int64_t gs, int64_t h, int64_t w, int64_t c, int64_t ldg,
-    int64_t n, void* stream) {
+    int64_t n, int raw, void* stream) {
   if (gs < 1 || gs > kMaxGroup || ldg < c) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n + kTile - 1) / kTile), 2, (unsigned)b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c % 4 == 0 && ldg % 2 == 0 &&
-      reinterpret_cast<uintptr_t>(g) % 8 == 0 &&
-      reinterpret_cast<uintptr_t>(dfeat) % 16 == 0) {
-    backproject_grouped_raw_bwd_kernel<true><<<grid, kThreads, 0, s>>>(
-        g, cam3, valid, dfeat, (int)gs, (int)h, (int)w, c, ldg, n);
+  const bool vec4 = c % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(dfeat) % 16 == 0;
+  const int gvec = vec_width(g, ldg);
+#define VF_GROUPED_BWD(RAW, VEC)                                             \
+  backproject_grouped_bwd_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(        \
+      g, coords, valid, dfeat, (int)gs, (int)h, (int)w, c, ldg, n, gvec)
+  if (raw) {
+    if (vec4) VF_GROUPED_BWD(true, true); else VF_GROUPED_BWD(true, false);
   } else {
-    backproject_grouped_raw_bwd_kernel<false><<<grid, kThreads, 0, s>>>(
-        g, cam3, valid, dfeat, (int)gs, (int)h, (int)w, c, ldg, n);
+    if (vec4) VF_GROUPED_BWD(false, true); else VF_GROUPED_BWD(false, false);
   }
+#undef VF_GROUPED_BWD
+  return (int)cudaGetLastError();
+}
+
+// K2b: g [B, n, ldg] (ldg >= c), coords [B, n, ncols], valid [B, n] or null
+// (no gate: every live point) -> dfeat [B, h, w, c], which the caller
+// zeroes.
+extern "C" int vf_sample2d_bwd(const float* g, const float* coords,
+                               const float* valid, float* dfeat, int64_t B,
+                               int64_t h, int64_t w, int64_t c, int64_t ldg,
+                               int64_t n, int64_t ncols, int raw,
+                               void* stream) {
+  if (ldg < c || ncols < (raw ? 3 : 2) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = c % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(dfeat) % 16 == 0;
+  const int gvec = vec_width(g, ldg);
+#define VF_SAMPLE2D_BWD(RAW, VEC)                                            \
+  sample2d_bwd_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(                   \
+      g, coords, valid, dfeat, (int)h, (int)w, c, ldg, n, (int)ncols, gvec)
+  if (raw) {
+    if (vec4) VF_SAMPLE2D_BWD(true, true); else VF_SAMPLE2D_BWD(true, false);
+  } else {
+    if (vec4) VF_SAMPLE2D_BWD(false, true); else VF_SAMPLE2D_BWD(false, false);
+  }
+#undef VF_SAMPLE2D_BWD
   return (int)cudaGetLastError();
 }

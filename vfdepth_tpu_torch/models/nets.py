@@ -3,6 +3,15 @@
 Inputs and outputs at the nets' boundaries are NHWC with an explicit camera
 axis, as in the JAX package; the convolutions inside run NCHW on the
 camera-packed batch. The Monodepth2 baselines ('fsm') are not ported yet.
+
+Each net's ``forward`` is the JAX ``__call__``: its own back-projection,
+group-reduced (kernel K1) where the rig's two overlap groups are equal,
+per camera (kernel K1b) otherwise. The model merges the two nets'
+back-projections into one by default and calls the halves
+(``encode_aggregate``, ``*_from_backprojection``) itself. Where the
+``grouped`` flag of a half says whether ``feat`` holds the two group sums
+([b, 2, n, C+1]) or one row per camera ([b, cams, n, C+1]), it defaults to
+the group sums (the JAX package defaults to per camera).
 """
 from __future__ import annotations
 
@@ -64,17 +73,38 @@ class FusedDepthNet(nn.Module):
         agg = _aggregate(feats, self.fusion_level, self.conv1x1)
         return feats, unpack_cam_feat(_to_nhwc(agg), b, cams)
 
+    def forward(self, images: torch.Tensor, mask: torch.Tensor,
+                intrinsics: torch.Tensor, inv_k: torch.Tensor,
+                extrinsics: torch.Tensor, extrinsics_inv: torch.Tensor,
+                plain: bool = False) -> Dict[str, torch.Tensor]:
+        """images [b, cams, H, W, 3] (frame 0), mask [b, cams, H, W, 1],
+        intrinsics and inv_k at the fusion scale -> {'disp/{s}'}."""
+        feats, feats_agg = self.encode_aggregate(images)
+        fn = self.fusion_net
+        grouped = fn.grouped_backprojection
+        if grouped:
+            feat, count = fn.backproject_into_voxel_grouped(
+                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        else:
+            feat, _, count = fn.backproject_into_voxel(
+                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        return self.decode_from_backprojection(
+            feat, count, feats[:self.fusion_level], inv_k, extrinsics,
+            grouped=grouped, plain=plain)
+
     def decode_from_backprojection(self, feat: torch.Tensor,
                                    count: torch.Tensor,
                                    skip_feats: Sequence[torch.Tensor],
                                    inv_k: torch.Tensor,
                                    extrinsics: torch.Tensor,
+                                   grouped: bool = True,
                                    plain: bool = False
                                    ) -> Dict[str, torch.Tensor]:
-        """Camera-group sums feat [b, 2, n, C+1] and count [b, n] ->
-        {'disp/{s}': [b, cams, H/2^s, W/2^s, 1]}."""
+        """Back-projected voxel features feat (camera-group sums [b, 2, n,
+        C+1], or per camera [b, cams, n, C+1] unless ``grouped``) and count
+        [b, n] -> {'disp/{s}': [b, cams, H/2^s, W/2^s, 1]}."""
         b, cams = inv_k.shape[:2]
-        voxel_feat = self.fusion_net.fuse_depth(feat, count)
+        voxel_feat = self.fusion_net.fuse_depth(feat, count, grouped=grouped)
         proj = self.fusion_net.project_voxel_into_image(
             voxel_feat, inv_k, extrinsics, plain=plain)
         dec = self.decoder(list(skip_feats) + [proj])
@@ -117,12 +147,37 @@ class FusedPoseNet(nn.Module):
             feats_agg = f.reshape(tuple(f.shape[:-2]) + (n_ctx * c,))
         return feats_agg
 
+    def forward(self, cur_images: torch.Tensor, next_images: torch.Tensor,
+                mask: torch.Tensor, intrinsics: torch.Tensor,
+                inv_k: torch.Tensor, extrinsics: torch.Tensor,
+                extrinsics_inv: torch.Tensor, n_ctx: int = 1,
+                plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Context pairs stacked group-major along batch ([n_ctx*b, cams, H,
+        W, 3] each), mask and calibration at the true batch -> (axisangle,
+        translation), each [n_ctx*b, 1, 1, 3]. ``inv_k`` and ``extrinsics``
+        are unused (the JAX signature)."""
+        feats_agg = self.encode_aggregate(cur_images, next_images,
+                                          n_ctx=n_ctx)
+        fn = self.fusion_net
+        grouped = fn.grouped_backprojection
+        if grouped:
+            feat, count = fn.backproject_into_voxel_grouped(
+                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        else:
+            feat, _, count = fn.backproject_into_voxel(
+                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        return self.pose_from_backprojection(feat, count, n_ctx=n_ctx,
+                                             grouped=grouped)
+
     def pose_from_backprojection(self, feat: torch.Tensor, count: torch.Tensor,
-                                 n_ctx: int = 1
+                                 n_ctx: int = 1, grouped: bool = True
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Camera-group sums [b, 2, n, n_ctx*C + 1] -> (axisangle,
-        translation), each [n_ctx*b, 1, 1, 3]; translation clipped to +-4 m."""
+        """Back-projected voxel features (camera-group sums [b, 2, n,
+        n_ctx*C + 1], or per camera [b, cams, ...] unless ``grouped``) ->
+        (axisangle, translation), each [n_ctx*b, 1, 1, 3]; translation
+        clipped to +-4 m."""
         bev = self.fusion_net.pose_voxel_to_bev(feat, count,
-                                                frame_groups=n_ctx)
+                                                frame_groups=n_ctx,
+                                                grouped=grouped)
         axisangle, translation = self.pose_decoder(bev)
         return axisangle, ties.clip(translation, -4.0, 4.0)

@@ -7,10 +7,10 @@ plain reshapes), and the frustum sample is ``[b, cams, h, w, d*C]`` with
 channel index ``d*C + c`` (``reduce_dim_0``'s weights transfer unpermuted).
 
 Ported: ``_project_cam_points``, the grouped back-projection (kernel K1,
-backward K2), ``fuse_depth`` (grouped form), ``project_voxel_into_image``
-(kernel K3, backward K4), ``pose_voxel_to_bev`` and ``BEVFold``. The
-ungrouped back-projection (K1b: 3-camera rigs, ``merge_backprojection:
-false``) is not ported yet.
+backward K2) for rigs whose two overlap groups are equal, the ungrouped one
+(kernel K1b, backward K2b: the 3-camera rig), ``fuse_depth`` and
+``pose_voxel_to_bev`` in both forms, ``project_voxel_into_image`` (kernel
+K3, backward K4) and ``BEVFold``.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from torch import nn
 from .blocks import ConvBlock, PointwiseBlock
 from ..geometry.projection import (frustum_world_points, linspace_f32,
                                    voxel_points_homo)
-from ..ops.backproject_sample import BackprojectGroupedRaw
+from ..ops.backproject_sample import (sample_backproject_grouped_raw,
+                                      sample_backproject_raw)
 from ..ops import ties
 from ..ops.resize import resize_bilinear
 from ..ops.sample3d import Sample3dTrilinear
@@ -99,6 +100,37 @@ def grouped_backprojection_ok(groups, num_cams: int) -> bool:
             and sorted(g1 + g2) == list(range(num_cams)))
 
 
+def backproject_features(feats_agg: torch.Tensor, mask: torch.Tensor,
+                         intrinsics: torch.Tensor,
+                         extrinsics_inv: torch.Tensor, *,
+                         voxel_str_p: Sequence[float],
+                         voxel_unit_size: Sequence[float],
+                         voxel_size: Sequence[int], plain: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Image features [b, cams, h, w, C] -> per-camera masked voxel
+    features (kernel K1b; its backward, K2b, gives ``feats_agg`` its
+    gradient).
+
+    Returns (feat [b, cams, n, C+1] incl. the rel-depth channel, valid [b,
+    cams, n], count [b, n] = cameras that see each voxel). ``plain`` runs
+    the kernels' plain PyTorch versions on any device.
+    """
+    h_dim, w_dim = feats_agg.shape[-3], feats_agg.shape[-2]
+    cam3, mask_lowres = _project_cam_points(
+        mask, intrinsics, extrinsics_inv, h_dim, w_dim,
+        voxel_str_p=voxel_str_p, voxel_unit_size=voxel_unit_size,
+        voxel_size=voxel_size)
+    b, cams = feats_agg.shape[:2]
+    feat, valid = sample_backproject_raw(
+        feats_agg.reshape((b * cams,) + feats_agg.shape[2:]).contiguous(),
+        mask_lowres.reshape(b * cams, h_dim, w_dim, 1),
+        cam3.reshape(b * cams, -1, 3).contiguous(), 1.0 / voxel_size[0],
+        plain)
+    feat = feat.reshape(b, cams, -1, feat.shape[-1])
+    valid = valid.reshape(b, cams, -1)
+    return feat, valid, valid.sum(dim=1)
+
+
 def backproject_features_grouped(feats_agg: torch.Tensor, mask: torch.Tensor,
                                  intrinsics: torch.Tensor,
                                  extrinsics_inv: torch.Tensor, *,
@@ -109,7 +141,7 @@ def backproject_features_grouped(feats_agg: torch.Tensor, mask: torch.Tensor,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Image features [b, cams, h, w, C] -> camera-group sums of the masked
     voxel features (kernel K1; its backward, K2, gives ``feats_agg`` its
-    gradient).
+    gradient). Requires ``grouped_backprojection_ok``.
 
     Returns (feat_g [b, 2, n, C+1] incl. the rel-depth channel, count
     [b, n] = cameras that see each voxel). ``plain`` runs the kernels' plain
@@ -129,12 +161,46 @@ def backproject_features_grouped(feats_agg: torch.Tensor, mask: torch.Tensor,
         voxel_str_p=voxel_str_p, voxel_unit_size=voxel_unit_size,
         voxel_size=voxel_size)
     b, cams = feats_agg.shape[:2]
-    out, _ = BackprojectGroupedRaw.apply(
+    feat, cnt = sample_backproject_grouped_raw(
         feats_agg.reshape((b * cams,) + feats_agg.shape[2:]).contiguous(),
-        mask_lowres.reshape(b * cams, h_dim, w_dim).contiguous(),
+        mask_lowres.reshape(b * cams, h_dim, w_dim, 1),
         cam3.reshape(b * cams, -1, 3).contiguous(),
         1.0 / voxel_size[0], b, len(g1), plain)
-    return out[..., :-1], out[..., -1].sum(dim=1)
+    return feat, cnt.sum(dim=1)
+
+
+class _GroupSums(torch.autograd.Function):
+    """Static camera-group sums of per-camera feat [b, cams, n, C] ->
+    (feat1, feat2), each summed in camera order. The backward gives every
+    camera its group's cotangent in one stack, as the JAX package's custom
+    VJP does (autograd of the per-camera slices would add a zero-padded
+    [b, cams, n, C] copy per camera)."""
+
+    @staticmethod
+    def forward(ctx, feat, g1, g2):
+        ctx.groups = (tuple(g1), tuple(g2), feat.shape[1])
+
+        def one(idx):
+            if not idx:
+                return feat.new_zeros(feat.shape[:1] + feat.shape[2:])
+            s = feat[:, idx[0]].clone()
+            for cam in idx[1:]:
+                s = s + feat[:, cam]
+            return s
+        return one(g1), one(g2)
+
+    @staticmethod
+    def backward(ctx, d1, d2):
+        g1, g2, cams = ctx.groups
+        zero = torch.zeros_like(d1 if d1 is not None else d2)
+        d1 = zero if d1 is None else d1
+        d2 = zero if d2 is None else d2
+
+        def per_cam(cam):
+            if cam in g1 and cam in g2:
+                return d1 + d2
+            return d1 if cam in g1 else d2 if cam in g2 else zero
+        return torch.stack([per_cam(c) for c in range(cams)], dim=1), None, None
 
 
 class VFNet(nn.Module):
@@ -149,8 +215,10 @@ class VFNet(nn.Module):
                  voxel_pre_dim=(64,), proj_d_bins: int = 50,
                  proj_d_str: float = 2.0, proj_d_end: float = 50.0,
                  num_cams: int = 6, fusion_level: int = 2,
-                 height: int = 384, width: int = 640):
+                 height: int = 384, width: int = 640,
+                 overlap_groups=((0, 3, 4), (1, 2, 5))):
         super().__init__()
+        self.overlap_groups = tuple(map(tuple, overlap_groups))
         self.voxel_str_p = tuple(voxel_str_p)
         self.voxel_unit_size = tuple(voxel_unit_size)
         self.voxel_size = tuple(voxel_size)
@@ -182,15 +250,59 @@ class VFNet(nn.Module):
         vx, vy, vz = self.voxel_size
         return vz, vy, vx
 
-    def fuse_depth(self, feat: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-        """Overlap-aware fusion of the camera-group sums feat [b, 2, n, C]:
-        voxels seen by exactly one camera go through one MLP (on the total),
-        voxels seen by exactly two through another (on the two group sums
-        concatenated). Returns [b, n, voxel_pre_dim[-1]]."""
+    @property
+    def _voxel(self):
+        return dict(voxel_str_p=self.voxel_str_p,
+                    voxel_unit_size=self.voxel_unit_size,
+                    voxel_size=self.voxel_size)
+
+    @property
+    def grouped_backprojection(self) -> bool:
+        """Whether back-projection runs group-reduced (kernel K1) rather
+        than per camera (kernel K1b)."""
+        return grouped_backprojection_ok(self.overlap_groups, self.num_cams)
+
+    def backproject_into_voxel(self, feats_agg, mask, intrinsics,
+                               extrinsics_inv, plain: bool = False):
+        """Per-camera back-projection (K1b): (feat [b, cams, n, C+1], valid
+        [b, cams, n], count [b, n]); see ``backproject_features``."""
+        return backproject_features(feats_agg, mask, intrinsics,
+                                    extrinsics_inv, plain=plain, **self._voxel)
+
+    def backproject_into_voxel_grouped(self, feats_agg, mask, intrinsics,
+                                       extrinsics_inv, plain: bool = False):
+        """Group-reduced back-projection (K1): (feat_g [b, 2, n, C+1],
+        count [b, n]). Requires ``self.grouped_backprojection``."""
+        return backproject_features_grouped(
+            feats_agg, mask, intrinsics, extrinsics_inv,
+            groups=self.overlap_groups, plain=plain, **self._voxel)
+
+    def _camera_group_sums(self, feat: torch.Tensor):
+        """Per-camera feat [b, cams, n, C] -> (feat1, feat2, total): the two
+        overlap groups' sums, and their sum where the groups partition the
+        rig (else the sum over all cameras)."""
+        g1 = [c for c in self.overlap_groups[0] if c < self.num_cams]
+        g2 = [c for c in self.overlap_groups[1] if c < self.num_cams]
+        feat1, feat2 = _GroupSums.apply(feat, g1, g2)
+        total = (feat1 + feat2 if sorted(g1 + g2) == list(range(self.num_cams))
+                 else feat.sum(dim=1))
+        return feat1, feat2, total
+
+    def fuse_depth(self, feat: torch.Tensor, count: torch.Tensor,
+                   grouped: bool = True) -> torch.Tensor:
+        """Overlap-aware fusion: voxels seen by exactly one camera go
+        through one MLP (on the sum over cameras), voxels seen by exactly
+        two through another (on the two overlap-group sums concatenated).
+        ``feat`` is per camera [b, cams, n, C], or (``grouped``) the group
+        sums [b, 2, n, C]. Returns [b, n, voxel_pre_dim[-1]]."""
         non_overlap = (count == 1).to(feat.dtype)[..., None]
         overlap = (count == 2).to(feat.dtype)[..., None]
-        feat1, feat2 = feat[:, 0], feat[:, 1]
-        x_no = (feat1 + feat2) * non_overlap
+        if grouped:
+            feat1, feat2 = feat[:, 0], feat[:, 1]
+            total = feat1 + feat2
+        else:
+            feat1, feat2, total = self._camera_group_sums(feat)
+        x_no = total * non_overlap
         x_o = torch.cat([feat1, feat2], dim=-1)
         for j in range(self.n_pre):
             x_no = getattr(self, f"conv_non_overlap_{j}")(x_no)
@@ -232,9 +344,13 @@ class VFNet(nn.Module):
         return self.reduce_dim_1(self.reduce_dim_0(feat2d.permute(0, 3, 1, 2)))
 
     def pose_voxel_to_bev(self, feat: torch.Tensor, count: torch.Tensor,
-                          frame_groups: int = 1) -> torch.Tensor:
-        """Camera-group sums [b, 2, n, C] -> visibility-weighted camera mean
-        -> BEVFold -> [G*b, feat_out_dim, hy, hx] (NCHW, group-major)."""
-        voxel_feat = (feat[:, 0] + feat[:, 1]) / (count[..., None] + 1e-7)
+                          frame_groups: int = 1,
+                          grouped: bool = True) -> torch.Tensor:
+        """Per-camera feat [b, cams, n, C] (or ``grouped``: the two group
+        sums [b, 2, n, C], which partition the rig) -> visibility-weighted
+        camera mean -> BEVFold -> [G*b, feat_out_dim, hy, hx] (NCHW,
+        group-major)."""
+        total = feat[:, 0] + feat[:, 1] if grouped else feat.sum(dim=1)
+        voxel_feat = total / (count[..., None] + 1e-7)
         return self.reduce_dim_1(
             self.reduce_dim_0(voxel_feat, groups=frame_groups))

@@ -1,187 +1,259 @@
-"""Grouped raw-mode back-projection sampler (kernel K1) and its backward
-(kernel K2).
+"""Back-projection sampler: grouped (kernel K1) and ungrouped (kernel K1b)
+forward, and their backward kernels (K2, K2b).
 
-Port of ``vfdepth_tpu/ops/pallas_sample.py``'s grouped raw mode
-(``sample_backproject_grouped_raw_pallas``, pallas_sample.py:806): the
-forward TPU kernel ``_fwd_kernel`` :176 launched by ``_fwd_call_grouped``
-:431 is ``csrc/backproject_sample.cu``; the backward TPU kernel
-``_bwd_kernel`` :301 launched by ``_bwd_call`` :497 is
+Port of ``vfdepth_tpu/ops/pallas_sample.py``: the forward TPU kernel
+``_fwd_kernel`` :176, launched by ``_fwd_call_grouped`` :431 (grouped) and
+``_fwd_call`` :382 (ungrouped), is ``csrc/backproject_sample.cu``; the
+backward TPU kernel ``_bwd_kernel`` :301 launched by ``_bwd_call`` :497 is
 ``csrc/backproject_sample_bwd.cu``. Their headers say what bounds them and
-how they are laid out. ``BackprojectGroupedRaw`` ties the two together as
-one autograd Function.
+how they are laid out; the tap rule they share is
+``csrc/backproject_taps.cuh``.
 
-Semantics, per voxel point and camera (cameras ordered group-major, ``gs``
-per group):
+The JAX package's public entries have counterparts here of the same name
+without ``_pallas``: ``sample_bilinear``, ``sample_bilinear_with_nearest_mask``,
+``sample_backproject``, ``sample_backproject_raw``,
+``sample_backproject_grouped`` and ``sample_backproject_grouped_raw``. Each
+is an autograd Function over a kernel wrapper (``backproject_grouped`` for
+K1, ``sample2d`` for K1b; backward ``backproject_grouped_bwd`` (K2) and
+``sample2d_bwd`` (K2b)); only the features get a gradient.
+
+Semantics, per point and camera:
 
 * raw camera-plane point (u, v, z): x = u / (z + 1e-8), y = v / (z + 1e-8);
-  NaN -> 2w, then clip to +-2w on both axes;
-* live iff z > 0 and the align-corners pixel lies in [0, w-1] x [0, h-1];
-* bilinear feature sample, zeros padding;
+  NaN -> 2w, then clip to +-2w on both axes; live iff z > 0 and the
+  align-corners pixel lies in [0, w-1] x [0, h-1];
+* normalised point (x, y), align corners: non-finite -> pixel -4 (dead);
+  pixel = (c + 1) * (0.5 * (size - 1)); live iff floor(x) lies in [-1, w-1]
+  and floor(y) in [-1, h-1];
+* bilinear feature sample, zeros padding per tap;
 * nearest mask pick where an f32 fraction > 0.5 takes the upper tap (NOT
-  round-half-even); valid = live and picked mask > 0.5;
-* epilogue [feat * valid, z * rel_scale * valid, valid], summed over each
-  group's cameras, plus each camera's validity. An invalid point adds exact
-  zeros, even where its depth is not finite (XLA simplifies the JAX
-  kernel's ``rel * valid`` to a select, and the port keeps that).
+  round-half-even), 0 where the picked tap leaves the image; valid = live
+  and picked mask > 0.5;
+* back-projection epilogue [feat * valid, rel * valid(, valid)] with rel =
+  z * rel_scale (raw) or the third coordinate column (normalised); an
+  invalid point gives exact zeros, even where its depth is not finite (XLA
+  simplifies the JAX kernel's ``rel * valid`` to a select, and the port
+  keeps that). K1 sums it over each camera group (cameras ordered
+  group-major) and also returns each camera's validity.
 
-Backward: only the features get a gradient, dfeat[cam, tap pixel] +=
-W_tap * g[group(cam), point, :C] for every point the forward marked valid
-for that camera (a select: an invalid point adds nothing); the rel and
-valid columns of the cotangent, the mask and the coordinates get none.
+Backward: dfeat[cam, tap pixel] += W_tap * g[row, point, :C] for every point
+the forward sampled for that camera (the validity is a select: an invalid
+point adds nothing), where the row is the camera's group (K2) or the camera
+itself (K2b); the trailing mask, rel and valid columns of the cotangent, the
+mask and the coordinates get no gradient.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build
 
-_POINT_CHUNK = 32768   # plain version: points per gather (bounds its memory)
+_POINT_CHUNK = 32768   # plain versions: points per gather (bounds memory)
+MAX_GROUP_SIZE = 8     # csrc/backproject_sample.cu kMaxGroup
+MODES = ("bilinear", "mask", "backproject")   # K1b's modes, kernel order
 
 
-def _raw_taps(pts: torch.Tensor, h: int, w: int):
-    """Raw camera-plane points [n, 3] -> (live, ix0, iy0, fx, fy, z)."""
-    z = pts[:, 2]
-    zp = z + 1e-8
-    x = pts[:, 0] / zp
-    y = pts[:, 1] / zp
-    big = 2.0 * w
-    x = torch.clamp(torch.nan_to_num(x, nan=big, posinf=big, neginf=-big),
-                    -big, big)
-    y = torch.clamp(torch.nan_to_num(y, nan=big, posinf=big, neginf=-big),
-                    -big, big)
-    live = (z > 0) & (x >= 0) & (x <= w - 1.0) & (y >= 0) & (y <= h - 1.0)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    return live, x0.long(), y0.long(), x - x0, y - y0, z
+def _taps(q: torch.Tensor, h: int, w: int, raw: bool):
+    """Points [n, 2-3] -> (live, ix0, iy0, fx, fy); ix0 and iy0 are long,
+    0 where the point is dead."""
+    if raw:
+        z = q[:, 2]
+        zp = z + 1e-8
+        big = 2.0 * w
+        x = torch.clamp(torch.nan_to_num(q[:, 0] / zp, nan=big, posinf=big,
+                                         neginf=-big), -big, big)
+        y = torch.clamp(torch.nan_to_num(q[:, 1] / zp, nan=big, posinf=big,
+                                         neginf=-big), -big, big)
+        live = ((z > 0) & (x >= 0) & (x <= w - 1.0) & (y >= 0)
+                & (y <= h - 1.0))
+        x0, y0 = torch.floor(x), torch.floor(y)
+    else:
+        finite = torch.isfinite(q[:, 0]) & torch.isfinite(q[:, 1])
+        x = torch.where(finite, (q[:, 0] + 1.0) * (0.5 * (w - 1)), -4.0)
+        y = torch.where(finite, (q[:, 1] + 1.0) * (0.5 * (h - 1)), -4.0)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        # compared as floats: a huge coordinate never reaches the long cast
+        live = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+    ix = torch.where(live, x0, 0.0).long()
+    iy = torch.where(live, y0, 0.0).long()
+    return live, ix, iy, x - x0, y - y0
 
 
-def backproject_grouped_raw_plain(feats: torch.Tensor, mask: torch.Tensor,
-                                  cam3: torch.Tensor, rel_scale: float,
-                                  batch: int, group_size: int):
-    """Plain PyTorch version of the kernel, written with explicit gathers.
+def _rel(q: torch.Tensor, raw: bool, rel_scale: float) -> torch.Tensor:
+    return q[:, 2] * rel_scale if raw else q[:, 2]
+
+
+def _tap_rows(keep, ix, iy, fx, fy, h: int, w: int):
+    """The 4 bilinear taps of the kept points: [(in image, flat pixel index
+    (0 where not), weight)]."""
+    taps = []
+    for dx, dy, wt in ((0, 0, (1 - fx) * (1 - fy)), (1, 0, fx * (1 - fy)),
+                       (0, 1, (1 - fx) * fy), (1, 1, fx * fy)):
+        tx, ty = ix + dx, iy + dy
+        inb = keep & (tx >= 0) & (tx < w) & (ty >= 0) & (ty < h)
+        taps.append((inb, torch.where(inb, ty * w + tx, 0), wt))
+    return taps
+
+
+def _gather(img: torch.Tensor, taps) -> torch.Tensor:
+    """img [h*w, C] sampled at the taps -> [n, C] (taps summed in order)."""
+    acc = None
+    for inb, idx, wt in taps:
+        v = torch.where(inb[:, None], img[idx], 0.0) * wt[:, None]
+        acc = v if acc is None else acc + v
+    return acc
+
+
+def _scatter(dfeat: torch.Tensor, g: torch.Tensor, taps) -> None:
+    """dfeat [h*w, C] += each tap's weight times g [n, C] (``index_add_``)."""
+    for inb, idx, wt in taps:
+        dfeat.index_add_(0, idx, torch.where(inb[:, None], g, 0.0)
+                         * wt[:, None])
+
+
+def _nearest(msk: torch.Tensor, live, ix, iy, fx, fy, h: int, w: int):
+    """msk [h*w] at each live point's nearest tap, 0 where that tap leaves
+    the image."""
+    xn = ix + (fx > 0.5).long()
+    yn = iy + (fy > 0.5).long()
+    ok = live & (xn >= 0) & (xn < w) & (yn >= 0) & (yn < h)
+    return torch.where(ok, msk[torch.where(ok, yn * w + xn, 0)], 0.0)
+
+
+def _check(tensors, dtype_device_of: torch.Tensor) -> None:
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != dtype_device_of.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{dtype_device_of.device}")
+
+
+def _cuda_ready(tensors) -> None:
+    for name, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"unsupported device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn_name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+
+_FNS = {}
+
+
+def _kernel_fn(lib: str, name: str, argtypes):
+    key = (lib, name)
+    if key not in _FNS:
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return _FNS[key]
+
+
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+
+
+# ---------------------------------------------------------------- K1 / K2
+
+def backproject_grouped_plain(feats: torch.Tensor, mask: torch.Tensor,
+                              coords: torch.Tensor, rel_scale: float,
+                              batch: int, group_size: int, raw: bool = True):
+    """Plain PyTorch version of K1, written with explicit gathers.
 
     feats [b*2*gs, h, w, C] f32 (cameras group-major), mask [b*2*gs, h, w],
-    cam3 [b*2*gs, N, 3]. Returns (out [b, 2, N, C+2], valid [b*2*gs, N]).
-    Loops over cameras and chunks the points so it fits in a few GB at the
-    production shapes; group sums are taken in camera order, as the kernel
-    does.
+    coords [b*2*gs, N, 3] (raw (u, v, z) or normalised (x, y, rel)).
+    Returns (out [b, 2, N, C+2], valid [b*2*gs, N]). Loops over cameras and
+    chunks the points so it fits in a few GB at the production shapes;
+    group sums are taken in camera order, as the kernel does.
     """
     bc, h, w, c = feats.shape
-    n = cam3.shape[1]
-    gs = group_size
+    n = coords.shape[1]
     out = feats.new_zeros(batch, 2, n, c + 2)
     valid_pc = feats.new_zeros(bc, n)
     for cam in range(bc):
-        bi, g = divmod(cam // gs, 2)
+        bi, g = divmod(cam // group_size, 2)
         img = feats[cam].reshape(h * w, c)
         msk = mask[cam].reshape(h * w)
         for s in range(0, n, _POINT_CHUNK):
-            live, ix, iy, fx, fy, z = _raw_taps(cam3[cam, s:s + _POINT_CHUNK],
-                                                h, w)
-            # nearest mask tap: the upper tap iff the f32 fraction > 0.5
-            xn = ix + (fx > 0.5).long()
-            yn = iy + (fy > 0.5).long()
-            ok = live & (xn < w) & (yn < h)
-            m = torch.where(ok, msk[torch.where(ok, yn * w + xn, 0)], 0.0)
-            valid = (live & (m > 0.5)).to(feats.dtype)
-
-            def tap(dx, dy, weight):
-                tx, ty = ix + dx, iy + dy
-                inb = live & (tx >= 0) & (tx < w) & (ty >= 0) & (ty < h)
-                rows = img[torch.where(inb, ty * w + tx, 0)]
-                return torch.where(inb[:, None], rows, 0.0) * weight[:, None]
-
-            feat = (tap(0, 0, (1 - fx) * (1 - fy)) + tap(1, 0, fx * (1 - fy))
-                    + tap(0, 1, (1 - fx) * fy) + tap(1, 1, fx * fy))
+            q = coords[cam, s:s + _POINT_CHUNK]
+            live, ix, iy, fx, fy = _taps(q, h, w, raw)
+            valid = live & (_nearest(msk, live, ix, iy, fx, fy, h, w) > 0.5)
+            feat = _gather(img, _tap_rows(valid, ix, iy, fx, fy, h, w))
             # invalid points contribute exact zeros (a select, so a
             # non-finite depth behind the camera leaves no NaN behind)
-            rel = torch.where(valid > 0, z * rel_scale, 0.0)
+            rel = torch.where(valid, _rel(q, raw, rel_scale), 0.0)
+            vf = valid.to(feats.dtype)
             out[bi, g, s:s + _POINT_CHUNK] += torch.cat(
-                [feat * valid[:, None], rel[:, None], valid[:, None]], dim=-1)
-            valid_pc[cam, s:s + _POINT_CHUNK] = valid
+                [feat, rel[:, None], vf[:, None]], dim=-1)
+            valid_pc[cam, s:s + _POINT_CHUNK] = vf
     return out, valid_pc
 
 
-_FN = None
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("backproject_sample").vf_backproject_grouped_raw
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-MAX_GROUP_SIZE = 8   # csrc/backproject_sample.cu kMaxGroup
-
-
-def backproject_grouped_raw(feats: torch.Tensor, mask: torch.Tensor,
-                            cam3: torch.Tensor, rel_scale: float,
-                            batch: int, group_size: int):
-    """Group-reduced back-projection of raw camera-plane points.
+def backproject_grouped(feats: torch.Tensor, mask: torch.Tensor,
+                        coords: torch.Tensor, rel_scale: float, batch: int,
+                        group_size: int, raw: bool = True):
+    """K1: group-reduced back-projection.
 
     feats [b*2*gs, h, w, C] float32 with cameras PRE-ORDERED group-major
     (group 0's gs cameras, then group 1's), mask [b*2*gs, h, w] (the
-    low-res occlusion mask), cam3 [b*2*gs, N, 3] = (u, v, z) before the
-    perspective divide. Returns (out [b, 2, N, C+2] = group sums of
-    [feat*valid, rel*valid, valid], valid [b*2*gs, N] per camera).
+    low-res occlusion mask), coords [b*2*gs, N, 3]: raw camera-plane
+    points (u, v, z) before the perspective divide, or (``raw=False``)
+    normalised (x, y) plus the rel-depth column. Returns (out [b, 2, N,
+    C+2] = group sums of [feat*valid, rel*valid, valid], valid [b*2*gs, N]
+    per camera).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``backproject_grouped_raw.launches`` counts launches) or raise.
+    (``backproject_grouped.launches`` counts launches) or raise.
     """
     bc, h, w, c = feats.shape
-    n = cam3.shape[1]
+    n = coords.shape[1]
     if bc != batch * 2 * group_size or group_size < 1:
         raise ValueError(f"feats has {bc} cameras, expected "
                          f"batch*2*group_size = {batch}*2*{group_size}")
-    if mask.shape != (bc, h, w) or cam3.shape != (bc, n, 3):
+    if mask.shape != (bc, h, w) or coords.shape != (bc, n, 3):
         raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, mask "
-                         f"{tuple(mask.shape)}, cam3 {tuple(cam3.shape)}")
-    for name, t in (("feats", feats), ("mask", mask), ("cam3", cam3)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != feats.device:
-            raise ValueError(f"{name} is on {t.device}, feats on {feats.device}")
+                         f"{tuple(mask.shape)}, coords {tuple(coords.shape)}")
+    args = (("feats", feats), ("mask", mask), ("coords", coords))
+    _check(args, feats)
     if feats.device.type == "cpu":
-        return backproject_grouped_raw_plain(feats, mask, cam3, rel_scale,
-                                             batch, group_size)
-    if feats.device.type != "cuda":
-        raise ValueError(f"unsupported device {feats.device}")
+        return backproject_grouped_plain(feats, mask, coords, rel_scale,
+                                         batch, group_size, raw)
+    _cuda_ready(args)
     if group_size > MAX_GROUP_SIZE:
         raise ValueError(f"group_size {group_size} > {MAX_GROUP_SIZE}")
-    for name, t in (("feats", feats), ("mask", mask), ("cam3", cam3)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     out = torch.empty(batch, 2, n, c + 2, device=feats.device)
     valid = torch.empty(bc, n, device=feats.device)
+    fn = _kernel_fn("backproject_sample", "vf_backproject_grouped",
+                    [_P] * 5 + [_I64] * 6 + [_F, _I, _P])
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(feats.data_ptr(), mask.data_ptr(), cam3.data_ptr(),
-                           out.data_ptr(), valid.data_ptr(), batch,
-                           group_size, h, w, c, n, float(rel_scale), stream)
-    if err != 0:
-        raise RuntimeError(f"backproject_grouped_raw launch failed: CUDA "
-                           f"error {err}")
-    backproject_grouped_raw.launches += 1
+        err = fn(feats.data_ptr(), mask.data_ptr(), coords.data_ptr(),
+                 out.data_ptr(), valid.data_ptr(), batch, group_size, h, w, c,
+                 n, float(rel_scale), int(raw), stream)
+    _launch("backproject_grouped", err)
+    backproject_grouped.launches += 1
     return out, valid
 
 
-backproject_grouped_raw.launches = 0
+backproject_grouped.launches = 0
 
 
-def backproject_grouped_raw_bwd_plain(g: torch.Tensor, cam3: torch.Tensor,
-                                      valid: torch.Tensor, h: int, w: int,
-                                      c: int, group_size: int) -> torch.Tensor:
-    """Plain PyTorch version of the backward kernel (``index_add_``).
+def backproject_grouped_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
+                                  valid: torch.Tensor, h: int, w: int, c: int,
+                                  group_size: int,
+                                  raw: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K2 (``index_add_``).
 
     g [b, 2, N, >= C] (the forward output's cotangent; columns past C are
-    ignored), cam3 [b*2*gs, N, 3], valid [b*2*gs, N] -> dfeats [b*2*gs, h,
+    ignored), coords [b*2*gs, N, 3], valid [b*2*gs, N] -> dfeats [b*2*gs, h,
     w, C].
     """
     bc, n = valid.shape
@@ -190,101 +262,326 @@ def backproject_grouped_raw_bwd_plain(g: torch.Tensor, cam3: torch.Tensor,
         bi, grp = divmod(cam // group_size, 2)
         for s in range(0, n, _POINT_CHUNK):
             sl = slice(s, s + _POINT_CHUNK)
-            live, ix, iy, fx, fy, _ = _raw_taps(cam3[cam, sl], h, w)
-            sel = live & (valid[cam, sl] > 0)
-            gg = g[bi, grp, sl, :c]
-            for dx, dy, weight in ((0, 0, (1 - fx) * (1 - fy)),
-                                   (1, 0, fx * (1 - fy)),
-                                   (0, 1, (1 - fx) * fy), (1, 1, fx * fy)):
-                tx, ty = ix + dx, iy + dy
-                ok = sel & (tx < w) & (ty < h)
-                upd = torch.where(ok[:, None], gg, 0.0) * weight[:, None]
-                dfeat[cam].index_add_(0, torch.where(ok, ty * w + tx, 0), upd)
+            live, ix, iy, fx, fy = _taps(coords[cam, sl], h, w, raw)
+            sel = live & (valid[cam, sl] != 0)
+            _scatter(dfeat[cam], g[bi, grp, sl, :c],
+                     _tap_rows(sel, ix, iy, fx, fy, h, w))
     return dfeat.reshape(bc, h, w, c)
 
 
-_BWD_FN = None
-
-
-def _bwd_kernel_fn():
-    global _BWD_FN
-    if _BWD_FN is None:
-        fn = _build.load("backproject_sample_bwd").vf_backproject_grouped_raw_bwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BWD_FN = fn
-    return _BWD_FN
-
-
-def backproject_grouped_raw_bwd(g: torch.Tensor, cam3: torch.Tensor,
-                                valid: torch.Tensor, h: int, w: int, c: int,
-                                group_size: int) -> torch.Tensor:
-    """Feature gradient of ``backproject_grouped_raw``: g [b, 2, N, >= C]
-    (its output's cotangent), cam3 [b*2*gs, N, 3] and valid [b*2*gs, N] (its
-    per-camera validity) -> dfeats [b*2*gs, h, w, C] float32.
+def backproject_grouped_bwd(g: torch.Tensor, coords: torch.Tensor,
+                            valid: torch.Tensor, h: int, w: int, c: int,
+                            group_size: int, raw: bool = True) -> torch.Tensor:
+    """K2, the feature gradient of ``backproject_grouped``: g [b, 2, N, >=
+    C] (its output's cotangent), coords [b*2*gs, N, 3] and valid [b*2*gs,
+    N] (its per-camera validity) -> dfeats [b*2*gs, h, w, C] float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``backproject_grouped_raw_bwd.launches`` counts launches) or raise.
+    (``backproject_grouped_bwd.launches`` counts launches) or raise.
     """
     bc, n = valid.shape
     if g.dim() != 4 or g.shape[1] != 2 or g.shape[2] != n or g.shape[3] < c \
-            or bc != g.shape[0] * 2 * group_size or cam3.shape != (bc, n, 3):
-        raise ValueError(f"shape mismatch: g {tuple(g.shape)}, cam3 "
-                         f"{tuple(cam3.shape)}, valid {tuple(valid.shape)}, "
+            or bc != g.shape[0] * 2 * group_size or coords.shape != (bc, n, 3):
+        raise ValueError(f"shape mismatch: g {tuple(g.shape)}, coords "
+                         f"{tuple(coords.shape)}, valid {tuple(valid.shape)}, "
                          f"C={c}, group_size={group_size}")
-    for name, t in (("g", g), ("cam3", cam3), ("valid", valid)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != g.device:
-            raise ValueError(f"{name} is on {t.device}, g on {g.device}")
+    args = (("g", g), ("coords", coords), ("valid", valid))
+    _check(args, g)
     if g.device.type == "cpu":
-        return backproject_grouped_raw_bwd_plain(g, cam3, valid, h, w, c,
-                                                 group_size)
-    if g.device.type != "cuda":
-        raise ValueError(f"unsupported device {g.device}")
+        return backproject_grouped_bwd_plain(g, coords, valid, h, w, c,
+                                             group_size, raw)
+    _cuda_ready(args)
     if group_size > MAX_GROUP_SIZE:
         raise ValueError(f"group_size {group_size} > {MAX_GROUP_SIZE}")
-    for name, t in (("g", g), ("cam3", cam3), ("valid", valid)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     dfeat = torch.zeros(bc, h, w, c, device=g.device)
+    fn = _kernel_fn("backproject_sample_bwd", "vf_backproject_grouped_bwd",
+                    [_P] * 4 + [_I64] * 7 + [_I, _P])
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_kernel_fn()(g.data_ptr(), cam3.data_ptr(), valid.data_ptr(),
-                               dfeat.data_ptr(), g.shape[0], group_size, h, w,
-                               c, g.shape[3], n, stream)
-    if err != 0:
-        raise RuntimeError(f"backproject_grouped_raw_bwd launch failed: CUDA "
-                           f"error {err}")
-    backproject_grouped_raw_bwd.launches += 1
+        err = fn(g.data_ptr(), coords.data_ptr(), valid.data_ptr(),
+                 dfeat.data_ptr(), g.shape[0], group_size, h, w, c,
+                 g.shape[3], n, int(raw), stream)
+    _launch("backproject_grouped_bwd", err)
+    backproject_grouped_bwd.launches += 1
     return dfeat
 
 
-backproject_grouped_raw_bwd.launches = 0
+backproject_grouped_bwd.launches = 0
 
 
-class BackprojectGroupedRaw(torch.autograd.Function):
-    """``backproject_grouped_raw`` (K1) forward, K2 backward; ``plain`` runs
+class BackprojectGrouped(torch.autograd.Function):
+    """``backproject_grouped`` (K1) forward, K2 backward; ``plain`` runs
     both plain versions on any device. Returns (out, valid) as the forward
     does; only ``feats`` gets a gradient."""
 
     @staticmethod
-    def forward(ctx, feats, mask, cam3, rel_scale: float, batch: int,
-                group_size: int, plain: bool = False):
-        fwd = backproject_grouped_raw_plain if plain else backproject_grouped_raw
-        out, valid = fwd(feats, mask, cam3, rel_scale, batch, group_size)
-        ctx.save_for_backward(cam3, valid)
+    def forward(ctx, feats, mask, coords, rel_scale: float, batch: int,
+                group_size: int, raw: bool = True, plain: bool = False):
+        fwd = backproject_grouped_plain if plain else backproject_grouped
+        out, valid = fwd(feats, mask, coords, rel_scale, batch, group_size,
+                         raw)
+        ctx.save_for_backward(coords, valid)
         ctx.args = (feats.shape[1], feats.shape[2], feats.shape[3],
-                    group_size, plain)
+                    group_size, raw, plain)
         ctx.mark_non_differentiable(valid)
         return out, valid
 
     @staticmethod
     def backward(ctx, g_out, _g_valid):
-        cam3, valid = ctx.saved_tensors
-        h, w, c, gs, plain = ctx.args
-        bwd = (backproject_grouped_raw_bwd_plain if plain
-               else backproject_grouped_raw_bwd)
-        dfeats = bwd(g_out.contiguous(), cam3, valid, h, w, c, gs)
+        coords, valid = ctx.saved_tensors
+        h, w, c, gs, raw, plain = ctx.args
+        bwd = backproject_grouped_bwd_plain if plain else backproject_grouped_bwd
+        dfeats = bwd(g_out.contiguous(), coords, valid, h, w, c, gs, raw)
+        return dfeats, None, None, None, None, None, None, None
+
+
+# -------------------------------------------------------------- K1b / K2b
+
+def sample2d_plain(feats: torch.Tensor, mask: Optional[torch.Tensor],
+                   coords: torch.Tensor, mode: str, rel_scale: float = 1.0,
+                   raw: bool = False):
+    """Plain PyTorch version of K1b, written with explicit gathers.
+
+    feats [B, h, w, C], mask [B, h, w] (modes "mask" and "backproject"),
+    coords [B, N, 2] (normalised; modes "bilinear" and "mask") or [B, N, 3]
+    (mode "backproject": raw (u, v, z), or normalised (x, y) plus the rel
+    column). Returns (out, valid): out [B, N, C] ("bilinear"), [B, N, C+1]
+    with the nearest mask value last ("mask") or [feat*valid, rel*valid]
+    ("backproject"); valid [B, N] in mode "backproject", else None.
+    """
+    b, h, w, c = feats.shape
+    n = coords.shape[1]
+    m = MODES.index(mode)
+    out = feats.new_empty(b, n, c + (m > 0))
+    valid = feats.new_zeros(b, n) if m == 2 else None
+    for cam in range(b):
+        img = feats[cam].reshape(h * w, c)
+        for s in range(0, n, _POINT_CHUNK):
+            sl = slice(s, s + _POINT_CHUNK)
+            q = coords[cam, sl]
+            live, ix, iy, fx, fy = _taps(q, h, w, raw)
+            keep = live
+            if m > 0:
+                mval = _nearest(mask[cam].reshape(h * w), live, ix, iy, fx, fy,
+                                h, w)
+                if m == 1:
+                    out[cam, sl, c] = mval
+                else:
+                    keep = live & (mval > 0.5)
+                    # a select: a NaN depth of an invalid point gives 0
+                    out[cam, sl, c] = torch.where(keep, _rel(q, raw, rel_scale),
+                                                  0.0)
+                    valid[cam, sl] = keep.to(feats.dtype)
+            out[cam, sl, :c] = _gather(img, _tap_rows(keep, ix, iy, fx, fy, h,
+                                                      w))
+    return out, valid
+
+
+def _sample2d_shapes(feats, mask, coords, mode, raw):
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}, expected one of {MODES}")
+    if raw and mode != "backproject":
+        raise ValueError("raw coordinates are a back-projection mode")
+    b, h, w, _ = feats.shape
+    ncols = 3 if mode == "backproject" else 2
+    if coords.dim() != 3 or coords.shape[0] != b or coords.shape[2] != ncols:
+        raise ValueError(f"coords {tuple(coords.shape)} for feats "
+                         f"{tuple(feats.shape)} in mode {mode!r}: expected "
+                         f"[{b}, N, {ncols}]")
+    if mode != "bilinear" and (mask is None or mask.shape != (b, h, w)):
+        raise ValueError(f"mode {mode!r} needs a mask of shape {(b, h, w)}")
+
+
+def sample2d(feats: torch.Tensor, mask: Optional[torch.Tensor],
+             coords: torch.Tensor, mode: str, rel_scale: float = 1.0,
+             raw: bool = False):
+    """K1b: the ungrouped sampler, one output row per (camera, point); see
+    ``sample2d_plain`` for the arguments and outputs.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``sample2d.launches`` counts launches) or raise.
+    """
+    _sample2d_shapes(feats, mask, coords, mode, raw)
+    args = [("feats", feats), ("coords", coords)]
+    if mode != "bilinear":
+        args.append(("mask", mask))
+    _check(args, feats)
+    if feats.device.type == "cpu":
+        return sample2d_plain(feats, mask, coords, mode, rel_scale, raw)
+    _cuda_ready(args)
+    b, h, w, c = feats.shape
+    n = coords.shape[1]
+    m = MODES.index(mode)
+    out = torch.empty(b, n, c + (m > 0), device=feats.device)
+    valid = torch.empty(b, n, device=feats.device) if m == 2 else None
+    fn = _kernel_fn("backproject_sample", "vf_sample2d",
+                    [_P] * 5 + [_I64] * 6 + [_I, _I, _F, _P])
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feats.data_ptr(), 0 if m == 0 else mask.data_ptr(),
+                 coords.data_ptr(), out.data_ptr(),
+                 0 if valid is None else valid.data_ptr(), b, h, w, c, n,
+                 coords.shape[2], m, int(raw), float(rel_scale), stream)
+    _launch("sample2d", err)
+    sample2d.launches += 1
+    return out, valid
+
+
+sample2d.launches = 0
+
+
+def sample2d_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
+                       valid: Optional[torch.Tensor], h: int, w: int, c: int,
+                       raw: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K2b (``index_add_``).
+
+    g [B, N, >= C] (the forward output's cotangent; columns past C are
+    ignored), coords [B, N, 2-3], valid [B, N] (the gate) or None (every
+    live point) -> dfeats [B, h, w, C].
+    """
+    b, n = g.shape[:2]
+    dfeat = g.new_zeros(b, h * w, c)
+    for cam in range(b):
+        for s in range(0, n, _POINT_CHUNK):
+            sl = slice(s, s + _POINT_CHUNK)
+            live, ix, iy, fx, fy = _taps(coords[cam, sl], h, w, raw)
+            sel = live if valid is None else live & (valid[cam, sl] != 0)
+            _scatter(dfeat[cam], g[cam, sl, :c],
+                     _tap_rows(sel, ix, iy, fx, fy, h, w))
+    return dfeat.reshape(b, h, w, c)
+
+
+def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
+                 valid: Optional[torch.Tensor], h: int, w: int, c: int,
+                 raw: bool = False) -> torch.Tensor:
+    """K2b, the feature gradient of ``sample2d``: g [B, N, >= C] (its
+    output's cotangent), coords [B, N, 2-3] and valid [B, N] (its validity,
+    back-projection mode) or None -> dfeats [B, h, w, C] float32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``sample2d_bwd.launches`` counts launches) or raise.
+    """
+    b, n = coords.shape[:2]
+    if (g.dim() != 3 or g.shape[:2] != (b, n) or g.shape[2] < c
+            or coords.shape[2] < (3 if raw else 2)
+            or (valid is not None and valid.shape != (b, n))):
+        raise ValueError(f"shape mismatch: g {tuple(g.shape)}, coords "
+                         f"{tuple(coords.shape)}, valid "
+                         f"{None if valid is None else tuple(valid.shape)}, "
+                         f"C={c}")
+    args = [("g", g), ("coords", coords)]
+    if valid is not None:
+        args.append(("valid", valid))
+    _check(args, g)
+    if g.device.type == "cpu":
+        return sample2d_bwd_plain(g, coords, valid, h, w, c, raw)
+    _cuda_ready(args)
+    dfeat = torch.zeros(b, h, w, c, device=g.device)
+    fn = _kernel_fn("backproject_sample_bwd", "vf_sample2d_bwd",
+                    [_P] * 4 + [_I64] * 7 + [_I, _P])
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), coords.data_ptr(),
+                 0 if valid is None else valid.data_ptr(), dfeat.data_ptr(),
+                 b, h, w, c, g.shape[2], n, coords.shape[2], int(raw), stream)
+    _launch("sample2d_bwd", err)
+    sample2d_bwd.launches += 1
+    return dfeat
+
+
+sample2d_bwd.launches = 0
+
+
+class Sample2d(torch.autograd.Function):
+    """``sample2d`` (K1b) forward, K2b backward; ``plain`` runs both plain
+    versions on any device. Returns (out, valid) as the forward does (valid
+    None outside the back-projection mode, which is also the backward's
+    gate); only ``feats`` gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, coords, mode: str, rel_scale: float = 1.0,
+                raw: bool = False, plain: bool = False):
+        fwd = sample2d_plain if plain else sample2d
+        out, valid = fwd(feats, mask, coords, mode, rel_scale, raw)
+        ctx.save_for_backward(coords, valid)
+        ctx.args = (feats.shape[1], feats.shape[2], feats.shape[3], raw,
+                    plain)
+        if valid is not None:
+            ctx.mark_non_differentiable(valid)
+        return out, valid
+
+    @staticmethod
+    def backward(ctx, g_out, _g_valid):
+        coords, valid = ctx.saved_tensors
+        h, w, c, raw, plain = ctx.args
+        bwd = sample2d_bwd_plain if plain else sample2d_bwd
+        dfeats = bwd(g_out.contiguous(), coords, valid, h, w, c, raw)
         return dfeats, None, None, None, None, None, None
+
+
+# ------------------------------------------ the JAX package's entry names
+
+def sample_bilinear(img: torch.Tensor, coords: torch.Tensor,
+                    plain: bool = False) -> torch.Tensor:
+    """img [B, H, W, C]; coords [B, N, 2] normalised (x, y), align corners
+    -> [B, N, C], zeros padding (``sample_bilinear_pallas``)."""
+    return Sample2d.apply(img, None, coords, "bilinear", 1.0, False,
+                          plain)[0]
+
+
+def sample_bilinear_with_nearest_mask(img: torch.Tensor, mask: torch.Tensor,
+                                      coords: torch.Tensor,
+                                      plain: bool = False) -> torch.Tensor:
+    """img [B, H, W, C], mask [B, H, W, 1], coords as ``sample_bilinear``
+    -> [B, N, C+1], the nearest mask value last
+    (``sample_bilinear_with_nearest_mask_pallas``)."""
+    return Sample2d.apply(img, mask[..., 0].contiguous(), coords, "mask", 1.0,
+                          False, plain)[0]
+
+
+def sample_backproject(img: torch.Tensor, mask: torch.Tensor,
+                       coords: torch.Tensor, rel: torch.Tensor,
+                       plain: bool = False):
+    """img [B, H, W, C], mask [B, H, W, 1], coords [B, N, 2] normalised,
+    rel [B, N] -> ([B, N, C+1] = [feat*valid, rel*valid], valid [B, N])
+    (``sample_backproject_pallas``)."""
+    coords3 = torch.cat([coords, rel[..., None].to(coords.dtype)], dim=-1)
+    return Sample2d.apply(img, mask[..., 0].contiguous(), coords3,
+                          "backproject", 1.0, False, plain)
+
+
+def sample_backproject_raw(img: torch.Tensor, mask: torch.Tensor,
+                           cam_pts: torch.Tensor, rel_scale: float,
+                           plain: bool = False):
+    """``sample_backproject`` taking camera-plane points cam_pts [B, N, 3] =
+    (u, v, z) before the perspective divide; rel = z * rel_scale
+    (``sample_backproject_raw_pallas``)."""
+    return Sample2d.apply(img, mask[..., 0].contiguous(), cam_pts,
+                          "backproject", float(rel_scale), True, plain)
+
+
+def sample_backproject_grouped(img: torch.Tensor, mask: torch.Tensor,
+                               coords: torch.Tensor, rel: torch.Tensor,
+                               batch: int, group_size: int,
+                               plain: bool = False):
+    """img [batch*2*gs, H, W, C] with cameras ordered group-major, mask
+    [same, H, W, 1], coords [same, N, 2] normalised, rel [same, N] ->
+    group sums ([batch, 2, N, C+1] = [feat*valid, rel*valid], [batch, 2, N]
+    = valid) (``sample_backproject_grouped_pallas``)."""
+    coords3 = torch.cat([coords, rel[..., None].to(coords.dtype)], dim=-1)
+    out, _ = BackprojectGrouped.apply(img, mask[..., 0].contiguous(),
+                                      coords3, 1.0, batch, group_size, False,
+                                      plain)
+    return out[..., :-1], out[..., -1]
+
+
+def sample_backproject_grouped_raw(img: torch.Tensor, mask: torch.Tensor,
+                                   cam_pts: torch.Tensor, rel_scale: float,
+                                   batch: int, group_size: int,
+                                   plain: bool = False):
+    """``sample_backproject_grouped`` taking camera-plane points (see
+    ``sample_backproject_raw``) (``sample_backproject_grouped_raw_pallas``)."""
+    out, _ = BackprojectGrouped.apply(img, mask[..., 0].contiguous(), cam_pts,
+                                      float(rel_scale), batch, group_size,
+                                      True, plain)
+    return out[..., :-1], out[..., -1]

@@ -1,11 +1,15 @@
 """The surround-fusion model (port of ``vfdepth_tpu/training/model.py``).
 
 Both entry points compute the prediction as the JAX ``predict_pose_depth``
-does: both nets' aggregated feature maps go through ONE merged,
-group-reduced back-projection (kernel K1), the pose branch takes its
-channels plus the shared rel-depth channel, the depth branch the rest, then
-the frustum sample (kernel K3), the decoder and ``to_depth``'s fx/300
-metric scale.
+does: both nets' aggregated feature maps go through ONE merged
+back-projection, the pose branch takes its channels plus the shared
+rel-depth channel, the depth branch the rest, then the frustum sample
+(kernel K3), the decoder and ``to_depth``'s fx/300 metric scale. The
+back-projection is group-reduced (kernel K1) where the rig's two overlap
+groups are equal (the 6-camera rig) and per camera (kernel K1b) otherwise
+(the 3-camera rig). ``tpu.merge_backprojection: false`` runs the JAX
+``predict_pose`` / ``predict_depth`` instead: each net back-projects its
+own features (``FusedPoseNet.forward``, ``FusedDepthNet.forward``).
 
 * ``predict(batch)`` serves: BatchNorm in eval mode, under
   ``torch.inference_mode``; returns ``cam_T_cam`` and ``disp/{s}``,
@@ -14,12 +18,12 @@ metric scale.
   ``forward(train=True)``: BatchNorm in train mode (flax's running
   statistics), then ``relative_cam_poses``, ``render_views`` (kernel K5)
   and ``total_loss``; returns (outputs, loss, logs). Its backward runs the
-  kernels K2 (of K1), K4 (of K3) and K5's coordinate gradient.
+  kernels K2 (of K1) or K2b (of K1b), K4 (of K3) and K5's coordinate
+  gradient.
 
-Not ported yet (raise ``NotImplementedError``): the 'fsm' nets, rigs whose
-overlap groups are unequal (the ungrouped sampler, K1b),
-``merge_backprojection: false``, unbatched pose frames, mixed precision,
-the depth-synthesis branch (``predict`` skips it, ``forward`` raises).
+Not ported yet (raise ``NotImplementedError``): the 'fsm' nets, unbatched
+pose frames with more than one context frame, mixed precision, the
+depth-synthesis branch (``predict`` skips it, ``forward`` raises).
 Config keys that name TPU alternates of one
 function map onto the port's one implementation (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors): ``tpu.sampler_2d``,
@@ -41,8 +45,8 @@ from ..geometry import (distribute_pose, invert_pose, relative_cam_poses,
                         vec_to_matrix)
 from ..geometry.view_rendering import render_views
 from ..losses import LossConfig, total_loss
-from ..models import (FusedDepthNet, FusedPoseNet, backproject_features_grouped,
-                      grouped_backprojection_ok)
+from ..models import (FusedDepthNet, FusedPoseNet, backproject_features,
+                      backproject_features_grouped, grouped_backprojection_ok)
 from ..ops.resize import resize_bilinear
 from ..weights import init_random
 
@@ -96,12 +100,12 @@ class VFDepthModel(nn.Module):
             raise NotImplementedError("only the fusion nets are ported")
         if cfg.get("mixed_precision", False):
             raise NotImplementedError("mixed precision is not ported")
-        if not cfg.get("merge_backprojection", True):
-            raise NotImplementedError(
-                "separate pose / depth back-projections are not ported")
         self.frame_ids = tuple(cfg.frame_ids)
         if not cfg.get("batch_pose_frames", True) and len(self.frame_ids) > 2:
             raise NotImplementedError("unbatched pose frames are not ported")
+        # one back-projection for both nets (JAX _can_merge_backproject,
+        # whose other conditions the port meets whenever it builds)
+        self.merge_backproject = bool(cfg.get("merge_backprojection", True))
         if cfg.get("sampler_2d") not in _SAMPLERS_2D:
             raise ValueError(f"unknown sampler_2d {cfg.get('sampler_2d')!r}")
         if cfg.get("sampler_3d") not in _SAMPLERS_3D:
@@ -109,10 +113,8 @@ class VFDepthModel(nn.Module):
         if cfg.get("warp_op") not in _WARP_OPS:
             raise ValueError(f"unknown warp_op {cfg.get('warp_op')!r}")
         self.groups = tuple(map(tuple, cfg.overlap_groups))
-        if not grouped_backprojection_ok(self.groups, cfg.num_cams):
-            raise NotImplementedError(
-                f"overlap groups {self.groups} do not split the rig equally; "
-                "the ungrouped back-projection is not ported")
+        # K1 where the two overlap groups split the rig equally, else K1b
+        self.grouped = grouped_backprojection_ok(self.groups, cfg.num_cams)
 
         self.scales = tuple(cfg.scales)
         self.height, self.width = cfg.height, cfg.width
@@ -132,7 +134,8 @@ class VFDepthModel(nn.Module):
         self.depth_net = FusedDepthNet(
             cfg.num_layers, cfg.fusion_level, cfg.fusion_feat_in_dim,
             use_skips=cfg.use_skips, scales=self.scales,
-            voxel_pre_dim=tuple(cfg.voxel_pre_dim), **vfnet_kwargs)
+            voxel_pre_dim=tuple(cfg.voxel_pre_dim),
+            overlap_groups=self.groups, **vfnet_kwargs)
         self.pose_net = FusedPoseNet(cfg.num_layers, cfg.fusion_level,
                                      cfg.fusion_feat_in_dim, **vfnet_kwargs)
         # weights_init (ImageNet encoders) needs a weight file the repository
@@ -198,10 +201,15 @@ class VFDepthModel(nn.Module):
         # ONE back-projection for both nets: their projected coordinates are
         # identical, so the feature maps concatenate on channels
         cp = pose_feats.shape[-1]
-        feat, count = backproject_features_grouped(
-            torch.cat([pose_feats, depth_feats], dim=-1), x["mask"], x[fk],
-            x["extrinsics_inv"], groups=self.groups, plain=self.plain_samplers,
-            **self.voxel)
+        merged = torch.cat([pose_feats, depth_feats], dim=-1)
+        if self.grouped:
+            feat, count = backproject_features_grouped(
+                merged, x["mask"], x[fk], x["extrinsics_inv"],
+                groups=self.groups, plain=self.plain_samplers, **self.voxel)
+        else:
+            feat, _, count = backproject_features(
+                merged, x["mask"], x[fk], x["extrinsics_inv"],
+                plain=self.plain_samplers, **self.voxel)
         # the trailing rel-depth channel is shared by both branches. Autograd
         # of these slices and this cat already gives the merged cotangent as
         # the JAX package's custom VJP writes it (_split_merged_channels: one
@@ -210,19 +218,64 @@ class VFDepthModel(nn.Module):
         feat_depth = feat[..., cp:]
 
         axisangle, translation = self.pose_net.pose_from_backprojection(
-            feat_pose, count, n_ctx=n_ctx)
-        aa = axisangle[:, 0, 0].reshape(n_ctx, bsz, 3)
-        tr = translation[:, 0, 0].reshape(n_ctx, bsz, 3)
-        mats = [distribute_pose(vec_to_matrix(aa[i], tr[i], invert=(f < 0)),
-                                x["extrinsics"], x["extrinsics_inv"])
-                for i, f in enumerate(ctx)]
-
+            feat_pose, count, n_ctx=n_ctx, grouped=self.grouped)
         skips = [dfeats[i] for i in range(self.fusion_level)]
         disps = self.depth_net.decode_from_backprojection(
             feat_depth, count, skips, x[fik], x["extrinsics"],
-            plain=self.plain_samplers)
-        return (torch.stack(mats, dim=2),
+            grouped=self.grouped, plain=self.plain_samplers)
+        return (self._cam_t_cam(axisangle, translation, x, bsz),
                 {s: disps[f"disp/{s}"] for s in self.scales})
+
+    def _cam_t_cam(self, axisangle: torch.Tensor, translation: torch.Tensor,
+                   x: Mapping[str, torch.Tensor], bsz: int) -> torch.Tensor:
+        """The pose net's canonical motions [n_ctx*b, 1, 1, 3] (context
+        frames group-major) -> cam_T_cam [b, cams, n_ctx, 4, 4]; a past
+        frame's motion is inverted."""
+        ctx = self.frame_ids[1:]
+        aa = axisangle[:, 0, 0].reshape(len(ctx), bsz, 3)
+        tr = translation[:, 0, 0].reshape(len(ctx), bsz, 3)
+        return torch.stack(
+            [distribute_pose(vec_to_matrix(aa[i], tr[i], invert=(f < 0)),
+                             x["extrinsics"], x["extrinsics_inv"])
+             for i, f in enumerate(ctx)], dim=2)
+
+    def predict_pose(self, x: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The pose net alone, on its own back-projection (JAX
+        ``predict_pose`` with batched pose frames): cam_T_cam [b, cams,
+        n_ctx, 4, 4] from a batch already on the device."""
+        lev = self.fusion_level + 1
+        ctx = self.frame_ids[1:]
+        curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"] for f in ctx])
+        nxts = torch.cat([x[f"color_aug/{0 if f < 0 else f}/0"] for f in ctx])
+        axisangle, translation = self.pose_net(
+            curs, nxts, x["mask"], x[f"K/{lev}"], x[f"inv_K/{lev}"],
+            x["extrinsics"], x["extrinsics_inv"], n_ctx=len(ctx),
+            plain=self.plain_samplers)
+        return self._cam_t_cam(axisangle, translation, x,
+                               x["color_aug/0/0"].shape[0])
+
+    def predict_depth(self, x: Mapping[str, torch.Tensor]
+                      ) -> Dict[int, torch.Tensor]:
+        """The depth net alone, on its own back-projection (JAX
+        ``predict_depth``): {scale: disp [b, cams, h, w, 1]}."""
+        lev = self.fusion_level + 1
+        out = self.depth_net(x["color_aug/0/0"], x["mask"], x[f"K/{lev}"],
+                             x[f"inv_K/{lev}"], x["extrinsics"],
+                             x["extrinsics_inv"], plain=self.plain_samplers)
+        return {s: out[f"disp/{s}"] for s in self.scales}
+
+    def _can_merge_backproject(self) -> bool:
+        # an instance-level predict_pose override must keep routing through
+        # predict_pose: the merged path would silently bypass it
+        return self.merge_backproject and "predict_pose" not in self.__dict__
+
+    def _predict(self, x: Mapping[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+        """(cam_T_cam, {scale: disp}) through the merged back-projection,
+        or through each net's own where the two are not merged."""
+        if self._can_merge_backproject():
+            return self._predict_pose_depth(x)
+        return self.predict_pose(x), self.predict_depth(x)
 
     @torch.inference_mode()
     def predict(self, batch: Mapping) -> Dict[str, torch.Tensor]:
@@ -236,7 +289,7 @@ class VFDepthModel(nn.Module):
                 *(f"color_aug/{f}/0" for f in self.frame_ids)}
         x = self._to_device(batch, keys)
         with self._bn_mode(False):
-            cam_t_cam, disps = self._predict_pose_depth(x)
+            cam_t_cam, disps = self._predict(x)
         outputs = {"cam_T_cam": cam_t_cam}
         for s in self.scales:
             outputs[f"disp/{s}"] = disps[s]
@@ -267,7 +320,7 @@ class VFDepthModel(nn.Module):
         if noise is None or tuple(noise.shape) != self.noise_shape(x):
             raise ValueError(f"noise must have shape {self.noise_shape(x)}")
         with self._bn_mode(True):
-            cam_t_cam, disps = self._predict_pose_depth(x)
+            cam_t_cam, disps = self._predict(x)
         k0 = x["K/0"]
         depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
         spatio_pose, st_pose = relative_cam_poses(

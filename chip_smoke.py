@@ -103,6 +103,28 @@ POSE_ATOL = 1e-5
 # (tests/test_torch_train_step.py measures the same effect against JAX)
 STEP_LOSS_RTOL = 1e-3
 STEP_GRAD_RTOL = 3e-2          # relative L2 norm, per parameter
+# bf16 forms against their plain versions: both compute in f32 and round
+# each output once to bf16, so an f32 difference of a few ulp can move an
+# output by one bf16 step (2^-7 of the largest magnitude); K2's f32 atomics
+# add their own order (K2_TOL) before the rounding
+BF16_STEP = 2.0 ** -7
+# K4's bf16-update form sums in bf16 with atomics in a varying order: a
+# running bf16 sum of k random-sign terms drifts by ~2^-9 sqrt(k / 3) of
+# its size; the production frustum gives its plane entries 6.6 additions on
+# average and 625 at most (JAX's sequential bf16 scatter on these points,
+# on the CPU: cosine 0.99997, relative L2 7.7e-3 against f32 updates)
+K4_BF16_MIN_COS = 0.9995
+K4_BF16_MAX_REL = 3e-2
+# the bf16 model, kernels against plain versions: the kernels' one-step
+# differences flip a few bf16 roundings, and every later bf16 layer spreads
+# them (two bf16 runs of the same model part the way a bf16 run parts from
+# an f32 one; tests/test_torch_mixed_model.py measures it against JAX on
+# the CPU: disparity 7e-4 relative L2, gradients ~20% in all, up to 36%
+# for one parameter)
+BF16_FWD_RTOL = 2e-2           # x max|out|
+BF16_POSE_ATOL = 1e-3
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD_RTOL = 0.5      # relative L2 norm, per parameter
 
 
 class SmokeFailure(RuntimeError):
@@ -381,6 +403,15 @@ def check_k5(cfg, device, gen):
     check(err <= K5_TOL, f"K5 differs from its plain version: {err}")
     check(gerr <= gtol, f"K5 coordinate gradient differs: {gerr} > {gtol}")
     return err
+
+
+def mixed_precision_config():
+    """The 6-camera model at full width with ``tpu.mixed_precision: true``:
+    ``presets.build_config(mixed_precision=True)`` (DDAD's six cameras,
+    ResNet-18, fusion dim 256, 100x100x20 voxels, 50 depth bins, 384x640,
+    batch 2)."""
+    from vfdepth_tpu_torch import presets
+    return presets.build_config(mixed_precision=True)
 
 
 def three_cam_config():
@@ -832,26 +863,322 @@ def time_kernels(cfg, cfg3, device, gen, errs):
     return rows
 
 
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+def _cos_rel(a, b):
+    """(cosine, relative L2 difference) of a against b, in f64."""
+    a, b = a.double().ravel(), b.double().ravel()
+    return ((a @ b) / (a.norm() * b.norm())).item(), \
+        ((a - b).norm() / b.norm()).item()
+
+
+def check_bf16_forms(cfg, device, gen):
+    """The bf16 forms against their plain versions at the mixed-precision
+    paths' shapes, with the special inputs of the f32 checks: K1-bf16 (6
+    cameras, serving), K2-bf16 (training, unread rows NaN), K3-bf16
+    (serving), K4's bf16-update form (training; exact at distinct base
+    voxels, bounded elsewhere, and its error against the f32 K4 printed),
+    K5-bf16 (one call, 24 warps). Returns the max_abs_err of each."""
+    from vfdepth_tpu_torch.ops.backproject_sample import (
+        backproject_grouped, backproject_grouped_bwd,
+        backproject_grouped_bwd_plain, backproject_grouped_plain)
+    from vfdepth_tpu_torch.ops.sample3d import (
+        sample3d_trilinear, sample3d_trilinear_bwd,
+        sample3d_trilinear_bwd_bf16, sample3d_trilinear_bwd_bf16_plain,
+        sample3d_trilinear_plain)
+    from vfdepth_tpu_torch.ops.warp import (warp_image_mask,
+                                            warp_image_mask_maps,
+                                            warp_image_mask_maps_plain)
+    errs = {}
+    feats, mask, cam3, rel_scale, gs = k1_inputs(cfg, device, gen, True)
+    (fb,) = _bf16(feats)
+    out, valid = backproject_grouped(fb, mask, cam3, rel_scale, 1, gs)
+    ref, ref_valid = backproject_grouped_plain(fb, mask, cam3, rel_scale, 1,
+                                               gs)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16, "K1-bf16 output not bf16")
+    check(torch.equal(valid, ref_valid), "K1-bf16 per-camera validity differs")
+    check(torch.equal(out[..., -1], ref[..., -1]), "K1-bf16 counts differ")
+    check(bool(torch.isfinite(out.float()).all()), "K1-bf16 not finite")
+    # the feature sums against their magnitude; the rel-depth sums (up to
+    # 1e28 for the far-away special points) each against its own
+    got_f, ref_f = out[..., :-2].float(), ref[..., :-2].float()
+    errs["K1-bf16"] = (got_f - ref_f).abs().max().item()
+    tol = BF16_STEP * ref_f.abs().max().item()
+    rel_ok = bool(((out[..., -2].float() - ref[..., -2].float()).abs()
+                   <= BF16_STEP * ref[..., -2].float().abs()).all())
+    print(f"K1-bf16 check: max_abs_err={errs['K1-bf16']:.3e} (tol {tol:.3e})"
+          f"; rel-depth column within one bf16 step of each value: {rel_ok}",
+          flush=True)
+    check(errs["K1-bf16"] <= tol, "K1-bf16 differs from its plain version")
+    check(rel_ok, "K1-bf16 rel-depth sums differ from the plain version")
+    del feats, fb, out, ref, valid, ref_valid
+
+    g, cam3, valid, h, w, c, gs, _ = k2_inputs(cfg, device, gen, True)
+    (gb,) = _bf16(g)
+    out = backproject_grouped_bwd(gb, cam3, valid, h, w, c, gs)
+    ref = backproject_grouped_bwd_plain(gb, cam3, valid, h, w, c, gs)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16, "K2-bf16 output not bf16")
+    check(bool(torch.isfinite(out.float()).all()), "K2-bf16 not finite")
+    errs["K2-bf16"] = (out.float() - ref.float()).abs().max().item()
+    tol = (BF16_STEP + K2_TOL) * ref.float().abs().max().item()
+    print(f"K2-bf16 check: g {list(g.shape)} max_abs_err="
+          f"{errs['K2-bf16']:.3e} (tol {tol:.3e})", flush=True)
+    check(errs["K2-bf16"] <= tol, "K2-bf16 differs from its plain version")
+    del g, gb, out, ref, cam3, valid
+    torch.cuda.empty_cache()
+
+    vol, coords = k3_inputs(cfg, device, gen, True)
+    (vb,) = _bf16(vol)
+    out = sample3d_trilinear(vb, coords)
+    ref = sample3d_trilinear_plain(vb, coords)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16, "K3-bf16 output not bf16")
+    check(bool(torch.isfinite(out.float()).all()), "K3-bf16 not finite")
+    errs["K3-bf16"] = (out.float() - ref.float()).abs().max().item()
+    tol = BF16_STEP * vb.float().abs().max().item()
+    print(f"K3-bf16 check: max_abs_err={errs['K3-bf16']:.3e} (tol {tol:.3e})",
+          flush=True)
+    check(errs["K3-bf16"] <= tol, "K3-bf16 differs from its plain version")
+    del vol, vb, out, ref, coords
+
+    vol, coords = k3_inputs(cfg, device, gen, True, batch=cfg.batch_size)
+    shape = tuple(vol.shape)
+    nb, h, w, d, c = shape
+    # one point per base voxel (fractions away from the edges): one bf16
+    # addition per plane entry, so kernel and plain version agree exactly
+    n_base = (h - 1) * (w - 1) * (d - 1)
+    base = torch.stack([torch.randperm(n_base, generator=gen)
+                        for _ in range(nb)])
+    pix = torch.stack([(base // (d - 1)) % (w - 1), base // ((w - 1) * (
+        d - 1)), base % (d - 1)], -1).float() + 0.1 + 0.8 * torch.rand(
+        nb, n_base, 3, generator=gen)
+    uniq = (pix / (0.5 * (torch.tensor([w, h, d]).float() - 1))
+            - 1.0).to(device)
+    g1 = torch.randn(nb, n_base, c, generator=gen).to(device)
+    for gd in (torch.float32, torch.bfloat16):
+        gg = g1.to(gd)
+        exact = torch.equal(sample3d_trilinear_bwd_bf16(gg, uniq, shape),
+                            sample3d_trilinear_bwd_bf16_plain(gg, uniq, shape))
+        check(exact, f"K4-bf16 ({gd} g) differs from its plain version at "
+                     f"distinct base voxels")
+    g = torch.randn(nb, coords.shape[1], c, generator=gen).to(device)
+    (gb,) = _bf16(g)
+    out = sample3d_trilinear_bwd_bf16(gb, coords, shape)
+    ref = sample3d_trilinear_bwd_bf16_plain(gb, coords, shape)
+    f32 = sample3d_trilinear_bwd(gb.float(), coords, shape)
+    out_f = sample3d_trilinear_bwd_bf16(gb.float(), coords, shape)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16 and out_f.dtype == torch.float32,
+          "K4-bf16 output dtype is not g's")
+    check(bool(torch.isfinite(out.float()).all()), "K4-bf16 not finite")
+    errs["K4-bf16"] = (out.float() - ref.float()).abs().max().item()
+    report = {}
+    for what, a, b in (("bf16 g vs plain", out, ref),
+                       ("bf16 g vs f32 K4", out, f32),
+                       ("f32 g vs f32 K4", out_f, f32)):
+        cos, rel = _cos_rel(a, b)
+        report[what] = (cos, rel)
+        check(cos >= K4_BF16_MIN_COS and rel <= K4_BF16_MAX_REL,
+              f"K4-bf16 {what}: cosine {cos}, relative L2 {rel}")
+    max_rel = ((out.float() - f32).abs().max() / f32.abs().max()).item()
+    print(f"K4-bf16 check: exact at {n_base} distinct base voxels (f32 and "
+          f"bf16 g); crowded production frustum "
+          f"{({k: f'cos {c_:.6f} rel {r:.3e}' for k, (c_, r) in report.items()})}"
+          f" (bounds cos >= {K4_BF16_MIN_COS}, rel <= {K4_BF16_MAX_REL}); "
+          f"max|bf16 - f32 K4| / max|f32 K4| = {max_rel:.3e}", flush=True)
+    del vol, coords, g, gb, out, ref, f32, out_f, uniq, g1
+    torch.cuda.empty_cache()
+
+    img, mask, coords = k5_inputs(cfg, device, gen, True)
+    img, mask = _bf16(img, mask)
+    got = warp_image_mask_maps(img, mask, coords)
+    ref = warp_image_mask_maps_plain(img, mask, coords)
+    torch.cuda.synchronize()
+    e = []
+    for name, a, r in zip(("img", "mask", "ddx", "ddy"), got, ref):
+        check(a.dtype == torch.bfloat16, f"K5-bf16 {name} not bf16")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"K5-bf16 {name} not finite")
+        e.append((a.float() - r.float()).abs().max().item())
+    check(e[1] == 0.0, "K5-bf16 masks differ from the plain version")
+    cot = torch.randn(img.shape[0], coords.shape[1], 3,
+                      generator=gen).to(device).to(torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        cc = coords.clone().requires_grad_()
+        warp_image_mask(img, mask, cc, plain=plain)[0].backward(cot)
+        grads.append(cc.grad)
+    gerr = (grads[0] - grads[1]).abs().max().item()
+    gtol = BF16_STEP * grads[1].abs().max().item()
+    errs["K5-bf16"] = max(e)
+    print(f"K5-bf16 check: max_abs_err img/mask/ddx/ddy "
+          f"{[f'{x:.3e}' for x in e]} (tol {BF16_STEP:.3e}, masks exact); "
+          f"coordinate gradient {gerr:.3e} (tol {gtol:.3e})", flush=True)
+    check(max(e) <= BF16_STEP, "K5-bf16 differs from its plain version")
+    check(gerr <= gtol, "K5-bf16 coordinate gradient differs")
+    return errs
+
+
+def time_bf16_forms(cfg, device, gen, errs):
+    """Each bf16 form, its plain version and its yardstick on the same bf16
+    tensors (``F.grid_sample`` 2-D and 5-D, and their autograd input
+    gradients), at the mixed-precision paths' shapes: K1-bf16 and K3-bf16
+    at serving's (batch 1), K2-bf16, K4-bf16 and K5-bf16 at training's
+    (batch 2; K5 one call of 24 warps). Bytes are the bf16 tensors' (f32
+    masks, coordinates and validity); operations are counted as the f32
+    forms count them (the arithmetic is f32)."""
+    from vfdepth_tpu_torch.ops.backproject_sample import (
+        backproject_grouped, backproject_grouped_bwd,
+        backproject_grouped_bwd_plain, backproject_grouped_plain)
+    from vfdepth_tpu_torch.ops.sample3d import (
+        sample3d_trilinear, sample3d_trilinear_bwd_bf16,
+        sample3d_trilinear_bwd_bf16_plain, sample3d_trilinear_plain)
+    from vfdepth_tpu_torch.ops.warp import (warp_image_mask_maps,
+                                            warp_image_mask_maps_plain)
+    rows = {}
+    feats, mask, cam3, rel_scale, gs = k1_inputs(cfg, device, gen, False)
+    (fb,) = _bf16(feats)
+    out, valid = backproject_grouped(fb, mask, cam3, rel_scale, 1, gs)
+    feats_nchw = fb.permute(0, 3, 1, 2).contiguous()
+    pix = normalise(cam3, fb.shape[1], fb.shape[2], False).to(torch.bfloat16)
+    rows["K1-bf16"] = _row(
+        "backproject_grouped (bf16)", "backproject_sample.cu",
+        "vfdepth_tpu/ops/pallas_sample.py:176", errs["K1-bf16"],
+        time_ms(lambda: backproject_grouped(fb, mask, cam3, rel_scale, 1,
+                                            gs)),
+        time_ms(lambda: backproject_grouped_plain(fb, mask, cam3, rel_scale,
+                                                  1, gs), reps=5),
+        nbytes(fb, mask, cam3, out, valid),
+        valid.sum().item() * fb.shape[-1] * 4 * 2,
+        time_ms(lambda: _grid_sample_2d(feats_nchw, pix)),
+        dict(feats=fb.shape, cam3=cam3.shape, out=out.shape))
+    del feats, fb, mask, cam3, out, valid, feats_nchw, pix
+    torch.cuda.empty_cache()
+
+    g, cam3, valid, h, w, c, gs, seen = k2_inputs(cfg, device, gen, False)
+    (gb,) = _bf16(g)
+    dfeat = backproject_grouped_bwd(gb, cam3, valid, h, w, c, gs)
+    g_cam = gb[..., :c].repeat_interleave(gs, dim=1).reshape(
+        -1, g.shape[2], c).nan_to_num()
+    lib2 = _library_bwd(torch.zeros(cam3.shape[0], h, w, c, device=device,
+                                    dtype=torch.bfloat16),
+                        normalise(cam3, h, w, False).to(torch.bfloat16),
+                        g_cam)
+    rows["K2-bf16"] = _row(
+        "backproject_grouped_bwd (bf16)", "backproject_sample_bwd.cu",
+        "vfdepth_tpu/ops/pallas_sample.py:301", errs["K2-bf16"],
+        time_ms(lambda: backproject_grouped_bwd(gb, cam3, valid, h, w, c,
+                                                gs)),
+        time_ms(lambda: backproject_grouped_bwd_plain(
+            gb, cam3, valid, h, w, c, gs), reps=5),
+        int(seen.sum().item()) * c * 2 + nbytes(cam3, valid, dfeat),
+        valid.sum().item() * c * 4 * 2, time_ms(lib2, reps=5),
+        dict(g=gb.shape, cam3=cam3.shape, valid=valid.shape,
+             dfeat=dfeat.shape))
+    del g, gb, cam3, valid, dfeat, seen, g_cam, lib2
+    torch.cuda.empty_cache()
+
+    vol, coords = k3_inputs(cfg, device, gen, False)
+    (vb,) = _bf16(vol)
+    out = sample3d_trilinear(vb, coords)
+    vol_czyx = vb.permute(0, 4, 3, 1, 2).contiguous()
+    grid = coords.reshape(1, 1, 1, -1, 3).to(torch.bfloat16)
+    rows["K3-bf16"] = _row(
+        "sample3d_trilinear (bf16)", "sample3d.cu",
+        "vfdepth_tpu/ops/sample3d_packed.py:101", errs["K3-bf16"],
+        time_ms(lambda: sample3d_trilinear(vb, coords)),
+        time_ms(lambda: sample3d_trilinear_plain(vb, coords), reps=10),
+        nbytes(vb, coords, out), coords.shape[1] * vb.shape[-1] * 8 * 2,
+        time_ms(lambda: F.grid_sample(vol_czyx, grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True)),
+        dict(vol=vb.shape, coords=coords.shape, out=out.shape))
+    del vol, vb, coords, out, vol_czyx, grid
+
+    vol, coords = k3_inputs(cfg, device, gen, False, batch=cfg.batch_size)
+    shape = tuple(vol.shape)
+    gb = torch.randn(vol.shape[0], coords.shape[1], vol.shape[-1],
+                     generator=gen).to(device).to(torch.bfloat16)
+    dvol = sample3d_trilinear_bwd_bf16(gb, coords, shape)
+    vol_czyx = vol.to(torch.bfloat16).permute(0, 4, 3, 1, 2).contiguous(
+        ).requires_grad_()
+    lib_out = F.grid_sample(vol_czyx, coords.reshape(
+        vol.shape[0], 1, 1, -1, 3).to(torch.bfloat16), mode="bilinear",
+        padding_mode="zeros", align_corners=True)
+    lib_g = gb.transpose(1, 2).reshape(lib_out.shape).contiguous()
+    rows["K4-bf16"] = _row(
+        "sample3d_trilinear_bwd_bf16", "sample3d_bwd.cu",
+        "vfdepth_tpu/ops/sample3d_packed.py:146", errs["K4-bf16"],
+        time_ms(lambda: sample3d_trilinear_bwd_bf16(gb, coords, shape)),
+        time_ms(lambda: sample3d_trilinear_bwd_bf16_plain(gb, coords, shape),
+                reps=5),
+        nbytes(gb, coords, dvol), coords.shape[1] * vol.shape[0]
+        * vol.shape[-1] * 8 * 2,
+        time_ms(lambda: torch.autograd.grad(lib_out, vol_czyx, lib_g,
+                                            retain_graph=True)),
+        dict(g=gb.shape, coords=coords.shape, dvol=dvol.shape))
+    del vol, coords, gb, dvol, vol_czyx, lib_out, lib_g
+    torch.cuda.empty_cache()
+
+    img, mask, coords = k5_inputs(cfg, device, gen, False)
+    img, mask = _bf16(img, mask)
+    maps = warp_image_mask_maps(img, mask, coords)
+    n_warps, h, w, _ = img.shape
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    grid = coords.reshape(n_warps, h, w, 2).to(torch.bfloat16)
+    rows["K5-bf16"] = _row(
+        "warp_image_mask (bf16)", "warp_image_mask.cu",
+        "vfdepth_tpu/ops/warp_mxu.py:75", errs["K5-bf16"],
+        time_ms(lambda: warp_image_mask_maps(img, mask, coords)),
+        time_ms(lambda: warp_image_mask_maps_plain(img, mask, coords),
+                reps=5),
+        nbytes(img, mask, coords, *maps), coords.shape[0] * coords.shape[1]
+        * 3 * 11,
+        time_ms(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True)),
+        dict(img=img.shape, mask=mask.shape, coords=coords.shape))
+    del img, mask, coords, maps, img_nchw, grid
+    torch.cuda.empty_cache()
+    for key, r in rows.items():
+        print(f"{key} {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return rows
+
+
 def kernel_counters():
-    """The launch-counting wrapper of each kernel, by row key."""
+    """The launch counter of each kernel form, by row key: (the wrapper,
+    the name of its counter). A bf16 form counts apart from the f32 one."""
     from vfdepth_tpu_torch.ops.backproject_sample import (
         backproject_grouped, backproject_grouped_bwd, sample2d, sample2d_bwd)
     from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
-                                                sample3d_trilinear_bwd)
+                                                sample3d_trilinear_bwd,
+                                                sample3d_trilinear_bwd_bf16)
     from vfdepth_tpu_torch.ops.warp import warp_image_mask_maps
-    return {"K1": backproject_grouped, "K1b": sample2d,
-            "K2": backproject_grouped_bwd, "K2b": sample2d_bwd,
-            "K3": sample3d_trilinear, "K4": sample3d_trilinear_bwd,
-            "K5": warp_image_mask_maps}
+    f32, bf16 = "launches", "launches_bf16"
+    return {"K1": (backproject_grouped, f32), "K1b": (sample2d, f32),
+            "K2": (backproject_grouped_bwd, f32), "K2b": (sample2d_bwd, f32),
+            "K3": (sample3d_trilinear, f32), "K4": (sample3d_trilinear_bwd, f32),
+            "K5": (warp_image_mask_maps, f32),
+            "K1-bf16": (backproject_grouped, bf16),
+            "K2-bf16": (backproject_grouped_bwd, bf16),
+            "K3-bf16": (sample3d_trilinear, bf16),
+            "K4-bf16": (sample3d_trilinear_bwd_bf16, f32),
+            "K5-bf16": (warp_image_mask_maps, bf16)}
 
 
 def reset_counts():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in kernel_counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in kernel_counters().items()}
 
 
 def launches(**counts):
@@ -867,10 +1194,12 @@ def _dataset(cfg, n: int, rig: str):
                        fusion_level=cfg.fusion_level, rig=rig)
 
 
-def run_serving_path(cfg, device, label: str, per_request, rig: str):
+def run_serving_path(cfg, device, label: str, per_request, rig: str,
+                     tols=(FWD_RTOL, POSE_ATOL)):
     """3 full-width requests through ``VFDepthModel.predict``; returns
     (launches per kernel over the 3 requests, per-request ms, the model,
-    the requests, their outputs)."""
+    the requests, their outputs). ``tols``: request 1 against the plain
+    versions (``compare_outputs``)."""
     from vfdepth_tpu_torch.training.model import VFDepthModel
 
     t0 = time.perf_counter()
@@ -934,20 +1263,21 @@ def run_serving_path(cfg, device, label: str, per_request, rig: str):
     model.plain_samplers = False
     check(read_counts() == counts,
           "the plain reference run launched a kernel")
-    compare_outputs(f"{label} request 1 kernels vs plain", outputs[1], ref)
+    compare_outputs(f"{label} request 1 kernels vs plain", outputs[1], ref,
+                    *tols)
     profile(f"{label} request", lambda: model.predict(requests[2]))
     return counts, ms, model, requests, outputs
 
 
-def compare_outputs(what, got, ref):
-    """Poses within POSE_ATOL, every other output within FWD_RTOL of its
-    magnitude."""
+def compare_outputs(what, got, ref, fwd_rtol=FWD_RTOL, pose_atol=POSE_ATOL):
+    """Poses within ``pose_atol``, every other output within ``fwd_rtol`` of
+    its magnitude."""
     for key, val in got.items():
         diff = (val - ref[key]).abs().max().item()
         if key == "cam_T_cam":
-            tol = POSE_ATOL
+            tol = pose_atol
         else:
-            tol = FWD_RTOL * ref[key].abs().max().item()
+            tol = fwd_rtol * ref[key].abs().max().item()
         print(f"{what}: {key} max_abs_diff={diff:.3e} (tol {tol:.3e})",
               flush=True)
         check(diff <= tol, f"{what}: {key} disagrees")
@@ -980,10 +1310,13 @@ def _grads(model):
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def run_training_path(cfg, device, label: str, per_step, rig: str):
+def run_training_path(cfg, device, label: str, per_step, rig: str,
+                      tols=(STEP_LOSS_RTOL, STEP_GRAD_RTOL)):
     """Full-width training steps at the config's batch through
     ``train_step``; returns (launches per kernel over the timed steps,
-    per-step ms)."""
+    per-step ms). ``tols``: step 1 against the plain versions, the loss's
+    relative difference and each gradient's relative L2 difference."""
+    loss_rtol, grad_rtol = tols
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
 
@@ -1062,7 +1395,7 @@ def run_training_path(cfg, device, label: str, per_step, rig: str):
                 - logs_p["amask_cover"].item()) * n_pix
     print(f"{label} step 1 kernels vs plain: auto-mask cover differs by "
           f"{flips:.0f} of {n_pix} pixels (net flips)", flush=True)
-    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp),
+    check(abs(lk - lp) <= loss_rtol * abs(lp),
           f"step 1 loss: kernels {lk} vs plain {lp}")
     worst, worst_name = 0.0, ""
     for name, p in model.named_parameters():
@@ -1071,11 +1404,11 @@ def run_training_path(cfg, device, label: str, per_step, rig: str):
         if rel > worst:
             worst, worst_name = rel, name
     print(f"{label} step 1 kernels vs plain: loss {lk:.7f} vs {lp:.7f} (rel "
-          f"{abs(lk - lp) / abs(lp):.2e}, tol {STEP_LOSS_RTOL:.0e}); worst "
+          f"{abs(lk - lp) / abs(lp):.2e}, tol {loss_rtol:.0e}); worst "
           f"gradient relative L2 difference {worst:.2e} ({worst_name}; tol "
-          f"{STEP_GRAD_RTOL:.0e})", flush=True)
-    check(worst <= STEP_GRAD_RTOL, f"step 1 gradients: {worst_name} differs "
-                                   f"by {worst} (relative L2)")
+          f"{grad_rtol:.0e})", flush=True)
+    check(worst <= grad_rtol, f"step 1 gradients: {worst_name} differs "
+                              f"by {worst} (relative L2)")
     del grads1, params0, opt0, logs_p
     opt.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
@@ -1176,6 +1509,10 @@ def main() -> int:
     errs["K2b"] = check_k2b(cfg3, device, gen)
     torch.cuda.empty_cache()
     rows = time_kernels(cfg, cfg3, device, gen, errs)
+    cfg_mp = mixed_precision_config()
+    errs.update(check_bf16_forms(cfg_mp, device, gen))
+    torch.cuda.empty_cache()
+    rows.update(time_bf16_forms(cfg_mp, device, gen, errs))
 
     # each path: the counts set to 0 just before it, read just after
     paths = {}
@@ -1211,6 +1548,29 @@ def main() -> int:
     # one spatio-temporal warp per context frame
     train(cfg3, "3-camera", "nuscenes",
           launches(K1b=1, K2b=1, K3=1, K4=1, K5=4))
+    # mixed precision: every kernel in its bf16 form, no f32 form
+    counts, ms, model, _, _ = run_serving_path(
+        cfg_mp, device, "6-camera bf16", launches(
+            **{"K1-bf16": 1, "K3-bf16": 1}), "even",
+        tols=(BF16_FWD_RTOL, BF16_POSE_ATOL))
+    check(model.compute_dtype == torch.bfloat16, "bf16 model not in bf16")
+    print(f"6-camera bf16 serving path: {N_REQUESTS} requests, per-request "
+          f"ms {[round(m, 3) for m in ms]}, "
+          f"{1e3 * N_REQUESTS / sum(ms):.3f} framesets/s", flush=True)
+    paths["6-camera bf16 serving"] = dict(launches=counts, ms=ms)
+    del model
+    torch.cuda.empty_cache()
+    counts, ms = run_training_path(
+        cfg_mp, device, "6-camera bf16", launches(
+            **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 1, "K4-bf16": 1,
+               "K5-bf16": 4}), "even",
+        tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    print(f"6-camera bf16 training path: {N_STEPS} steps at batch "
+          f"{cfg_mp.batch_size}, per-step ms {[round(m, 3) for m in ms]}, "
+          f"{1e3 * N_STEPS * cfg_mp.batch_size / sum(ms):.3f} framesets/s "
+          f"trained", flush=True)
+    paths["6-camera bf16 training"] = dict(launches=counts, ms=ms)
+    torch.cuda.empty_cache()
     for key, row in rows.items():
         by_path = {p: v["launches"][key] for p, v in paths.items()}
         check(sum(by_path.values()) > 0, f"{key} launched on no path")

@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from vfdepth_tpu_torch import presets
 from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.data import FakeDataset
 from vfdepth_tpu_torch.training.model import VFDepthModel
@@ -72,9 +73,11 @@ def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_configs_raise():
-    """What is not ported raises: the fsm nets, mixed precision, unbatched
+    """What is not ported raises: the fsm nets, mixed precision on a rig
+    that runs the per-camera sampler (the bf16 forms of K1b / K2b), unbatched
     pose frames with more than one context frame, and the depth-synthesis
-    forward. (The 3-camera rig and ``merge_backprojection: false`` run.)"""
+    forward. (The 3-camera rig, ``merge_backprojection: false`` and mixed
+    precision on the 6-camera rig run.)"""
     def cfg_with(**over):
         cfg = get_config("configs/tiny_fake.yaml")
         for key, value in over.items():
@@ -82,9 +85,13 @@ def test_unported_configs_raise():
         return cfg
 
     for over in ({"depth_model": "fsm"}, {"pose_model": "fsm"},
-                 {"mixed_precision": True}, {"batch_pose_frames": False}):
+                 {"batch_pose_frames": False}):
         with pytest.raises(NotImplementedError):
             VFDepthModel(cfg_with(**over), device="cpu")
+    assert VFDepthModel(cfg_with(mixed_precision=True),
+                        device="cpu").compute_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="K1b"):
+        VFDepthModel(presets.micro_config(mixed_precision=True), device="cpu")
     assert VFDepthModel(cfg_with(batch_pose_frames=False, frame_ids=[0, 1]),
                         device="cpu").frame_ids == (0, 1)
     cfg = cfg_with(aug_depth=True)

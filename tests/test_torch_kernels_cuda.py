@@ -14,6 +14,20 @@ the square root of the mean additions one address receives (a rounding
 error per addition, random in sign). K5: 1e-6 (a 4-tap weighted sum of inputs in
 [0, 1], fma-contracted), masks exact, its coordinate gradient 1e-5 of its
 largest entry.
+
+The bf16 forms (K1, K2, K3, K5 with bf16 tensors; K4's bf16-update form)
+compute in f32 as their plain versions do and round each output once, so an
+f32 difference of a few ulp can move an output by one bf16 step: 2^-7 of
+the largest output magnitude (the f32 forms' bound added for K2), counts
+and masks exact. K4's bf16-update form sums in bf16 with atomics in a
+varying order, where its plain version sums with ``index_add_``: at
+coordinates whose base voxels are distinct (one addition per plane entry)
+the two agree bit for bit. With collisions each bf16 addition rounds: a
+running bf16 sum of k random-sign terms drifts by about 2^-9 * sqrt(k / 3)
+of its size, 0.05 for the ~2000 additions the crowded points here give one
+plane entry (the JAX package's sequential bf16 scatter: 0.039 against f32).
+The bound is a cosine above 0.995 and a relative L2 difference below 0.1,
+against the plain version and against the f32-update form.
 """
 import numpy as np
 import pytest
@@ -25,6 +39,8 @@ from vfdepth_tpu_torch.ops.backproject_sample import (
     sample2d_bwd, sample2d_bwd_plain, sample2d_plain)
 from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
                                             sample3d_trilinear_bwd,
+                                            sample3d_trilinear_bwd_bf16,
+                                            sample3d_trilinear_bwd_bf16_plain,
                                             sample3d_trilinear_bwd_plain,
                                             sample3d_trilinear_plain)
 from vfdepth_tpu_torch.ops.warp import (warp_image_mask, warp_image_mask_maps,
@@ -265,3 +281,151 @@ def test_sample2d_bwd_kernel_matches_plain(gate, raw, c, ldg):
     hits = used * 4 / (16 * 24) + 1
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * hits ** 0.5
                                * ref.abs().max().item())
+
+
+BF16_STEP = 2.0 ** -7     # one bf16 rounding step, relative to a magnitude
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,gs,c", [(1, 3, 768), (2, 1, 5), (1, 2, 770)])
+def test_backproject_bf16_kernels_match_plain(b, gs, c):
+    _need_cuda()
+    feats, mask, cam3 = _raw_inputs(b * 10 + gs + 2, b, gs, c=c)
+    (fb,) = _bf16(feats)
+    before = (backproject_grouped.launches, backproject_grouped.launches_bf16)
+    out, valid = backproject_grouped(fb, mask, cam3, 0.25, b, gs)
+    assert (backproject_grouped.launches,
+            backproject_grouped.launches_bf16) == (before[0], before[1] + 1)
+    ref, ref_valid = backproject_grouped_plain(fb, mask, cam3, 0.25, b, gs)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and valid.dtype == torch.float32
+    torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+    torch.testing.assert_close(out[..., -1], ref[..., -1], rtol=0, atol=0)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=BF16_STEP * ref.float().abs().max().item())
+
+    g = torch.randn(b, 2, cam3.shape[1], c + 2, device="cuda")
+    g[..., :5, :] = float("nan")          # rows no camera may read
+    g[..., :5, :] = torch.where(valid.reshape(b, 2, gs, -1)[..., :5].amax(
+        2)[..., None] > 0, 1.0, g[..., :5, :])
+    (gb,) = _bf16(g)
+    h, w = feats.shape[1:3]
+    before = backproject_grouped_bwd.launches_bf16
+    got = backproject_grouped_bwd(gb, cam3, valid, h, w, c, gs)
+    assert backproject_grouped_bwd.launches_bf16 == before + 1
+    want = backproject_grouped_bwd_plain(gb, cam3, valid, h, w, c, gs)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    hits = valid.sum().item() * 4 / (valid.shape[0] * h * w) + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=(
+        BF16_STEP + 1e-4 * hits ** 0.5) * want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 64])   # scalar and vector paths
+def test_sample3d_bf16_kernel_matches_plain(c):
+    _need_cuda()
+    rng = np.random.RandomState(c + 7)
+    vol = torch.from_numpy(rng.randn(2, 5, 6, 4, c).astype(np.float32))
+    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords[:, 10, 1] = np.nan
+    coords[:, 12] = [40.0, -1e9, 3.0]
+    vol = vol.cuda().to(torch.bfloat16)
+    coords = torch.from_numpy(coords).cuda()
+    before = sample3d_trilinear.launches_bf16
+    out = sample3d_trilinear(vol, coords)
+    assert sample3d_trilinear.launches_bf16 == before + 1
+    ref = sample3d_trilinear_plain(vol, coords)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=BF16_STEP * vol.float().abs().max().item())
+    assert (out[:, [10, 12]] == 0).all()
+
+
+def _cosine_rel(a, b):
+    a, b = a.double().ravel(), b.double().ravel()
+    return ((a @ b) / (a.norm() * b.norm())).item(), \
+        ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,g_bf16", [(64, True), (64, False), (3, True)])
+def test_sample3d_bf16_update_kernel(c, g_bf16):
+    _need_cuda()
+    rng = np.random.RandomState(c + g_bf16)
+    shape = (2, 5, 6, 4, c)
+    g = torch.randn(2, 4001, c, device="cuda")
+    g = g.to(torch.bfloat16) if g_bf16 else g
+    # distinct base voxels: one addition per plane entry, so the bf16 sums
+    # are single roundings and the kernel equals its plain version exactly
+    n_vox = 4 * 5 * 3                    # bases lie in [0, size-2] per axis
+    base = np.stack([rng.permutation(n_vox) for _ in range(2)])
+    yb, xb, zb = base // 15, (base // 3) % 5, base % 3
+    frac = rng.uniform(0.1, 0.9, (2, n_vox, 3))
+    pix = np.stack([xb, yb, zb], axis=-1) + frac
+    sizes = np.array([6, 5, 4])
+    uniq = (pix / (0.5 * (sizes - 1)) - 1.0).astype(np.float32)
+    uniq = torch.from_numpy(uniq).cuda()
+    before = sample3d_trilinear_bwd_bf16.launches
+    got = sample3d_trilinear_bwd_bf16(g[:, :n_vox].contiguous(), uniq, shape)
+    assert sample3d_trilinear_bwd_bf16.launches == before + 1
+    want = sample3d_trilinear_bwd_bf16_plain(g[:, :n_vox].contiguous(), uniq,
+                                             shape)
+    torch.cuda.synchronize()
+    assert got.dtype == g.dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    # crowded points: ~2000 bf16 additions per plane entry, in any order
+    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords[:, :2000] = rng.uniform(-1.0, -0.8, (2, 2000, 3))
+    coords[:, 10, 1] = np.nan
+    coords[:, 12] = [40.0, -1e9, 3.0]
+    coords = torch.from_numpy(coords).cuda()
+    got = sample3d_trilinear_bwd_bf16(g, coords, shape)
+    want = sample3d_trilinear_bwd_bf16_plain(g, coords, shape)
+    f32 = sample3d_trilinear_bwd(g.float(), coords, shape)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    for ref in (want, f32):
+        cos, rel = _cosine_rel(got, ref)
+        assert cos > 0.995 and rel < 0.1, (cos, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24 * 40, 1001])
+def test_warp_bf16_kernel_matches_plain(n):
+    _need_cuda()
+    rng = np.random.RandomState(n + 1)
+    img = torch.from_numpy(rng.rand(3, 24, 40, 3).astype(np.float32)).cuda()
+    mask = torch.from_numpy(
+        (rng.rand(3, 24, 40, 1) > 0.3).astype(np.float32)).cuda()
+    img, mask = _bf16(img, mask)
+    coords = rng.uniform(-1.3, 1.3, (3, n, 2)).astype(np.float32)
+    coords[:, :4, 0] = np.nan
+    coords[:, 6:8] = [3e30, -3e30]
+    coords = torch.from_numpy(coords).cuda()
+    before = warp_image_mask_maps.launches_bf16
+    got = warp_image_mask_maps(img, mask, coords)
+    assert warp_image_mask_maps.launches_bf16 == before + 1
+    ref = warp_image_mask_maps_plain(img, mask, coords)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("img", "mask", "ddx", "ddy"), got, ref):
+        assert a.dtype == torch.bfloat16, name
+        assert torch.isfinite(a.float()).all(), name
+        tol = 0.0 if name == "mask" else BF16_STEP * r.float().abs().max()
+        torch.testing.assert_close(a.float(), r.float(), rtol=0,
+                                   atol=float(tol), msg=name)
+    cot = torch.randn(3, n, 3, device="cuda").to(torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        c = coords.clone().requires_grad_()
+        warp_image_mask(img, mask, c, plain=plain)[0].backward(cot)
+        grads.append(c.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=(
+        BF16_STEP * grads[1].abs().max().item()))

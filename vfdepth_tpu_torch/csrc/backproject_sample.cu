@@ -46,6 +46,13 @@
 // (K1b's C+1 rows are only 4-byte aligned: scalar stores). Points no camera
 // sees cost only shared-memory reads. All offsets into the tensors are
 // 64-bit: at b=4 K1's output alone passes 2^31 elements.
+//
+// K1 has a bf16 form (mixed precision): bf16 features in, bf16 output,
+// loads and stores in bf16 while the taps, weights and the group sum stay
+// f32 (the sum is rounded once, where the JAX kernel rounds each camera's
+// row to bf16 and sums them in bf16). Its C+2 rows of 770 bf16 are 1540
+// bytes, 4-byte aligned: the 4 channels of a thread go out as two bf16x2
+// stores. The mask, coordinates and per-camera validity stay f32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,12 +78,12 @@ __device__ __forceinline__ float rel_of(const TapPoint& t, const float* q,
   return kRaw ? t.z * rel_scale : q[2];
 }
 
-template <bool kRaw, bool kVec4>
+template <typename T, bool kRaw, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-backproject_grouped_kernel(const float* __restrict__ feats,
+backproject_grouped_kernel(const T* __restrict__ feats,
                            const float* __restrict__ mask,
                            const float* __restrict__ coords,
-                           float* __restrict__ out,
+                           T* __restrict__ out,
                            float* __restrict__ valid_out,
                            int gs, int h, int w, int64_t c, int64_t n,
                            float rel_scale) {
@@ -116,10 +123,10 @@ backproject_grouped_kernel(const float* __restrict__ feats,
   // kTile*(C+2), fits 32 bits: the in-tile index math stays 32-bit)
   const int co = (int)c + 2;
   const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
-  float* dst = out + ((bi * 2 + g) * n + n0) * co;
+  T* dst = out + ((bi * 2 + g) * n + n0) * co;
   if (kVec4) {
-    // one thread per (point, 4 channels): float4 tap reads, two float2
-    // stores (rows start 8-byte aligned: C+2 is even)
+    // one thread per (point, 4 channels): one vector tap read, two 2-element
+    // stores (rows start 2-element aligned: C+2 is even)
     const int c4 = (int)c / 4;
     for (int idx = threadIdx.x; idx < rows * c4; idx += kThreads) {
       const int p = idx / c4;
@@ -131,8 +138,7 @@ backproject_grouped_kernel(const float* __restrict__ feats,
         float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         for (int j = 0; j < 4; ++j) {
           if (t.off[j] < 0) continue;
-          const float4 f =
-              __ldg(reinterpret_cast<const float4*>(feats + t.off[j] + ch));
+          const float4 f = ld4(feats + t.off[j] + ch);
           val.x += t.w[j] * f.x;
           val.y += t.w[j] * f.y;
           val.z += t.w[j] * f.z;
@@ -150,7 +156,7 @@ backproject_grouped_kernel(const float* __restrict__ feats,
       float acc = 0.0f;
       for (int k = 0; k < gs; ++k)
         acc += (idx & 1) ? taps[k][p].keep : taps[k][p].extra;
-      dst[p * co + (int)c + (idx & 1)] = acc;
+      st1(dst + p * co + (int)c + (idx & 1), acc);
     }
   } else {
     for (int idx = threadIdx.x; idx < rows * co; idx += kThreads) {
@@ -163,7 +169,7 @@ backproject_grouped_kernel(const float* __restrict__ feats,
           if (t.keep == 0.0f) continue;
           float val = 0.0f;
           for (int j = 0; j < 4; ++j)
-            if (t.off[j] >= 0) val += t.w[j] * __ldg(feats + t.off[j] + ch);
+            if (t.off[j] >= 0) val += t.w[j] * ld1(feats + t.off[j] + ch);
           acc += val;
         }
       } else if (ch == c) {
@@ -171,7 +177,7 @@ backproject_grouped_kernel(const float* __restrict__ feats,
       } else {
         for (int k = 0; k < gs; ++k) acc += taps[k][p].keep;
       }
-      dst[idx] = acc;
+      st1(dst + idx, acc);
     }
   }
 }
@@ -288,23 +294,18 @@ void launch_sample2d(const dim3& grid, cudaStream_t s, bool vec4,
         out_vec);
 }
 
-}  // namespace
-
-// K1: feats [b*2*gs, h, w, c], mask [b*2*gs, h, w], coords [b*2*gs, n, 3]
-// (raw (u, v, z), or normalised (x, y, rel)) -> out [b, 2, n, c+2], valid
-// [b*2*gs, n].
-extern "C" int vf_backproject_grouped(
-    const float* feats, const float* mask, const float* coords, float* out,
-    float* valid, int64_t b, int64_t gs, int64_t h, int64_t w, int64_t c,
-    int64_t n, float rel_scale, int raw, void* stream) {
+template <typename T>
+int launch_grouped(const T* feats, const float* mask, const float* coords,
+                   T* out, float* valid, int64_t b, int64_t gs, int64_t h,
+                   int64_t w, int64_t c, int64_t n, float rel_scale, int raw,
+                   void* stream) {
   if (gs < 1 || gs > kMaxGroup) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n + kTile - 1) / kTile), 2, (unsigned)b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(feats) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const bool vec4 = c % 4 == 0 && vec_width(feats, c) == 4 &&
+                    vec_width(out, c + 2) >= 2;
 #define VF_GROUPED(RAW, VEC)                                                 \
-  backproject_grouped_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(            \
+  backproject_grouped_kernel<T, RAW, VEC><<<grid, kThreads, 0, s>>>(         \
       feats, mask, coords, out, valid, (int)gs, (int)h, (int)w, c, n,        \
       rel_scale)
   if (raw) {
@@ -314,6 +315,28 @@ extern "C" int vf_backproject_grouped(
   }
 #undef VF_GROUPED
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1: feats [b*2*gs, h, w, c], mask [b*2*gs, h, w], coords [b*2*gs, n, 3]
+// (raw (u, v, z), or normalised (x, y, rel)) -> out [b, 2, n, c+2], valid
+// [b*2*gs, n].
+extern "C" int vf_backproject_grouped(
+    const float* feats, const float* mask, const float* coords, float* out,
+    float* valid, int64_t b, int64_t gs, int64_t h, int64_t w, int64_t c,
+    int64_t n, float rel_scale, int raw, void* stream) {
+  return launch_grouped(feats, mask, coords, out, valid, b, gs, h, w, c, n,
+                        rel_scale, raw, stream);
+}
+
+// K1's bf16 form: feats and out bf16; mask, coords and valid f32
+extern "C" int vf_backproject_grouped_bf16(
+    const __nv_bfloat16* feats, const float* mask, const float* coords,
+    __nv_bfloat16* out, float* valid, int64_t b, int64_t gs, int64_t h,
+    int64_t w, int64_t c, int64_t n, float rel_scale, int raw, void* stream) {
+  return launch_grouped(feats, mask, coords, out, valid, b, gs, h, w, c, n,
+                        rel_scale, raw, stream);
 }
 
 // K1b: feats [B, h, w, c], mask [B, h, w] (modes 1, 2; else unused), coords

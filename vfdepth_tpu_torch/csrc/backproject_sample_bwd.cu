@@ -40,6 +40,12 @@
 // deterministic alternative - bucket the point-taps by pixel (a counting
 // sort) and sum each list in a block - costs two more passes and a sort; it
 // is left for a later change.
+//
+// K2 has a bf16 form (mixed precision): the cotangent is read as bf16 (its
+// C+2 rows of 770 bf16 are 4-byte aligned: two bf16x2 loads per 4
+// channels), the taps and the f32 atomics into the zeroed f32 feature
+// gradient are the f32 form's, and the caller rounds the gradient once to
+// bf16, as the JAX kernel's bf16 output does (pallas_sample.py:552, :581).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,8 +80,8 @@ __device__ __forceinline__ bool point_taps(const float* coords,
 
 // One block: the cotangent rows src[p * ldg] (p < rows) scattered into the
 // taps of the `cams` cameras of taps[k][p].
-template <bool kVec4>
-__device__ __forceinline__ void scatter_tile(const float* __restrict__ src,
+template <typename T, bool kVec4>
+__device__ __forceinline__ void scatter_tile(const T* __restrict__ src,
                                              BwdTaps (*taps)[kTile],
                                              const int* seen, int cams,
                                              int rows, int64_t c, int64_t ldg,
@@ -103,7 +109,7 @@ __device__ __forceinline__ void scatter_tile(const float* __restrict__ src,
       const int p = idx / (int)c;
       if (!seen[p]) continue;
       const int ch = idx - p * (int)c;
-      const float gv = __ldg(src + p * ldg + ch);
+      const float gv = ld1(src + p * ldg + ch);
       for (int k = 0; k < cams; ++k) {
         const BwdTaps& t = taps[k][p];
         for (int j = 0; j < 4; ++j)
@@ -113,9 +119,9 @@ __device__ __forceinline__ void scatter_tile(const float* __restrict__ src,
   }
 }
 
-template <bool kRaw, bool kVec4>
+template <typename T, bool kRaw, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-backproject_grouped_bwd_kernel(const float* __restrict__ g,
+backproject_grouped_bwd_kernel(const T* __restrict__ g,
                                const float* __restrict__ coords,
                                const float* __restrict__ valid,
                                float* __restrict__ dfeat, int gs, int h,
@@ -144,8 +150,8 @@ backproject_grouped_bwd_kernel(const float* __restrict__ g,
   __syncthreads();
 
   const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
-  scatter_tile<kVec4>(g + ((bi * 2 + grp) * n + n0) * ldg, taps, seen, gs,
-                      rows, c, ldg, gvec, dfeat);
+  scatter_tile<T, kVec4>(g + ((bi * 2 + grp) * n + n0) * ldg, taps, seen, gs,
+                         rows, c, ldg, gvec, dfeat);
 }
 
 template <bool kRaw, bool kVec4>
@@ -169,8 +175,30 @@ sample2d_bwd_kernel(const float* __restrict__ g,
   __syncthreads();
 
   const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
-  scatter_tile<kVec4>(g + (cam * n + n0) * ldg, taps, seen, 1, rows, c, ldg,
-                      gvec, dfeat);
+  scatter_tile<float, kVec4>(g + (cam * n + n0) * ldg, taps, seen, 1, rows,
+                             c, ldg, gvec, dfeat);
+}
+
+template <typename T>
+int launch_grouped_bwd(const T* g, const float* coords, const float* valid,
+                       float* dfeat, int64_t b, int64_t gs, int64_t h,
+                       int64_t w, int64_t c, int64_t ldg, int64_t n, int raw,
+                       void* stream) {
+  if (gs < 1 || gs > kMaxGroup || ldg < c) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile), 2, (unsigned)b);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = c % 4 == 0 && vec_width(dfeat, c) == 4;
+  const int gvec = vec_width(g, ldg);
+#define VF_GROUPED_BWD(RAW, VEC)                                             \
+  backproject_grouped_bwd_kernel<T, RAW, VEC><<<grid, kThreads, 0, s>>>(     \
+      g, coords, valid, dfeat, (int)gs, (int)h, (int)w, c, ldg, n, gvec)
+  if (raw) {
+    if (vec4) VF_GROUPED_BWD(true, true); else VF_GROUPED_BWD(true, false);
+  } else {
+    if (vec4) VF_GROUPED_BWD(false, true); else VF_GROUPED_BWD(false, false);
+  }
+#undef VF_GROUPED_BWD
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -182,22 +210,17 @@ extern "C" int vf_backproject_grouped_bwd(
     const float* g, const float* coords, const float* valid, float* dfeat,
     int64_t b, int64_t gs, int64_t h, int64_t w, int64_t c, int64_t ldg,
     int64_t n, int raw, void* stream) {
-  if (gs < 1 || gs > kMaxGroup || ldg < c) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile), 2, (unsigned)b);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(dfeat) % 16 == 0;
-  const int gvec = vec_width(g, ldg);
-#define VF_GROUPED_BWD(RAW, VEC)                                             \
-  backproject_grouped_bwd_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(        \
-      g, coords, valid, dfeat, (int)gs, (int)h, (int)w, c, ldg, n, gvec)
-  if (raw) {
-    if (vec4) VF_GROUPED_BWD(true, true); else VF_GROUPED_BWD(true, false);
-  } else {
-    if (vec4) VF_GROUPED_BWD(false, true); else VF_GROUPED_BWD(false, false);
-  }
-#undef VF_GROUPED_BWD
-  return (int)cudaGetLastError();
+  return launch_grouped_bwd(g, coords, valid, dfeat, b, gs, h, w, c, ldg, n,
+                            raw, stream);
+}
+
+// K2's bf16 form: g bf16; coords, valid and dfeat f32
+extern "C" int vf_backproject_grouped_bwd_bf16(
+    const __nv_bfloat16* g, const float* coords, const float* valid,
+    float* dfeat, int64_t b, int64_t gs, int64_t h, int64_t w, int64_t c,
+    int64_t ldg, int64_t n, int raw, void* stream) {
+  return launch_grouped_bwd(g, coords, valid, dfeat, b, gs, h, w, c, ldg, n,
+                            raw, stream);
 }
 
 // K2b: g [B, n, ldg] (ldg >= c), coords [B, n, ncols], valid [B, n] or null
@@ -212,8 +235,7 @@ extern "C" int vf_sample2d_bwd(const float* g, const float* coords,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(dfeat) % 16 == 0;
+  const bool vec4 = c % 4 == 0 && vec_width(dfeat, c) == 4;
   const int gvec = vec_width(g, ldg);
 #define VF_SAMPLE2D_BWD(RAW, VEC)                                            \
   sample2d_bwd_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(                   \

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 struct TapPoint {
   bool live;
   int ix, iy;      // floor of the pixel coordinate (valid where live)
@@ -98,32 +100,26 @@ __device__ __forceinline__ float nearest_mask(const TapPoint& p,
              ? mask_cam[(int64_t)yn * w + xn] : 0.0f;
 }
 
-// Vector width of 4-float groups at `ptr + k * stride` for every k: 4, 2 or
-// 1 (scalar), from the stride and the base pointer's alignment.
-inline int vec_width(const void* ptr, int64_t stride) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
-  if (stride % 4 == 0 && a % 16 == 0) return 4;
-  if (stride % 2 == 0 && a % 8 == 0) return 2;
-  return 1;
-}
-
-__device__ __forceinline__ void store4(float* o, float4 v, int vec) {
+// 4 consecutive elements at `o` (f32 or bf16), stored or loaded `vec` (4,
+// 2 or 1: ``vec_width`` of elem.cuh) elements at a time.
+template <typename T>
+__device__ __forceinline__ void store4(T* o, float4 v, int vec) {
   if (vec == 4) {
-    *reinterpret_cast<float4*>(o) = v;
+    st4(o, v);
   } else if (vec == 2) {
-    reinterpret_cast<float2*>(o)[0] = make_float2(v.x, v.y);
-    reinterpret_cast<float2*>(o)[1] = make_float2(v.z, v.w);
+    st2(o, make_float2(v.x, v.y));
+    st2(o + 2, make_float2(v.z, v.w));
   } else {
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+    st1(o, v.x); st1(o + 1, v.y); st1(o + 2, v.z); st1(o + 3, v.w);
   }
 }
 
-__device__ __forceinline__ float4 load4(const float* p, int vec) {
-  if (vec == 4) return __ldg(reinterpret_cast<const float4*>(p));
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int vec) {
+  if (vec == 4) return ld4(p);
   if (vec == 2) {
-    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-    const float2 b = __ldg(reinterpret_cast<const float2*>(p) + 1);
+    const float2 a = ld2(p), b = ld2(p + 2);
     return make_float4(a.x, a.y, b.x, b.y);
   }
-  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+  return make_float4(ld1(p), ld1(p + 1), ld1(p + 2), ld1(p + 3));
 }

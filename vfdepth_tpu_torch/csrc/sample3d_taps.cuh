@@ -1,6 +1,6 @@
 // Tap rule of the trilinear frustum sampler, shared by its forward (K3,
-// sample3d.cu) and its backward (K4, sample3d_bwd.cu), so the backward
-// scatters exactly where the forward gathered.
+// sample3d.cu) and its backward in both forms (K4, sample3d_bwd.cu), so the
+// backward scatters exactly where the forward gathered.
 //
 // Per axis, with pixel coordinate p, floor p0, frac t and the base clamped
 // to [0, size-2] (off = p0 - base):
@@ -33,6 +33,32 @@ __device__ __forceinline__ void axis_weights(float coord, int size, int& base,
   w1 = t * is0 + (1.0f - t) * isp1;
 }
 
+struct PointWeights {
+  int64_t vox;         // flat index of tap (y0, x0, z0) in [b, h, w, d]
+  float wt[8];         // tap t = dz*4 + dx*2 + dy (dy fastest)
+};
+
+// point `pt` of the flat [b * n] point list; the volume is [b, h, w, d, ...]
+__device__ __forceinline__ PointWeights point_weights(const float* coords,
+                                                      int64_t pt, int64_t n,
+                                                      int h, int w, int d) {
+  const int64_t bi = pt / n;
+  const float* q = coords + pt * 3;
+  float x = q[0], y = q[1], z = q[2];
+  if (!(isfinite(x) && isfinite(y) && isfinite(z))) x = y = z = -4.0f;
+  int xb, yb, zb;
+  float wx0, wx1, wy0, wy1, wz0, wz1;
+  axis_weights(x, w, xb, wx0, wx1);
+  axis_weights(y, h, yb, wy0, wy1);
+  axis_weights(z, d, zb, wz0, wz1);
+  PointWeights p;
+  // tap index t = dz*4 + dx*2 + dy (dy fastest), the TPU kernel's order
+  const float wzx[4] = {wz0 * wx0, wz0 * wx1, wz1 * wx0, wz1 * wx1};
+  for (int k = 0; k < 8; ++k) p.wt[k] = wzx[k >> 1] * ((k & 1) ? wy1 : wy0);
+  p.vox = ((bi * h + yb) * w + xb) * (int64_t)d + zb;
+  return p;
+}
+
 struct PointTaps {
   int64_t base;        // element offset of tap (y0, x0, z0)'s row
   int64_t off[8];      // element offsets of the 8 tap rows from base
@@ -43,24 +69,14 @@ struct PointTaps {
 __device__ __forceinline__ PointTaps point_taps(const float* coords,
                                                 int64_t pt, int64_t n, int h,
                                                 int w, int d, int64_t c) {
-  const int64_t bi = pt / n;
-  const float* q = coords + pt * 3;
-  float x = q[0], y = q[1], z = q[2];
-  if (!(isfinite(x) && isfinite(y) && isfinite(z))) x = y = z = -4.0f;
-  int xb, yb, zb;
-  float wx0, wx1, wy0, wy1, wz0, wz1;
-  axis_weights(x, w, xb, wx0, wx1);
-  axis_weights(y, h, yb, wy0, wy1);
-  axis_weights(z, d, zb, wz0, wz1);
+  const PointWeights p = point_weights(coords, pt, n, h, w, d);
   PointTaps t;
-  // tap index t = dz*4 + dx*2 + dy (dy fastest), the TPU kernel's order
-  const float wzx[4] = {wz0 * wx0, wz0 * wx1, wz1 * wx0, wz1 * wx1};
   const int64_t sz = (int64_t)d * c;          // one x step
   const int64_t sy = (int64_t)w * sz;         // one y step
   for (int k = 0; k < 8; ++k) {
-    t.wt[k] = wzx[k >> 1] * ((k & 1) ? wy1 : wy0);
+    t.wt[k] = p.wt[k];
     t.off[k] = (k & 1) * sy + ((k >> 1) & 1) * sz + ((k >> 2) & 1) * c;
   }
-  t.base = (((bi * h + yb) * w + xb) * (int64_t)d + zb) * c;
+  t.base = p.vox * c;
   return t;
 }

@@ -17,7 +17,11 @@
 // The backward (coordinate gradient) is an elementwise dot of the upstream
 // gradient with ddx / ddy, done outside the kernel (ops/warp.py).
 // The TPU kernel rounds the sources and ddx / ddy to bf16 for its one-hot
-// MXU matmuls; this port of an f32 model keeps everything in f32.
+// MXU matmuls; the f32 form here keeps everything in f32. The bf16 form
+// (mixed precision: bf16 sources, the JAX model's warp sources) reads bf16
+// images and masks, keeps the coordinates and the arithmetic f32, and
+// rounds the warped image, the mask and ddx / ddy once to bf16, the
+// outputs' dtype in warp_mxu.py:313-330.
 //
 // What bounds it on Hopper: bytes. Per call at the production shapes (24
 // warps of 384x640) it reads the coordinates (47 MB) and writes 3 + 1 +
@@ -30,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -40,13 +46,14 @@ __device__ __forceinline__ float pixel_coord(float c, int size) {
   return fminf(fmaxf(p, -1e6f), 1e6f);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-warp_image_mask_kernel(const float* __restrict__ img,
-                       const float* __restrict__ mask,
+warp_image_mask_kernel(const T* __restrict__ img,
+                       const T* __restrict__ mask,
                        const float* __restrict__ coords,
-                       float* __restrict__ out_img,
-                       float* __restrict__ out_mask,
-                       float* __restrict__ ddx, float* __restrict__ ddy,
+                       T* __restrict__ out_img,
+                       T* __restrict__ out_mask,
+                       T* __restrict__ ddx, T* __restrict__ ddy,
                        int64_t total, int64_t n, int h, int w) {
   const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= total) return;
@@ -59,28 +66,43 @@ warp_image_mask_kernel(const float* __restrict__ img,
   const int ix = (int)x0f, iy = (int)y0f;
   const bool x0in = ix >= 0 && ix < w, x1in = ix + 1 >= 0 && ix + 1 < w;
   const bool y0in = iy >= 0 && iy < h, y1in = iy + 1 >= 0 && iy + 1 < h;
-  const float* src = img + bi * (int64_t)h * w * kC;
+  const T* src = img + bi * (int64_t)h * w * kC;
   const int64_t r0 = (int64_t)iy * w + ix;   // tap (x0, y0), pixel index
   float v00[kC], v10[kC], v01[kC], v11[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
-    v00[c] = (x0in && y0in) ? __ldg(src + r0 * kC + c) : 0.0f;
-    v10[c] = (x1in && y0in) ? __ldg(src + (r0 + 1) * kC + c) : 0.0f;
-    v01[c] = (x0in && y1in) ? __ldg(src + (r0 + w) * kC + c) : 0.0f;
-    v11[c] = (x1in && y1in) ? __ldg(src + (r0 + w + 1) * kC + c) : 0.0f;
+    v00[c] = (x0in && y0in) ? ld1(src + r0 * kC + c) : 0.0f;
+    v10[c] = (x1in && y0in) ? ld1(src + (r0 + 1) * kC + c) : 0.0f;
+    v01[c] = (x0in && y1in) ? ld1(src + (r0 + w) * kC + c) : 0.0f;
+    v11[c] = (x1in && y1in) ? ld1(src + (r0 + w + 1) * kC + c) : 0.0f;
   }
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
     const float top = (1.0f - tx) * v00[c] + tx * v10[c];
     const float bot = (1.0f - tx) * v01[c] + tx * v11[c];
-    out_img[idx * kC + c] = (1.0f - ty) * top + ty * bot;
-    ddx[idx * kC + c] = (1.0f - ty) * (v10[c] - v00[c]) + ty * (v11[c] - v01[c]);
-    ddy[idx * kC + c] = bot - top;
+    st1(out_img + idx * kC + c, (1.0f - ty) * top + ty * bot);
+    st1(ddx + idx * kC + c,
+        (1.0f - ty) * (v10[c] - v00[c]) + ty * (v11[c] - v01[c]));
+    st1(ddy + idx * kC + c, bot - top);
   }
   const int mx = ix + (tx > 0.5f ? 1 : 0), my = iy + (ty > 0.5f ? 1 : 0);
   const bool min_ = mx >= 0 && mx < w && my >= 0 && my < h;
-  out_mask[idx] =
-      min_ ? __ldg(mask + bi * (int64_t)h * w + (int64_t)my * w + mx) : 0.0f;
+  st1(out_mask + idx,
+      min_ ? ld1(mask + bi * (int64_t)h * w + (int64_t)my * w + mx) : 0.0f);
+}
+
+template <typename T>
+int launch(const T* img, const T* mask, const float* coords, T* out_img,
+           T* out_mask, T* ddx, T* ddy, int64_t b, int64_t h, int64_t w,
+           int64_t n, void* stream) {
+  if (h < 1 || w < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int64_t total = b * n;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  warp_image_mask_kernel<T><<<(unsigned)blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      img, mask, coords, out_img, out_mask, ddx, ddy, total, n, (int)h,
+      (int)w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -90,12 +112,16 @@ extern "C" int vf_warp_image_mask(const float* img, const float* mask,
                                   float* out_mask, float* ddx, float* ddy,
                                   int64_t b, int64_t h, int64_t w, int64_t n,
                                   void* stream) {
-  if (h < 1 || w < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const int64_t total = b * n;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  warp_image_mask_kernel<<<(unsigned)blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      img, mask, coords, out_img, out_mask, ddx, ddy, total, n, (int)h,
-      (int)w);
-  return (int)cudaGetLastError();
+  return launch(img, mask, coords, out_img, out_mask, ddx, ddy, b, h, w, n,
+                stream);
+}
+
+// the bf16 form: images, masks and every output bf16, coords f32
+extern "C" int vf_warp_image_mask_bf16(
+    const __nv_bfloat16* img, const __nv_bfloat16* mask, const float* coords,
+    __nv_bfloat16* out_img, __nv_bfloat16* out_mask, __nv_bfloat16* ddx,
+    __nv_bfloat16* ddy, int64_t b, int64_t h, int64_t w, int64_t n,
+    void* stream) {
+  return launch(img, mask, coords, out_img, out_mask, ddx, ddy, b, h, w, n,
+                stream);
 }

@@ -13,6 +13,11 @@ covers every target pixel with a nonzero value, mask or gradient, so the
 windowed loss equals the dense one. The port runs the dense warps for every
 value of that key. The depth-synthesis branch (``aug_depth``,
 ``warp_depth``) is not ported and raises.
+
+Under mixed precision the colours arrive as bf16 (``training/model.py``):
+the warps take bf16 sources and masks and return bf16 images and masks
+(K5's bf16 form), and ``intensity_align`` takes its statistics in f32 and
+returns the warped image's dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,14 +37,15 @@ def warp_image(src_img: torch.Tensor, src_mask: torch.Tensor,
 
     Leading dims match across arguments. Non-finite coordinates give image
     2.0 and mask 0; the mask is 0 where the coordinates leave [-1, 1].
-    Returns (warped image, warped mask), the mask without gradient.
+    Returns (warped image, warped mask) in the image's dtype (the mask is
+    cast to it before the warp), the mask without gradient.
     """
     coords = project_coords(tar_depth, transform, tar_inv_k, src_k)
     h, w, c = src_img.shape[-3:]
     lead = src_img.shape[:-3]
     img_w, mask_w = warp_image_mask(
         src_img.reshape(-1, h, w, c).contiguous(),
-        src_mask.reshape(-1, h, w, 1).contiguous(),
+        src_mask.to(src_img.dtype).reshape(-1, h, w, 1).contiguous(),
         coords.reshape(-1, h * w, 2).contiguous(), plain=plain)
     img_w = img_w.reshape(lead + (h, w, c))
     mask_w = mask_w.reshape(lead + (h, w, 1))
@@ -60,7 +66,8 @@ def intensity_align(ref_img: torch.Tensor, ref_mask: torch.Tensor,
     ref_mask * warp_mask > 0 broadcast to RGB; the variance takes the
     squared deviation over ALL pixels around the masked mean and divides
     by the full count (the reference's quirk). Where a sample's overlap is
-    empty the warped image passes through unchanged.
+    empty the warped image passes through unchanged. The statistics and the
+    renormalisation run in f32; the result has the warped image's dtype.
     """
     with torch.no_grad():
         mask = ((ref_mask * warp_mask) > 0).float()
@@ -82,7 +89,7 @@ def intensity_align(ref_img: torch.Tensor, ref_mask: torch.Tensor,
         w_mean, w_std = stats(warp_img)
     norm = (warp_img - w_mean) / (w_std + 1e-8) * s_std + s_mean
     norm = norm * warp_mask
-    return torch.where(msum > 0, norm, warp_img)
+    return torch.where(msum > 0, norm, warp_img).to(warp_img.dtype)
 
 
 class RenderOutputs(NamedTuple):
@@ -153,11 +160,13 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
         def overlap_for(frame_colors, pose):
             w_img, w_mask = warp_image(frame_colors[:, rel_idx], nbr_mask,
                                        depn, invkn, nbr_k, pose, plain=plain)
-            w_mask = w_mask * nbr_valid_f
+            w_mask = w_mask * nbr_valid_f.to(w_mask.dtype)
             if do_intensity_align:
                 w_img = intensity_align(_bcast(colors[0], n_nbr),
                                         _bcast(mask, n_nbr), w_img, w_mask)
-            return (w_img * nbr_valid_f).sum(dim=2), w_mask.sum(dim=2)
+            # the valid flags in the image's dtype: a bf16 stack stays bf16
+            return ((w_img * nbr_valid_f.to(w_img.dtype)).sum(dim=2),
+                    w_mask.sum(dim=2))
 
         outs = [overlap_for(colors[0], spatio_pose)]
         outs += [overlap_for(colors[f], spatio_tempo_pose[:, :, fi])

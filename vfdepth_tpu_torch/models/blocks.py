@@ -6,6 +6,13 @@ tree (``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``, ``Dense_0`` ->
 ``dense``) so ``weights.load_flax_params`` maps parameters by path. The
 JAX package's ``fast_pad`` ablation is not ported (off by default there).
 LeakyReLU takes JAX's derivative at 0 (``ops/ties.py``).
+
+``dtype`` is the compute dtype of the flax modules' ``dtype`` attribute
+(``torch.bfloat16`` under ``tpu.mixed_precision``, None for f32):
+parameters stay f32, and each layer casts where flax does. A conv or dense
+layer casts its input, weight and bias to ``dtype`` (flax's
+``promote_dtype``) and adds the bias after the product, in ``dtype``;
+BatchNorm takes its statistics and normalises in f32 and returns ``dtype``.
 """
 from __future__ import annotations
 
@@ -38,34 +45,78 @@ def activation(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     raise ValueError(f"unknown nonlinearity {name!r}")
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW tensors.
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` as flax's ``nn.Conv(dtype=...)``
+    does: input, weight and bias cast to ``dtype``, the bias added after
+    the convolution. ``dtype=None`` is ``nn.Conv2d`` itself."""
 
-    Eval mode normalises with the running statistics, as
-    ``nn.BatchNorm2d`` does. Train mode normalises with the batch's mean
-    and biased variance (as both frameworks do) and moves the running
-    statistics as flax does: ``ra = 0.9 ra + 0.1 batch`` with the BIASED
-    batch variance, where ``nn.BatchNorm2d`` would take the unbiased one.
-    """
-
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if self.dtype is None:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-            self.running_var.mul_(0.9).add_(var, alpha=0.1)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias,
-                            training=True, eps=self.eps)
+        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
+                               None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype)[:, None, None]
 
 
-def batch_norm(num_features: int) -> BatchNorm:
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` as flax's ``nn.Dense(dtype=...)``
+    does (see ``Conv2d``)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        return (F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+                + self.bias.to(self.dtype))
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` on
+    NCHW tensors.
+
+    Statistics and normalisation run in f32 whatever the input's dtype (as
+    flax's ``_compute_stats`` / ``_normalize`` do); the output is ``dtype``,
+    or f32 when it is None. Eval mode normalises with the running
+    statistics, as ``nn.BatchNorm2d`` does. Train mode normalises with the
+    batch's mean and biased variance (as both frameworks do) and moves the
+    running statistics as flax does: ``ra = 0.9 ra + 0.1 batch`` with the
+    BIASED batch variance, where ``nn.BatchNorm2d`` would take the unbiased
+    one.
+    """
+
+    def __init__(self, num_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            y = super().forward(x)
+        else:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+                self.running_var.mul_(0.9).add_(var, alpha=0.1)
+                self.num_batches_tracked.add_(1)
+            y = F.batch_norm(x, None, None, self.weight, self.bias,
+                             training=True, eps=self.eps)
+        return y if self.dtype is None else y.to(self.dtype)
+
+
+def batch_norm(num_features: int,
+               dtype: Optional[torch.dtype] = None) -> BatchNorm:
     """BatchNorm as the JAX package configures it (eps 1e-5, momentum 0.9)."""
-    return BatchNorm(num_features)
+    return BatchNorm(num_features, dtype)
 
 
 class ConvBlock(nn.Module):
@@ -74,13 +125,14 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1,
-                 nonlin: Optional[str] = "LRU", norm: bool = False):
+                 nonlin: Optional[str] = "LRU", norm: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.pad = ((kernel_size - 1) * dilation) // 2
         self.nonlin = nonlin
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                              dilation=dilation, bias=not norm)
-        self.bn = batch_norm(out_ch) if norm else None
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                           dilation=dilation, bias=not norm, dtype=dtype)
+        self.bn = batch_norm(out_ch, dtype) if norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pad:
@@ -95,10 +147,11 @@ class PointwiseBlock(nn.Module):
     """Linear over the channel axis + activation: [..., C_in] -> [..., C_out]
     (the voxel fusion MLPs)."""
 
-    def __init__(self, in_ch: int, out_ch: int, nonlin: Optional[str] = "LRU"):
+    def __init__(self, in_ch: int, out_ch: int, nonlin: Optional[str] = "LRU",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.nonlin = nonlin
-        self.dense = nn.Linear(in_ch, out_ch)
+        self.dense = Linear(in_ch, out_ch, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return activation(self.dense(x), self.nonlin)

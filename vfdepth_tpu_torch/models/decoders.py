@@ -2,17 +2,19 @@
 
 ``FusionDepthDecoder`` is ported with ``phase_final=False`` only (the JAX
 package's default; its sub-pixel variant, ``ops/subpixel.py``, is an
-ablation left for later).
+ablation left for later). ``dtype`` is the compute dtype
+(``models/blocks.py``); the disparity sigmoid and the pose head's mean run
+in f32 whatever it is, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import ConvBlock
+from .blocks import Conv2d, ConvBlock
 from ..ops.resize import upsample2x_nearest
 
 
@@ -25,7 +27,8 @@ class FusionDepthDecoder(nn.Module):
 
     def __init__(self, level_in: int, num_ch_enc: Sequence[int],
                  num_ch_dec: Sequence[int] = (16, 32, 64, 128, 256),
-                 scales: Sequence[int] = (0,), use_skips: bool = False):
+                 scales: Sequence[int] = (0,), use_skips: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.level_in = level_in
         self.scales = tuple(scales)
@@ -33,15 +36,18 @@ class FusionDepthDecoder(nn.Module):
         ch = num_ch_enc[-1]
         for i in range(level_in, -1, -1):
             self.add_module(f"upconv_{i}_0",
-                            ConvBlock(ch, num_ch_dec[i], 3, nonlin="ELU"))
+                            ConvBlock(ch, num_ch_dec[i], 3, nonlin="ELU",
+                                      dtype=dtype))
             cin = num_ch_dec[i]
             if use_skips and i > 0:
                 cin += num_ch_enc[i - 1]
             self.add_module(f"upconv_{i}_1",
-                            ConvBlock(cin, num_ch_dec[i], 3, nonlin="ELU"))
+                            ConvBlock(cin, num_ch_dec[i], 3, nonlin="ELU",
+                                      dtype=dtype))
             if i in self.scales:
                 self.add_module(f"dispconv_{i}",
-                                ConvBlock(num_ch_dec[i], 1, 3, nonlin=None))
+                                ConvBlock(num_ch_dec[i], 1, 3, nonlin=None,
+                                          dtype=dtype))
             ch = num_ch_dec[i]
 
     def forward(self, input_features: List[torch.Tensor]
@@ -56,7 +62,7 @@ class FusionDepthDecoder(nn.Module):
             x = getattr(self, f"upconv_{i}_1")(x)
             if i in self.scales:
                 outputs[f"disp/{i}"] = torch.sigmoid(
-                    getattr(self, f"dispconv_{i}")(x))
+                    getattr(self, f"dispconv_{i}")(x).float())
         return outputs
 
 
@@ -67,13 +73,15 @@ class PoseDecoder(nn.Module):
     """
 
     def __init__(self, in_ch: int, num_frames_to_predict_for: int = 1,
-                 stride: int = 1):
+                 stride: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n = num_frames_to_predict_for
-        self.squeeze = nn.Conv2d(in_ch, 256, 1)
-        self.pose_0 = nn.Conv2d(256, 256, 3, stride=stride, padding=1)
-        self.pose_1 = nn.Conv2d(256, 256, 3, stride=stride, padding=1)
-        self.pose_2 = nn.Conv2d(256, 6 * self.n, 1)
+        self.squeeze = Conv2d(in_ch, 256, 1, dtype=dtype)
+        self.pose_0 = Conv2d(256, 256, 3, stride=stride, padding=1,
+                             dtype=dtype)
+        self.pose_1 = Conv2d(256, 256, 3, stride=stride, padding=1,
+                             dtype=dtype)
+        self.pose_2 = Conv2d(256, 6 * self.n, 1, dtype=dtype)
 
     def forward(self, feature: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

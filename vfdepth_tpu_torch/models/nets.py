@@ -12,10 +12,14 @@ back-projections into one by default and calls the halves
 ``grouped`` flag of a half says whether ``feat`` holds the two group sums
 ([b, 2, n, C+1]) or one row per camera ([b, cams, n, C+1]), it defaults to
 the group sums (the JAX package defaults to per camera).
+
+``dtype`` is the compute dtype of every layer (``models/blocks.py``);
+``sampler_3d`` (the depth net's) picks the update dtype of the frustum
+sampler's backward (``models/vfnet.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -53,17 +57,19 @@ class FusedDepthNet(nn.Module):
 
     def __init__(self, num_layers: int = 18, fusion_level: int = 2,
                  fusion_feat_in_dim: int = 256, use_skips: bool = False,
-                 scales: Sequence[int] = (0,), **vfnet_kwargs):
+                 scales: Sequence[int] = (0,),
+                 dtype: Optional[torch.dtype] = None, **vfnet_kwargs):
         super().__init__()
         self.fusion_level = lev = fusion_level
         enc = num_ch_enc(num_layers)
-        self.encoder = ResnetEncoder(num_layers, 1)
-        self.conv1x1 = ConvBlock(sum(enc[lev:]), fusion_feat_in_dim, 1)
+        self.encoder = ResnetEncoder(num_layers, 1, dtype=dtype)
+        self.conv1x1 = ConvBlock(sum(enc[lev:]), fusion_feat_in_dim, 1,
+                                 dtype=dtype)
         self.fusion_net = VFNet(fusion_feat_in_dim, enc[lev], "depth",
-                                fusion_level=lev, **vfnet_kwargs)
+                                fusion_level=lev, dtype=dtype, **vfnet_kwargs)
         self.decoder = FusionDepthDecoder(lev, enc[:lev + 1],
                                           scales=tuple(scales),
-                                          use_skips=use_skips)
+                                          use_skips=use_skips, dtype=dtype)
 
     def encode_aggregate(self, images: torch.Tensor):
         """images [b, cams, H, W, 3] -> (encoder features, packed NCHW;
@@ -117,15 +123,17 @@ class FusedPoseNet(nn.Module):
     (BEV) -> PoseDecoder -> one canonical (axisangle, translation)."""
 
     def __init__(self, num_layers: int = 18, fusion_level: int = 2,
-                 fusion_feat_in_dim: int = 256, **vfnet_kwargs):
+                 fusion_feat_in_dim: int = 256,
+                 dtype: Optional[torch.dtype] = None, **vfnet_kwargs):
         super().__init__()
         self.fusion_level = lev = fusion_level
         enc = num_ch_enc(num_layers)
-        self.encoder = ResnetEncoder(num_layers, 2)
-        self.conv1x1 = ConvBlock(sum(enc[lev:]), fusion_feat_in_dim, 1)
+        self.encoder = ResnetEncoder(num_layers, 2, dtype=dtype)
+        self.conv1x1 = ConvBlock(sum(enc[lev:]), fusion_feat_in_dim, 1,
+                                 dtype=dtype)
         self.fusion_net = VFNet(fusion_feat_in_dim, enc[lev], "pose",
-                                fusion_level=lev, **vfnet_kwargs)
-        self.pose_decoder = PoseDecoder(enc[lev], 1, stride=2)
+                                fusion_level=lev, dtype=dtype, **vfnet_kwargs)
+        self.pose_decoder = PoseDecoder(enc[lev], 1, stride=2, dtype=dtype)
 
     def encode_aggregate(self, cur_images: torch.Tensor,
                          next_images: torch.Tensor,

@@ -5,17 +5,19 @@ NCHW in and out. Returns 5 feature maps at strides 2/4/8/16/32 with
 ``num_ch_enc`` channels; input normalised as ``(x - 0.45) / 0.225``; the
 multi-image variant stacks N RGB frames on the channel axis. Module names
 follow the flax tree (``layer{stage}_{block}``, ``bn1`` wrapping its
-BatchNorm as ``_Norm`` does).
+BatchNorm as ``_Norm`` does). ``dtype`` is the compute dtype
+(``models/blocks.py``); the input is cast to it after the normalisation,
+as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import batch_norm
+from .blocks import Conv2d, batch_norm
 
 RESNET_SPECS = {
     18: dict(block="basic", layers=[2, 2, 2, 2]),
@@ -33,31 +35,33 @@ def num_ch_enc(num_layers: int) -> List[int]:
 class _Norm(nn.Module):
     """The flax ``_Norm`` wrapper: one BatchNorm named ``bn``."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.bn = batch_norm(ch)
+        self.bn = batch_norm(ch, dtype)
 
     def forward(self, x):
         return self.bn(x)
 
 
-def _conv(cin, cout, k, stride=1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin, cout, k, stride=1, dtype=None):
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False,
+                  dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = _conv(in_ch, planes, 3, stride)
-        self.bn1 = _Norm(planes)
-        self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = _Norm(planes)
+        self.conv1 = _conv(in_ch, planes, 3, stride, dtype)
+        self.bn1 = _Norm(planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
+        self.bn2 = _Norm(planes, dtype)
         self.has_down = stride != 1 or in_ch != planes
         if self.has_down:
-            self.downsample_conv = _conv(in_ch, planes, 1, stride)
-            self.downsample_bn = _Norm(planes)
+            self.downsample_conv = _conv(in_ch, planes, 1, stride, dtype)
+            self.downsample_bn = _Norm(planes, dtype)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -70,19 +74,20 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = _conv(in_ch, planes, 1)
-        self.bn1 = _Norm(planes)
-        self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = _Norm(planes)
-        self.conv3 = _conv(planes, out_ch, 1)
-        self.bn3 = _Norm(out_ch)
+        self.conv1 = _conv(in_ch, planes, 1, dtype=dtype)
+        self.bn1 = _Norm(planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, stride, dtype)
+        self.bn2 = _Norm(planes, dtype)
+        self.conv3 = _conv(planes, out_ch, 1, dtype=dtype)
+        self.bn3 = _Norm(out_ch, dtype)
         self.has_down = stride != 1 or in_ch != out_ch
         if self.has_down:
-            self.downsample_conv = _conv(in_ch, out_ch, 1, stride)
-            self.downsample_bn = _Norm(out_ch)
+            self.downsample_conv = _conv(in_ch, out_ch, 1, stride, dtype)
+            self.downsample_bn = _Norm(out_ch, dtype)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -96,13 +101,15 @@ class Bottleneck(nn.Module):
 class ResnetEncoder(nn.Module):
     """[n, 3*num_input_images, H, W] -> [feat_s2, ..., feat_s32] (NCHW)."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         spec = RESNET_SPECS[num_layers]
         block_cls = BasicBlock if spec["block"] == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, stride=2,
-                               padding=3, bias=False)
-        self.bn1 = _Norm(64)
+        self.dtype = dtype
+        self.conv1 = Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3,
+                            bias=False, dtype=dtype)
+        self.bn1 = _Norm(64, dtype)
         self.blocks = []
         in_ch = 64
         for stage, (n_blocks, width) in enumerate(
@@ -111,13 +118,15 @@ class ResnetEncoder(nn.Module):
             for blk in range(n_blocks):
                 stride = 2 if (stage > 0 and blk == 0) else 1
                 name = f"layer{stage + 1}_{blk}"
-                self.add_module(name, block_cls(in_ch, width, stride))
+                self.add_module(name, block_cls(in_ch, width, stride, dtype))
                 in_ch = width * block_cls.expansion
                 names.append(name)
             self.blocks.append(names)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = (x - 0.45) / 0.225
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         features = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)

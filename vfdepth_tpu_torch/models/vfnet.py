@@ -10,11 +10,16 @@ Ported: ``_project_cam_points``, the grouped back-projection (kernel K1,
 backward K2) for rigs whose two overlap groups are equal, the ungrouped one
 (kernel K1b, backward K2b: the 3-camera rig), ``fuse_depth`` and
 ``pose_voxel_to_bev`` in both forms, ``project_voxel_into_image`` (kernel
-K3, backward K4) and ``BEVFold``.
+K3, backward K4 in the update dtype ``sampler_3d`` names) and ``BEVFold``.
+
+``dtype`` is the compute dtype (``models/blocks.py``). Under mixed
+precision the back-projected features, the voxel volume and the frustum
+sample are bf16 (the samplers take and return the features' dtype); every
+sampling coordinate stays f32.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,13 +48,15 @@ class BEVFold(nn.Module):
     ``weight`` covers the vz*gc folded feature channels, (z, c) z-major
     (channel z*gc + c); ``weight_rel`` the vz rel-depth channels, computed
     once and added to every frame group. Frame groups run as a group-major
-    batch through one conv.
+    batch through one conv. The convs compute in ``dtype``, else in the
+    input's dtype, as the JAX ``BEVFold`` does.
     """
 
     def __init__(self, out_ch: int, gc: int, vz: int, vy: int, vx: int,
-                 stride: int = 2):
+                 stride: int = 2, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.gc, self.vz, self.vy, self.vx, self.stride = gc, vz, vy, vx, stride
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_ch, vz * gc, 3, 3))
         self.weight_rel = nn.Parameter(torch.empty(out_ch, vz, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_ch))
@@ -59,12 +66,13 @@ class BEVFold(nn.Module):
         shared rel-depth last) -> [G*b, out_ch, hy, hx] (group-major batch)."""
         b = voxel_feat.shape[0]
         g, gc, vz, vy, vx = groups, self.gc, self.vz, self.vy, self.vx
+        dt = self.dtype or voxel_feat.dtype
         main = voxel_feat[..., :-1].reshape(b, vy, vx, vz, g, gc)
         main = main.permute(4, 0, 3, 5, 1, 2).reshape(g * b, vz * gc, vy, vx)
         rel = voxel_feat[..., -1].reshape(b, vy, vx, vz).permute(0, 3, 1, 2)
-        y = _reflect_conv(main, self.weight, self.stride)
-        yr = _reflect_conv(rel, self.weight_rel, self.stride) \
-            + self.bias[:, None, None]
+        y = _reflect_conv(main.to(dt), self.weight.to(dt), self.stride)
+        yr = _reflect_conv(rel.to(dt), self.weight_rel.to(dt), self.stride) \
+            + self.bias.to(dt)[:, None, None]
         y = (y.reshape((g, b) + y.shape[1:]) + yr[None]).reshape(
             (g * b,) + y.shape[1:])
         return ties.leaky_relu(y, 0.1)
@@ -216,9 +224,17 @@ class VFNet(nn.Module):
                  proj_d_str: float = 2.0, proj_d_end: float = 50.0,
                  num_cams: int = 6, fusion_level: int = 2,
                  height: int = 384, width: int = 640,
-                 overlap_groups=((0, 3, 4), (1, 2, 5))):
+                 overlap_groups=((0, 3, 4), (1, 2, 5)),
+                 dtype: Optional[torch.dtype] = None,
+                 sampler_3d: str = "packed_f32grad"):
         super().__init__()
+        if sampler_3d not in ("packed", "packed_f32grad", "gather"):
+            raise ValueError(f"unknown sampler_3d {sampler_3d!r}")
         self.overlap_groups = tuple(map(tuple, overlap_groups))
+        # the frustum sampler's backward (K4) sums its updates in bf16 for
+        # 'packed' (the JAX package's bf16 scatter updates), in f32 otherwise
+        # ('gather' is the same function up to summation order)
+        self.bf16_updates = sampler_3d == "packed"
         self.voxel_str_p = tuple(voxel_str_p)
         self.voxel_unit_size = tuple(voxel_unit_size)
         self.voxel_size = tuple(voxel_size)
@@ -233,16 +249,20 @@ class VFNet(nn.Module):
             self.n_pre = len(voxel_pre_dim)
             for j, ch in enumerate(voxel_pre_dim):
                 self.add_module(f"conv_non_overlap_{j}",
-                                PointwiseBlock(cin, ch))
+                                PointwiseBlock(cin, ch, dtype=dtype))
                 self.add_module(f"conv_overlap_{j}",
-                                PointwiseBlock(2 * cin if j == 0 else cin, ch))
+                                PointwiseBlock(2 * cin if j == 0 else cin, ch,
+                                               dtype=dtype))
                 cin = ch
             self.reduce_dim_0 = ConvBlock(proj_d_bins * voxel_pre_dim[-1],
-                                          256, 3, stride=1)
-            self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=1)
+                                          256, 3, stride=1, dtype=dtype)
+            self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=1,
+                                          dtype=dtype)
         else:
-            self.reduce_dim_0 = BEVFold(256, feat_in_dim, vz, vy, vx, stride=2)
-            self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=2)
+            self.reduce_dim_0 = BEVFold(256, feat_in_dim, vz, vy, vx,
+                                        stride=2, dtype=dtype)
+            self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=2,
+                                          dtype=dtype)
 
     @property
     def vol_dims(self) -> Tuple[int, int, int]:
@@ -338,7 +358,8 @@ class VFNet(nn.Module):
         vz, vy, vx = self.vol_dims
         vol = voxel_feat.reshape(b, vy, vx, vz, c).contiguous()
         sampled = Sample3dTrilinear.apply(
-            vol, self.frustum_coords(inv_k, extrinsics), plain)
+            vol, self.frustum_coords(inv_k, extrinsics), plain,
+            self.bf16_updates)
         feat2d = sampled.reshape(b * self.num_cams, self.img_h, self.img_w,
                                  self.proj_d_bins * c)
         return self.reduce_dim_1(self.reduce_dim_0(feat2d.permute(0, 3, 1, 2)))

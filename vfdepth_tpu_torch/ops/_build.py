@@ -102,3 +102,14 @@ def load(name: str) -> ctypes.CDLL:
         path = build([name])[name].path
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def function(lib: str, name: str, argtypes):
+    """The C entry point ``name`` of kernel library ``lib``, its argument
+    types set and its result the int CUDA error code; the library is built
+    and loaded first if needed."""
+    fn = getattr(load(lib), name)   # ctypes keeps one object per name
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn

@@ -41,6 +41,12 @@ the forward sampled for that camera (the validity is a select: an invalid
 point adds nothing), where the row is the camera's group (K2) or the camera
 itself (K2b); the trailing mask, rel and valid columns of the cotangent, the
 mask and the coordinates get no gradient.
+
+K1 and K2 have a bf16 form (mixed precision): bf16 features in and group
+sums out (K1), a bf16 cotangent in and a bf16 feature gradient out (K2);
+taps, weights and sums stay f32 and each output is rounded once. Masks,
+coordinates and the per-camera validity stay f32. K1b and K2b are f32 only
+and raise on a bf16 tensor.
 """
 from __future__ import annotations
 
@@ -123,10 +129,16 @@ def _nearest(msk: torch.Tensor, live, ix, iy, fx, fy, h: int, w: int):
     return torch.where(ok, msk[torch.where(ok, yn * w + xn, 0)], 0.0)
 
 
-def _check(tensors, dtype_device_of: torch.Tensor) -> None:
+def _check(tensors, dtype_device_of: torch.Tensor,
+           bf16: tuple = ()) -> None:
+    """float32 tensors on one device; the names in ``bf16`` may also be
+    bfloat16 (the kernels' bf16 forms)."""
     for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        ok = (torch.float32, torch.bfloat16) if name in bf16 else (
+            torch.float32,)
+        if t.dtype not in ok:
+            raise TypeError(f"{name} must be "
+                            f"{' or '.join(map(str, ok))}, got {t.dtype}")
         if t.device != dtype_device_of.device:
             raise ValueError(f"{name} is on {t.device}, expected "
                              f"{dtype_device_of.device}")
@@ -145,19 +157,6 @@ def _launch(fn_name: str, err: int) -> None:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
 
-_FNS = {}
-
-
-def _kernel_fn(lib: str, name: str, argtypes):
-    key = (lib, name)
-    if key not in _FNS:
-        fn = getattr(_build.load(lib), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[key] = fn
-    return _FNS[key]
-
-
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 
 
@@ -168,19 +167,20 @@ def backproject_grouped_plain(feats: torch.Tensor, mask: torch.Tensor,
                               batch: int, group_size: int, raw: bool = True):
     """Plain PyTorch version of K1, written with explicit gathers.
 
-    feats [b*2*gs, h, w, C] f32 (cameras group-major), mask [b*2*gs, h, w],
-    coords [b*2*gs, N, 3] (raw (u, v, z) or normalised (x, y, rel)).
-    Returns (out [b, 2, N, C+2], valid [b*2*gs, N]). Loops over cameras and
-    chunks the points so it fits in a few GB at the production shapes;
-    group sums are taken in camera order, as the kernel does.
+    feats [b*2*gs, h, w, C] f32 or bf16 (cameras group-major), mask
+    [b*2*gs, h, w], coords [b*2*gs, N, 3] (raw (u, v, z) or normalised (x,
+    y, rel)). Returns (out [b, 2, N, C+2] in feats' dtype, valid [b*2*gs,
+    N] f32). Loops over cameras and chunks the points so it fits in a few
+    GB at the production shapes; group sums are taken in f32 in camera
+    order, as the kernel does, and rounded once.
     """
     bc, h, w, c = feats.shape
     n = coords.shape[1]
-    out = feats.new_zeros(batch, 2, n, c + 2)
-    valid_pc = feats.new_zeros(bc, n)
+    out = feats.new_zeros(batch, 2, n, c + 2, dtype=torch.float32)
+    valid_pc = feats.new_zeros(bc, n, dtype=torch.float32)
     for cam in range(bc):
         bi, g = divmod(cam // group_size, 2)
-        img = feats[cam].reshape(h * w, c)
+        img = feats[cam].reshape(h * w, c).float()
         msk = mask[cam].reshape(h * w)
         for s in range(0, n, _POINT_CHUNK):
             q = coords[cam, s:s + _POINT_CHUNK]
@@ -190,11 +190,11 @@ def backproject_grouped_plain(feats: torch.Tensor, mask: torch.Tensor,
             # invalid points contribute exact zeros (a select, so a
             # non-finite depth behind the camera leaves no NaN behind)
             rel = torch.where(valid, _rel(q, raw, rel_scale), 0.0)
-            vf = valid.to(feats.dtype)
+            vf = valid.float()
             out[bi, g, s:s + _POINT_CHUNK] += torch.cat(
                 [feat, rel[:, None], vf[:, None]], dim=-1)
             valid_pc[cam, s:s + _POINT_CHUNK] = vf
-    return out, valid_pc
+    return out.to(feats.dtype), valid_pc
 
 
 def backproject_grouped(feats: torch.Tensor, mask: torch.Tensor,
@@ -202,16 +202,17 @@ def backproject_grouped(feats: torch.Tensor, mask: torch.Tensor,
                         group_size: int, raw: bool = True):
     """K1: group-reduced back-projection.
 
-    feats [b*2*gs, h, w, C] float32 with cameras PRE-ORDERED group-major
-    (group 0's gs cameras, then group 1's), mask [b*2*gs, h, w] (the
-    low-res occlusion mask), coords [b*2*gs, N, 3]: raw camera-plane
+    feats [b*2*gs, h, w, C] float32 or bfloat16 with cameras PRE-ORDERED
+    group-major (group 0's gs cameras, then group 1's), mask [b*2*gs, h, w]
+    (the low-res occlusion mask), coords [b*2*gs, N, 3]: raw camera-plane
     points (u, v, z) before the perspective divide, or (``raw=False``)
     normalised (x, y) plus the rel-depth column. Returns (out [b, 2, N,
-    C+2] = group sums of [feat*valid, rel*valid, valid], valid [b*2*gs, N]
-    per camera).
+    C+2] in feats' dtype = group sums of [feat*valid, rel*valid, valid],
+    valid [b*2*gs, N] f32 per camera).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``backproject_grouped.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    feats' dtype (``backproject_grouped.launches`` counts the f32 form's
+    launches, ``.launches_bf16`` the bf16 form's) or raise.
     """
     bc, h, w, c = feats.shape
     n = coords.shape[1]
@@ -222,28 +223,35 @@ def backproject_grouped(feats: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, mask "
                          f"{tuple(mask.shape)}, coords {tuple(coords.shape)}")
     args = (("feats", feats), ("mask", mask), ("coords", coords))
-    _check(args, feats)
+    _check(args, feats, bf16=("feats",))
     if feats.device.type == "cpu":
         return backproject_grouped_plain(feats, mask, coords, rel_scale,
                                          batch, group_size, raw)
     _cuda_ready(args)
     if group_size > MAX_GROUP_SIZE:
         raise ValueError(f"group_size {group_size} > {MAX_GROUP_SIZE}")
-    out = torch.empty(batch, 2, n, c + 2, device=feats.device)
+    bf16 = feats.dtype == torch.bfloat16
+    out = torch.empty(batch, 2, n, c + 2, device=feats.device,
+                      dtype=feats.dtype)
     valid = torch.empty(bc, n, device=feats.device)
-    fn = _kernel_fn("backproject_sample", "vf_backproject_grouped",
-                    [_P] * 5 + [_I64] * 6 + [_F, _I, _P])
+    fn = _build.function("backproject_sample", "vf_backproject_grouped_bf16"
+                         if bf16 else "vf_backproject_grouped",
+                         [_P] * 5 + [_I64] * 6 + [_F, _I, _P])
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(feats.data_ptr(), mask.data_ptr(), coords.data_ptr(),
                  out.data_ptr(), valid.data_ptr(), batch, group_size, h, w, c,
                  n, float(rel_scale), int(raw), stream)
     _launch("backproject_grouped", err)
-    backproject_grouped.launches += 1
+    if bf16:
+        backproject_grouped.launches_bf16 += 1
+    else:
+        backproject_grouped.launches += 1
     return out, valid
 
 
 backproject_grouped.launches = 0
+backproject_grouped.launches_bf16 = 0
 
 
 def backproject_grouped_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
@@ -252,32 +260,34 @@ def backproject_grouped_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
                                   raw: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K2 (``index_add_``).
 
-    g [b, 2, N, >= C] (the forward output's cotangent; columns past C are
-    ignored), coords [b*2*gs, N, 3], valid [b*2*gs, N] -> dfeats [b*2*gs, h,
-    w, C].
+    g [b, 2, N, >= C] f32 or bf16 (the forward output's cotangent; columns
+    past C are ignored), coords [b*2*gs, N, 3], valid [b*2*gs, N] ->
+    dfeats [b*2*gs, h, w, C] in g's dtype (summed in f32, rounded once).
     """
     bc, n = valid.shape
-    dfeat = g.new_zeros(bc, h * w, c)
+    dfeat = g.new_zeros(bc, h * w, c, dtype=torch.float32)
     for cam in range(bc):
         bi, grp = divmod(cam // group_size, 2)
         for s in range(0, n, _POINT_CHUNK):
             sl = slice(s, s + _POINT_CHUNK)
             live, ix, iy, fx, fy = _taps(coords[cam, sl], h, w, raw)
             sel = live & (valid[cam, sl] != 0)
-            _scatter(dfeat[cam], g[bi, grp, sl, :c],
+            _scatter(dfeat[cam], g[bi, grp, sl, :c].float(),
                      _tap_rows(sel, ix, iy, fx, fy, h, w))
-    return dfeat.reshape(bc, h, w, c)
+    return dfeat.reshape(bc, h, w, c).to(g.dtype)
 
 
 def backproject_grouped_bwd(g: torch.Tensor, coords: torch.Tensor,
                             valid: torch.Tensor, h: int, w: int, c: int,
                             group_size: int, raw: bool = True) -> torch.Tensor:
     """K2, the feature gradient of ``backproject_grouped``: g [b, 2, N, >=
-    C] (its output's cotangent), coords [b*2*gs, N, 3] and valid [b*2*gs,
-    N] (its per-camera validity) -> dfeats [b*2*gs, h, w, C] float32.
+    C] float32 or bfloat16 (its output's cotangent), coords [b*2*gs, N, 3]
+    and valid [b*2*gs, N] (its per-camera validity) -> dfeats [b*2*gs, h,
+    w, C] in g's dtype (the bf16 form adds in f32 and rounds once).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``backproject_grouped_bwd.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    g's dtype (``backproject_grouped_bwd.launches`` counts the f32 form's
+    launches, ``.launches_bf16`` the bf16 form's) or raise.
     """
     bc, n = valid.shape
     if g.dim() != 4 or g.shape[1] != 2 or g.shape[2] != n or g.shape[3] < c \
@@ -286,27 +296,34 @@ def backproject_grouped_bwd(g: torch.Tensor, coords: torch.Tensor,
                          f"{tuple(coords.shape)}, valid {tuple(valid.shape)}, "
                          f"C={c}, group_size={group_size}")
     args = (("g", g), ("coords", coords), ("valid", valid))
-    _check(args, g)
+    _check(args, g, bf16=("g",))
     if g.device.type == "cpu":
         return backproject_grouped_bwd_plain(g, coords, valid, h, w, c,
                                              group_size, raw)
     _cuda_ready(args)
     if group_size > MAX_GROUP_SIZE:
         raise ValueError(f"group_size {group_size} > {MAX_GROUP_SIZE}")
+    bf16 = g.dtype == torch.bfloat16
     dfeat = torch.zeros(bc, h, w, c, device=g.device)
-    fn = _kernel_fn("backproject_sample_bwd", "vf_backproject_grouped_bwd",
-                    [_P] * 4 + [_I64] * 7 + [_I, _P])
+    fn = _build.function("backproject_sample_bwd",
+                         "vf_backproject_grouped_bwd_bf16" if bf16
+                         else "vf_backproject_grouped_bwd",
+                         [_P] * 4 + [_I64] * 7 + [_I, _P])
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), coords.data_ptr(), valid.data_ptr(),
                  dfeat.data_ptr(), g.shape[0], group_size, h, w, c,
                  g.shape[3], n, int(raw), stream)
     _launch("backproject_grouped_bwd", err)
+    if bf16:
+        backproject_grouped_bwd.launches_bf16 += 1
+        return dfeat.to(torch.bfloat16)
     backproject_grouped_bwd.launches += 1
     return dfeat
 
 
 backproject_grouped_bwd.launches = 0
+backproject_grouped_bwd.launches_bf16 = 0
 
 
 class BackprojectGrouped(torch.autograd.Function):
@@ -414,8 +431,8 @@ def sample2d(feats: torch.Tensor, mask: Optional[torch.Tensor],
     m = MODES.index(mode)
     out = torch.empty(b, n, c + (m > 0), device=feats.device)
     valid = torch.empty(b, n, device=feats.device) if m == 2 else None
-    fn = _kernel_fn("backproject_sample", "vf_sample2d",
-                    [_P] * 5 + [_I64] * 6 + [_I, _I, _F, _P])
+    fn = _build.function("backproject_sample", "vf_sample2d",
+                         [_P] * 5 + [_I64] * 6 + [_I, _I, _F, _P])
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(feats.data_ptr(), 0 if m == 0 else mask.data_ptr(),
@@ -477,8 +494,8 @@ def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
         return sample2d_bwd_plain(g, coords, valid, h, w, c, raw)
     _cuda_ready(args)
     dfeat = torch.zeros(b, h, w, c, device=g.device)
-    fn = _kernel_fn("backproject_sample_bwd", "vf_sample2d_bwd",
-                    [_P] * 4 + [_I64] * 7 + [_I, _P])
+    fn = _build.function("backproject_sample_bwd", "vf_sample2d_bwd",
+                         [_P] * 4 + [_I64] * 7 + [_I, _P])
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), coords.data_ptr(),

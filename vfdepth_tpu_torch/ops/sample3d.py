@@ -1,20 +1,33 @@
-"""Trilinear frustum sampler (kernel K3) and its backward (kernel K4).
+"""Trilinear frustum sampler (kernel K3) and its backward (kernel K4, in two
+forms).
 
 Port of ``vfdepth_tpu/ops/sample3d_packed.py grid_sample_3d_packed(vol,
-coords, "f32", "yxz")`` (:257). Forward: the XLA oct build + row gather +
-the TPU combine kernel ``_combine_kernel`` (:101, launched by
+coords, grad_dtype, "yxz")`` (:257). Forward: the XLA oct build + row gather
++ the TPU combine kernel ``_combine_kernel`` (:101, launched by
 ``_combine_taps`` :117) become ONE direct 8-tap gather kernel,
-``csrc/sample3d.cu``. Backward (``packed_f32grad``, f32 accumulation): the
-TPU update kernel ``_updates_kernel`` (:146, launched by ``_build_updates``
-:161) + the XLA scatter and fold become ONE scatter-add kernel,
-``csrc/sample3d_bwd.cu``. ``Sample3dTrilinear`` ties the two together as
-one autograd Function; only the volume gets a gradient.
+``csrc/sample3d.cu``, for an f32 or a bf16 volume (bf16 rows combined in
+f32, the output rounded once to bf16, as ``_combine_kernel`` does).
+Backward: the TPU update kernel ``_updates_kernel`` (:146, launched by
+``_build_updates`` :161) + the XLA scatter and fold (``_packed_bwd``,
+:305-340) become ``csrc/sample3d_bwd.cu``, in the form ``grad_dtype`` names:
+
+* f32 updates (``packed_f32grad``; ``sample3d_trilinear_bwd``): ONE
+  scatter-add kernel into an f32 dvol;
+* bf16 updates (``packed``; ``sample3d_trilinear_bwd_bf16``): each tap
+  product w_t(n) * g[n] formed in f32 and rounded once to bf16, summed in
+  bf16 per tap plane ``acc[b, base(n), t, c]``, then the 8 planes folded
+  back into the volume in f32 (dz first, then dx, then dy) and rounded once
+  to g's dtype. g may be f32 (an f32 config with ``sampler_3d: packed``) or
+  bf16 (mixed precision).
+
+``Sample3dTrilinear`` ties a forward to a backward as one autograd
+Function; only the volume gets a gradient.
 
 Semantics: align_corners=True, zeros padding; per axis the base is clamped
 to [0, size-2] and both tap weights are rederived from the clamp offset
 (``_kernel_axis_weights``), so every tap read is in bounds; non-finite
-coordinates give zeros. Taps combine in the TPU kernel's order (dy fastest,
-dz slowest).
+coordinates give zeros. Taps combine in the TPU kernel's order (tap t =
+dz*4 + dx*2 + dy: dy fastest, dz slowest).
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ import torch
 from . import _build
 
 _POINT_CHUNK = 1 << 18   # plain version: points per gather
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _axis_weights(coord: torch.Tensor, size: int):
@@ -43,171 +57,166 @@ def _axis_weights(coord: torch.Tensor, size: int):
     return base, (1 - t) * is0 + t * ism1, t * is0 + (1 - t) * isp1
 
 
+def _point_taps(crd: torch.Tensor, h: int, w: int, d: int):
+    """Points [n, 3] -> (flat base voxel [n] of the yxz volume, the 8 tap
+    weights [n] in tap order)."""
+    finite = torch.isfinite(crd).all(dim=-1, keepdim=True)
+    crd = torch.where(finite, crd, -4.0)
+    xb, wx0, wx1 = _axis_weights(crd[:, 0], w)
+    yb, wy0, wy1 = _axis_weights(crd[:, 1], h)
+    zb, wz0, wz1 = _axis_weights(crd[:, 2], d)
+    wts = [wz0 * wx0 * wy0, wz0 * wx0 * wy1,
+           wz0 * wx1 * wy0, wz0 * wx1 * wy1,
+           wz1 * wx0 * wy0, wz1 * wx0 * wy1,
+           wz1 * wx1 * wy0, wz1 * wx1 * wy1]
+    return (yb * w + xb) * d + zb, wts
+
+
+def _tap_offsets(w: int, d: int):
+    """Flat row offset of tap t = dz*4 + dx*2 + dy from its base voxel."""
+    return [(t & 1) * w * d + ((t >> 1) & 1) * d + ((t >> 2) & 1)
+            for t in range(8)]
+
+
 def sample3d_trilinear_plain(vol: torch.Tensor,
                              coords: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version with explicit gathers.
 
-    vol [B, H(y), W(x), D(z), C]; coords [B, N, 3] (x, y, z) in [-1, 1].
-    Returns [B, N, C]. Chunks the points to bound its memory on the card.
+    vol [B, H(y), W(x), D(z), C] f32 or bf16; coords [B, N, 3] (x, y, z) in
+    [-1, 1]. Returns [B, N, C] in vol's dtype (taps combined in f32).
+    Chunks the points to bound its memory on the card.
     """
     nb, h, w, d, c = vol.shape
     n = coords.shape[1]
     rows = vol.reshape(nb, h * w * d, c)
     out = vol.new_empty(nb, n, c)
-    # tap t = dz*4 + dx*2 + dy, in flat rows of the yxz volume
-    offs = [(t & 1) * w * d + ((t >> 1) & 1) * d + ((t >> 2) & 1)
-            for t in range(8)]
+    offs = _tap_offsets(w, d)
     for b in range(nb):
         for s in range(0, n, _POINT_CHUNK):
-            crd = coords[b, s:s + _POINT_CHUNK]
-            finite = torch.isfinite(crd).all(dim=-1, keepdim=True)
-            crd = torch.where(finite, crd, -4.0)
-            xb, wx0, wx1 = _axis_weights(crd[:, 0], w)
-            yb, wy0, wy1 = _axis_weights(crd[:, 1], h)
-            zb, wz0, wz1 = _axis_weights(crd[:, 2], d)
-            wts = [wz0 * wx0 * wy0, wz0 * wx0 * wy1,
-                   wz0 * wx1 * wy0, wz0 * wx1 * wy1,
-                   wz1 * wx0 * wy0, wz1 * wx0 * wy1,
-                   wz1 * wx1 * wy0, wz1 * wx1 * wy1]
-            base = (yb * w + xb) * d + zb
-            acc = rows[b, base + offs[0]] * wts[0][:, None]
+            base, wts = _point_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
+            acc = rows[b, base + offs[0]].float() * wts[0][:, None]
             for t in range(1, 8):
-                acc = acc + rows[b, base + offs[t]] * wts[t][:, None]
+                acc = acc + rows[b, base + offs[t]].float() * wts[t][:, None]
             out[b, s:s + _POINT_CHUNK] = acc
     return out
 
 
-_FN = None
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_FWD_ARGS = [_P] * 3 + [_I64] * 6 + [_P]
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("sample3d").vf_sample3d_trilinear
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _check_volume(h: int, w: int, d: int) -> None:
+    if min(h, w, d) < 2:
+        raise ValueError(f"every volume axis needs >= 2 samples: {(h, w, d)}")
+
+
+def _check_cuda(tensors) -> None:
+    for name, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"unsupported device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def sample3d_trilinear(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Trilinear sample of a yxz volume [B, H, W, D, C] at coords [B, N, 3]
-    -> [B, N, C] float32.
+    """Trilinear sample of a yxz volume [B, H, W, D, C] (f32 or bf16) at
+    coords [B, N, 3] (f32) -> [B, N, C] in vol's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``sample3d_trilinear.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    vol's dtype (``sample3d_trilinear.launches`` counts the f32 form's
+    launches, ``.launches_bf16`` the bf16 form's) or raise.
     """
     if vol.dim() != 5 or coords.dim() != 3 or coords.shape[-1] != 3 \
             or coords.shape[0] != vol.shape[0]:
         raise ValueError(f"expected vol [B, H, W, D, C] and coords [B, N, 3], "
                          f"got {tuple(vol.shape)} and {tuple(coords.shape)}")
     nb, h, w, d, c = vol.shape
-    if min(h, w, d) < 2:
-        raise ValueError(f"every volume axis needs >= 2 samples: {(h, w, d)}")
-    for name, t in (("vol", vol), ("coords", coords)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    _check_volume(h, w, d)
+    if vol.dtype not in _DTYPES:
+        raise TypeError(f"vol must be float32 or bfloat16, got {vol.dtype}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
     if coords.device != vol.device:
         raise ValueError(f"coords on {coords.device}, vol on {vol.device}")
     if vol.device.type == "cpu":
         return sample3d_trilinear_plain(vol, coords)
-    if vol.device.type != "cuda":
-        raise ValueError(f"unsupported device {vol.device}")
-    for name, t in (("vol", vol), ("coords", coords)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda((("vol", vol), ("coords", coords)))
+    bf16 = vol.dtype == torch.bfloat16
     n = coords.shape[1]
-    out = torch.empty(nb, n, c, device=vol.device)
+    out = torch.empty(nb, n, c, device=vol.device, dtype=vol.dtype)
+    fn = _build.function("sample3d", "vf_sample3d_trilinear_bf16" if bf16
+                         else "vf_sample3d_trilinear", _FWD_ARGS)
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(vol.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                           nb, h, w, d, c, n, stream)
+        err = fn(vol.data_ptr(), coords.data_ptr(), out.data_ptr(), nb, h, w,
+                 d, c, n, stream)
     if err != 0:
         raise RuntimeError(f"sample3d_trilinear launch failed: CUDA error {err}")
-    sample3d_trilinear.launches += 1
+    if bf16:
+        sample3d_trilinear.launches_bf16 += 1
+    else:
+        sample3d_trilinear.launches += 1
     return out
 
 
 sample3d_trilinear.launches = 0
+sample3d_trilinear.launches_bf16 = 0
 
 
-def sample3d_trilinear_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
-                                 vol_shape) -> torch.Tensor:
-    """Plain PyTorch version of the backward kernel (``index_add_`` of the
-    8 weighted taps). g [B, N, C], coords [B, N, 3] -> dvol ``vol_shape``
-    = [B, H, W, D, C]."""
-    nb, h, w, d, c = vol_shape
-    n = coords.shape[1]
-    dvol = g.new_zeros(nb, h * w * d, c)
-    offs = [(t & 1) * w * d + ((t >> 1) & 1) * d + ((t >> 2) & 1)
-            for t in range(8)]
-    for b in range(nb):
-        for s in range(0, n, _POINT_CHUNK):
-            crd = coords[b, s:s + _POINT_CHUNK]
-            gg = g[b, s:s + _POINT_CHUNK]
-            finite = torch.isfinite(crd).all(dim=-1, keepdim=True)
-            crd = torch.where(finite, crd, -4.0)
-            xb, wx0, wx1 = _axis_weights(crd[:, 0], w)
-            yb, wy0, wy1 = _axis_weights(crd[:, 1], h)
-            zb, wz0, wz1 = _axis_weights(crd[:, 2], d)
-            wts = [wz0 * wx0 * wy0, wz0 * wx0 * wy1,
-                   wz0 * wx1 * wy0, wz0 * wx1 * wy1,
-                   wz1 * wx0 * wy0, wz1 * wx0 * wy1,
-                   wz1 * wx1 * wy0, wz1 * wx1 * wy1]
-            base = (yb * w + xb) * d + zb
-            for t in range(8):
-                dvol[b].index_add_(0, base + offs[t], gg * wts[t][:, None])
-    return dvol.reshape(vol_shape)
-
-
-_BWD_FN = None
-
-
-def _bwd_kernel_fn():
-    global _BWD_FN
-    if _BWD_FN is None:
-        fn = _build.load("sample3d_bwd").vf_sample3d_trilinear_bwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BWD_FN = fn
-    return _BWD_FN
-
-
-def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
-                           vol_shape) -> torch.Tensor:
-    """Volume gradient of ``sample3d_trilinear``: g [B, N, C] (its output's
-    cotangent) and coords [B, N, 3] -> dvol [B, H, W, D, C] float32.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``sample3d_trilinear_bwd.launches`` counts launches) or raise.
-    """
+def _check_bwd(g: torch.Tensor, coords: torch.Tensor, vol_shape) -> None:
     nb, h, w, d, c = vol_shape
     if g.dim() != 3 or coords.dim() != 3 or g.shape[0] != nb \
             or g.shape[2] != c or coords.shape != (nb, g.shape[1], 3):
         raise ValueError(f"shape mismatch: g {tuple(g.shape)}, coords "
                          f"{tuple(coords.shape)}, volume {tuple(vol_shape)}")
-    if min(h, w, d) < 2:
-        raise ValueError(f"every volume axis needs >= 2 samples: {(h, w, d)}")
-    for name, t in (("g", g), ("coords", coords)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    _check_volume(h, w, d)
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
     if coords.device != g.device:
         raise ValueError(f"coords on {coords.device}, g on {g.device}")
+
+
+def sample3d_trilinear_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
+                                 vol_shape) -> torch.Tensor:
+    """Plain PyTorch version of the f32-update backward kernel
+    (``index_add_`` of the 8 weighted taps). g [B, N, C], coords [B, N, 3]
+    -> dvol ``vol_shape`` = [B, H, W, D, C]."""
+    nb, h, w, d, c = vol_shape
+    n = coords.shape[1]
+    dvol = g.new_zeros(nb, h * w * d, c)
+    offs = _tap_offsets(w, d)
+    for b in range(nb):
+        for s in range(0, n, _POINT_CHUNK):
+            base, wts = _point_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
+            gg = g[b, s:s + _POINT_CHUNK]
+            for t in range(8):
+                dvol[b].index_add_(0, base + offs[t], gg * wts[t][:, None])
+    return dvol.reshape(vol_shape)
+
+
+def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
+                           vol_shape) -> torch.Tensor:
+    """Volume gradient of ``sample3d_trilinear`` with f32 updates: g [B, N,
+    C] float32 (its output's cotangent) and coords [B, N, 3] -> dvol [B, H,
+    W, D, C] float32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``sample3d_trilinear_bwd.launches`` counts launches) or raise.
+    """
+    _check_bwd(g, coords, vol_shape)
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g.dtype}")
     if g.device.type == "cpu":
         return sample3d_trilinear_bwd_plain(g, coords, vol_shape)
-    if g.device.type != "cuda":
-        raise ValueError(f"unsupported device {g.device}")
-    for name, t in (("g", g), ("coords", coords)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda((("g", g), ("coords", coords)))
+    nb, h, w, d, c = vol_shape
     dvol = torch.zeros(tuple(vol_shape), device=g.device)
+    fn = _build.function("sample3d_bwd", "vf_sample3d_trilinear_bwd",
+                         _FWD_ARGS)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_kernel_fn()(g.data_ptr(), coords.data_ptr(),
-                               dvol.data_ptr(), nb, h, w, d, c, g.shape[1],
-                               stream)
+        err = fn(g.data_ptr(), coords.data_ptr(), dvol.data_ptr(), nb, h, w,
+                 d, c, g.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"sample3d_trilinear_bwd launch failed: CUDA "
                            f"error {err}")
@@ -218,21 +227,107 @@ def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
 sample3d_trilinear_bwd.launches = 0
 
 
+def _shift_from_lower(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """out[i] = a[i - 1] along ``dim``, 0 at i = 0 (``_shift_fwd``): the sum
+    a tap plane holds at base i belongs to the voxel at i + 1."""
+    pad = torch.zeros_like(a.narrow(dim, 0, 1))
+    return torch.cat([pad, a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
+
+
+def fold_tap_planes(acc: torch.Tensor) -> torch.Tensor:
+    """The 8 tap planes acc [B, H, W, D, 8, C] (bf16 sums) -> the volume
+    gradient [B, H, W, D, C] in f32, folded as ``_packed_bwd`` does: dz
+    first, then dx, then dy, each stage adding the plane at the base to the
+    one shifted in from the lower neighbour."""
+    a = acc.float()
+    x4 = a[..., 0:4, :] + _shift_from_lower(a[..., 4:8, :], 3)   # dz
+    x2 = x4[..., 0:2, :] + _shift_from_lower(x4[..., 2:4, :], 2)  # dx
+    return x2[..., 0, :] + _shift_from_lower(x2[..., 1, :], 1)    # dy
+
+
+def sample3d_trilinear_bwd_bf16_plain(g: torch.Tensor, coords: torch.Tensor,
+                                      vol_shape) -> torch.Tensor:
+    """Plain PyTorch version of the bf16-update backward kernel: each tap
+    product formed in f32, rounded once to bf16 and ``index_add_``-ed into
+    its bf16 tap plane, then ``fold_tap_planes`` and one rounding to g's
+    dtype. g [B, N, C] f32 or bf16, coords [B, N, 3] -> dvol ``vol_shape``
+    in g's dtype. (``index_add_`` may take a bf16 sum in another order, or
+    round less often, than the kernel's atomics: where points collide the
+    two agree to a bound, not bit for bit.)"""
+    nb, h, w, d, c = vol_shape
+    n = coords.shape[1]
+    acc = g.new_zeros(nb, 8, h * w * d, c, dtype=torch.bfloat16)
+    for b in range(nb):
+        for s in range(0, n, _POINT_CHUNK):
+            base, wts = _point_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
+            gg = g[b, s:s + _POINT_CHUNK].float()
+            for t in range(8):
+                acc[b, t].index_add_(0, base, (gg * wts[t][:, None]).to(
+                    torch.bfloat16))
+    planes = acc.reshape(nb, 8, h, w, d, c).permute(0, 2, 3, 4, 1, 5)
+    return fold_tap_planes(planes).to(g.dtype)
+
+
+def sample3d_trilinear_bwd_bf16(g: torch.Tensor, coords: torch.Tensor,
+                                vol_shape) -> torch.Tensor:
+    """Volume gradient of ``sample3d_trilinear`` with bf16 updates (the JAX
+    package's ``grid_sample_3d_packed(..., "bf16")``): g [B, N, C] float32
+    or bfloat16 and coords [B, N, 3] -> dvol [B, H, W, D, C] in g's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``sample3d_trilinear_bwd_bf16.launches`` counts launches) or raise.
+    The kernel needs a zeroed bf16 accumulator of the 8 tap planes, [B,
+    H*W*D, 8, C] (410 MB at the production shapes, batch 2).
+    """
+    _check_bwd(g, coords, vol_shape)
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
+    if g.device.type == "cpu":
+        return sample3d_trilinear_bwd_bf16_plain(g, coords, vol_shape)
+    _check_cuda((("g", g), ("coords", coords)))
+    nb, h, w, d, c = vol_shape
+    acc = torch.zeros(nb, h * w * d, 8, c, device=g.device,
+                      dtype=torch.bfloat16)
+    dvol = torch.empty(tuple(vol_shape), device=g.device, dtype=g.dtype)
+    fn = _build.function("sample3d_bwd", "vf_sample3d_trilinear_bwd_bf16",
+                         [_P] * 4 + [_I64] * 6 + [_I, _P])
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), coords.data_ptr(), acc.data_ptr(),
+                 dvol.data_ptr(), nb, h, w, d, c, g.shape[1],
+                 int(g.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"sample3d_trilinear_bwd_bf16 launch failed: CUDA "
+                           f"error {err}")
+    sample3d_trilinear_bwd_bf16.launches += 1
+    return dvol
+
+
+sample3d_trilinear_bwd_bf16.launches = 0
+
+
 class Sample3dTrilinear(torch.autograd.Function):
-    """``sample3d_trilinear`` (K3) forward, K4 backward; ``plain`` runs both
-    plain versions on any device."""
+    """``sample3d_trilinear`` (K3) forward, K4 backward with bf16 updates
+    (``bf16_updates``) or f32 ones; ``plain`` runs the plain versions on
+    any device."""
 
     @staticmethod
-    def forward(ctx, vol, coords, plain: bool = False):
+    def forward(ctx, vol, coords, plain: bool = False,
+                bf16_updates: bool = False):
         fwd = sample3d_trilinear_plain if plain else sample3d_trilinear
         out = fwd(vol, coords)
         ctx.save_for_backward(coords)
-        ctx.args = (tuple(vol.shape), plain)
+        ctx.args = (tuple(vol.shape), plain, bf16_updates)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (coords,) = ctx.saved_tensors
-        vol_shape, plain = ctx.args
-        bwd = sample3d_trilinear_bwd_plain if plain else sample3d_trilinear_bwd
-        return bwd(g.contiguous(), coords, vol_shape), None, None
+        vol_shape, plain, bf16_updates = ctx.args
+        if bf16_updates:
+            bwd = (sample3d_trilinear_bwd_bf16_plain if plain
+                   else sample3d_trilinear_bwd_bf16)
+        else:
+            bwd = (sample3d_trilinear_bwd_plain if plain
+                   else sample3d_trilinear_bwd)
+        return bwd(g.contiguous(), coords, vol_shape), None, None, None

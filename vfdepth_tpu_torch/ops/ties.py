@@ -15,6 +15,11 @@ exact 0 into the smoothness ``abs``):
 
 (A min over an axis splits ties in both frameworks when written
 ``torch.amin`` / ``torch.amax``; ``torch.min(dim=...)`` does not.)
+
+A Python number meeting a JAX array takes the array's dtype first (a weak
+type), so a bf16 activation is scaled by bf16(0.1) = 0.10009765625, where
+PyTorch would multiply by the f32 number: the constants here are made in
+the input's dtype.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * negative_slope)
+    return torch.where(x >= 0, x, x * x.new_full((), negative_slope))
 
 
 def abs(x: torch.Tensor) -> torch.Tensor:  # noqa: A001 (mirrors jnp.abs)

@@ -20,7 +20,12 @@ Semantics, per warp and target pixel with normalised coordinates (x, y)
   coordinates are not finite. Images and masks are inputs of the loss and
   get no gradient.
 
-All f32 (the TPU kernel rounds sources and ddx / ddy to bf16).
+The f32 form computes everything in f32 (the TPU kernel rounds sources and
+ddx / ddy to bf16). The bf16 form (mixed precision: bf16 sources) takes a
+bf16 image and mask, keeps the coordinates and the arithmetic f32, and
+returns the warped image, the mask and ddx / ddy in bf16, the dtypes of the
+TPU kernel's outputs (``warp_mxu.py:313-330``); the backward's dot runs in
+f32.
 """
 from __future__ import annotations
 
@@ -41,13 +46,14 @@ def warp_image_mask_maps_plain(img: torch.Tensor, mask: torch.Tensor,
                                coords: torch.Tensor):
     """Plain PyTorch version of the kernel, written with explicit gathers.
 
-    img [B, H, W, 3], mask [B, H, W, 1], coords [B, N, 2] -> (img_w [B, N,
-    3], mask_w [B, N, 1], ddx [B, N, 3], ddy [B, N, 3]).
+    img [B, H, W, 3], mask [B, H, W, 1] (f32, or both bf16), coords [B, N,
+    2] f32 -> (img_w [B, N, 3], mask_w [B, N, 1], ddx [B, N, 3], ddy [B, N,
+    3]) in img's dtype, computed in f32.
     """
     nb, h, w, c = img.shape
     n = coords.shape[1]
-    src = img.reshape(nb, h * w, c)
-    msk = mask.reshape(nb, h * w)
+    src = img.reshape(nb, h * w, c).float()
+    msk = mask.reshape(nb, h * w).float()
     outs = [img.new_empty(nb, n, k) for k in (c, 1, c, c)]
     for b in range(nb):
         for s in range(0, n, _POINT_CHUNK):
@@ -81,27 +87,18 @@ def warp_image_mask_maps_plain(img: torch.Tensor, mask: torch.Tensor,
     return tuple(outs)
 
 
-_FN = None
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("warp_image_mask").vf_warp_image_mask
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
 
 
 def warp_image_mask_maps(img: torch.Tensor, mask: torch.Tensor,
                          coords: torch.Tensor):
     """(img_w, mask_w, ddx, ddy) of ``img`` [B, H, W, 3] and ``mask`` [B, H,
-    W, 1] at ``coords`` [B, N, 2], all float32.
+    W, 1] at ``coords`` [B, N, 2] float32: img and mask both float32 or
+    both bfloat16, the outputs in their dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``warp_image_mask_maps.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    img's dtype (``warp_image_mask_maps.launches`` counts the f32 form's
+    launches, ``.launches_bf16`` the bf16 form's) or raise.
     """
     if img.dim() != 4 or img.shape[-1] != 3:
         raise ValueError(f"img must be [B, H, W, 3], got {tuple(img.shape)}")
@@ -110,9 +107,12 @@ def warp_image_mask_maps(img: torch.Tensor, mask: torch.Tensor,
             or coords.shape[0] != nb or coords.shape[-1] != 2:
         raise ValueError(f"shape mismatch: img {tuple(img.shape)}, mask "
                          f"{tuple(mask.shape)}, coords {tuple(coords.shape)}")
-    for name, t in (("img", img), ("mask", mask), ("coords", coords)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"img must be float32 or bfloat16, got {img.dtype}")
+    for name, t, dtype in (("img", img, img.dtype), ("mask", mask, img.dtype),
+                           ("coords", coords, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != img.device:
             raise ValueError(f"{name} is on {t.device}, img on {img.device}")
     if img.device.type == "cpu":
@@ -123,22 +123,28 @@ def warp_image_mask_maps(img: torch.Tensor, mask: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n = coords.shape[1]
-    img_w = torch.empty(nb, n, 3, device=img.device)
-    mask_w = torch.empty(nb, n, 1, device=img.device)
-    ddx = torch.empty(nb, n, 3, device=img.device)
-    ddy = torch.empty(nb, n, 3, device=img.device)
+    bf16 = img.dtype == torch.bfloat16
+    img_w, mask_w, ddx, ddy = (torch.empty(nb, n, k, device=img.device,
+                                           dtype=img.dtype)
+                               for k in (3, 1, 3, 3))
+    fn = _build.function("warp_image_mask", "vf_warp_image_mask_bf16" if bf16
+                         else "vf_warp_image_mask", _ARGS)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(img.data_ptr(), mask.data_ptr(), coords.data_ptr(),
-                           img_w.data_ptr(), mask_w.data_ptr(), ddx.data_ptr(),
-                           ddy.data_ptr(), nb, h, w, n, stream)
+        err = fn(img.data_ptr(), mask.data_ptr(), coords.data_ptr(),
+                 img_w.data_ptr(), mask_w.data_ptr(), ddx.data_ptr(),
+                 ddy.data_ptr(), nb, h, w, n, stream)
     if err != 0:
         raise RuntimeError(f"warp_image_mask launch failed: CUDA error {err}")
-    warp_image_mask_maps.launches += 1
+    if bf16:
+        warp_image_mask_maps.launches_bf16 += 1
+    else:
+        warp_image_mask_maps.launches += 1
     return img_w, mask_w, ddx, ddy
 
 
 warp_image_mask_maps.launches = 0
+warp_image_mask_maps.launches_bf16 = 0
 
 
 class WarpImageMask(torch.autograd.Function):
@@ -156,11 +162,12 @@ class WarpImageMask(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_img, _g_mask):
-        # the XLA dot behind the TPU kernel (warp_mxu.py:347-355)
+        # the XLA dot behind the TPU kernel (warp_mxu.py:347-355), in f32
         ddx, ddy, coords = ctx.saved_tensors
         h, w = ctx.hw
-        gx = (g_img * ddx).sum(dim=-1) * (0.5 * (w - 1))
-        gy = (g_img * ddy).sum(dim=-1) * (0.5 * (h - 1))
+        g_img = g_img.float()
+        gx = (g_img * ddx.float()).sum(dim=-1) * (0.5 * (w - 1))
+        gy = (g_img * ddy.float()).sum(dim=-1) * (0.5 * (h - 1))
         finite = torch.isfinite(coords).all(dim=-1, keepdim=True)
         return (None, None,
                 torch.where(finite, torch.stack([gx, gy], dim=-1), 0.0), None)

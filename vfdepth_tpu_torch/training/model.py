@@ -21,15 +21,29 @@ own features (``FusedPoseNet.forward``, ``FusedDepthNet.forward``).
   kernels K2 (of K1) or K2b (of K1b), K4 (of K3) and K5's coordinate
   gradient.
 
+``tpu.mixed_precision: true`` computes every network in bf16 as the JAX
+package does (``compute_dtype``; parameters, BatchNorm statistics and Adam
+state stay f32, ``models/blocks.py`` says where each layer casts): the
+back-projected features, the voxel volume and the frustum sample are bf16
+(the bf16 forms of kernels K1, K2, K3), the colours are cast to bf16 before
+rendering (K5's bf16 form; the loss targets stay f32), and the disparity
+sigmoid, the pose head and every sampling coordinate stay f32.
+
+``tpu.sampler_3d`` picks the frustum sampler's backward (K4) as the JAX
+package does: 'packed' sums bf16 updates (K4's bf16-update form, in an f32
+config too), 'packed_f32grad' and 'gather' f32 ones (the same function up
+to summation order), and None means 'packed' under mixed precision and
+'packed_f32grad' otherwise.
+
 Not ported yet (raise ``NotImplementedError``): the 'fsm' nets, unbatched
-pose frames with more than one context frame, mixed precision, the
-depth-synthesis branch (``predict`` skips it, ``forward`` raises).
-Config keys that name TPU alternates of one
+pose frames with more than one context frame, mixed precision on a rig
+that runs the per-camera sampler (K1b / K2b have no bf16 form yet) or with
+f32 updates of the bf16 volume, the depth-synthesis branch (``predict``
+skips it, ``forward`` raises). Config keys that name TPU alternates of one
 function map onto the port's one implementation (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors): ``tpu.sampler_2d``,
-``tpu.sampler_3d`` (every value, ``packed_f32grad`` included: the port
-accumulates in f32), ``tpu.warp_op`` and ``tpu.warp_window`` (the port's
-warps are dense; the JAX windows give the same loss by construction).
+``tpu.warp_op`` and ``tpu.warp_window`` (the port's warps are dense; the
+JAX windows give the same loss by construction).
 """
 from __future__ import annotations
 
@@ -98,8 +112,8 @@ class VFDepthModel(nn.Module):
         self.cfg = cfg
         if cfg.depth_model != "fusion" or cfg.pose_model != "fusion":
             raise NotImplementedError("only the fusion nets are ported")
-        if cfg.get("mixed_precision", False):
-            raise NotImplementedError("mixed precision is not ported")
+        self.compute_dtype = (torch.bfloat16
+                              if cfg.get("mixed_precision", False) else None)
         self.frame_ids = tuple(cfg.frame_ids)
         if not cfg.get("batch_pose_frames", True) and len(self.frame_ids) > 2:
             raise NotImplementedError("unbatched pose frames are not ported")
@@ -112,9 +126,25 @@ class VFDepthModel(nn.Module):
             raise ValueError(f"unknown sampler_3d {cfg.get('sampler_3d')!r}")
         if cfg.get("warp_op") not in _WARP_OPS:
             raise ValueError(f"unknown warp_op {cfg.get('warp_op')!r}")
+        # the JAX rule (training/model.py:177-182): bf16 backward updates
+        # for an explicit 'packed', and by default under mixed precision
+        self.sampler_3d = cfg.get("sampler_3d") or (
+            "packed" if self.compute_dtype is not None else "packed_f32grad")
         self.groups = tuple(map(tuple, cfg.overlap_groups))
         # K1 where the two overlap groups split the rig equally, else K1b
         self.grouped = grouped_backprojection_ok(self.groups, cfg.num_cams)
+        if self.compute_dtype is not None:
+            if not self.grouped:
+                raise NotImplementedError(
+                    "mixed precision on a rig whose overlap groups differ in "
+                    "size needs the bf16 forms of the per-camera sampler K1b "
+                    "and its backward K2b, which are not ported yet (ROADMAP "
+                    "A5)")
+            if self.sampler_3d != "packed":
+                raise NotImplementedError(
+                    f"mixed precision with sampler_3d {self.sampler_3d!r} "
+                    f"(f32 updates of a bf16 volume) is not ported; "
+                    f"'packed' is (ROADMAP A5)")
 
         self.scales = tuple(cfg.scales)
         self.height, self.width = cfg.height, cfg.width
@@ -130,12 +160,14 @@ class VFDepthModel(nn.Module):
         vfnet_kwargs = dict(
             **self.voxel, proj_d_bins=cfg.proj_d_bins,
             proj_d_str=cfg.proj_d_str, proj_d_end=cfg.proj_d_end,
-            num_cams=cfg.num_cams, height=cfg.height, width=cfg.width)
+            num_cams=cfg.num_cams, height=cfg.height, width=cfg.width,
+            dtype=self.compute_dtype)
         self.depth_net = FusedDepthNet(
             cfg.num_layers, cfg.fusion_level, cfg.fusion_feat_in_dim,
             use_skips=cfg.use_skips, scales=self.scales,
             voxel_pre_dim=tuple(cfg.voxel_pre_dim),
-            overlap_groups=self.groups, **vfnet_kwargs)
+            overlap_groups=self.groups, sampler_3d=self.sampler_3d,
+            **vfnet_kwargs)
         self.pose_net = FusedPoseNet(cfg.num_layers, cfg.fusion_level,
                                      cfg.fusion_feat_in_dim, **vfnet_kwargs)
         # weights_init (ImageNet encoders) needs a weight file the repository
@@ -325,7 +357,9 @@ class VFDepthModel(nn.Module):
         depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
         spatio_pose, st_pose = relative_cam_poses(
             x["extrinsics"], x["extrinsics_inv"], cam_t_cam, self.rel_cam)
-        colors = {f: x[f"color/{f}/0"] for f in self.frame_ids}
+        # the warp sources in the compute dtype; the loss targets stay f32
+        colors = {f: x[f"color/{f}/0"].to(self.compute_dtype or torch.float32)
+                  for f in self.frame_ids}
         rendered = {s: render_views(
             colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
             spatio_pose, st_pose, self.rel_cam, self.frame_ids,

@@ -33,29 +33,44 @@ Phases (any failure exits non-zero):
     input; K5: 2-D ``F.grid_sample`` on the RGB), beside the bound: bytes
     over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger,
     counted from this run's inputs;
- 5. each path below twice, for ``configs/ddad/ddad_surround_fusion.yaml``
-    (6 cameras, ``FakeDataset``'s even rig) and for the 3-camera front rig
-    (``presets.build_config(cameras=DDAD_CAM_LIST[:3])``, its "nuscenes"
-    rig), at full width with seeded random weights, the launch counts set
-    to 0 just before each path and read just after:
+ 5. the bf16 forms (mixed precision) against their plain versions with the
+    same special inputs, then timed beside their bounds and bf16
+    yardsticks: K1-, K2-, K3-, K5-bf16 and K4's bf16-update form at the
+    6-camera shapes, K1b-bf16 (four modes, and raw mode at the unmerged
+    nets' 512 and 256 channels: odd bf16 rows of 769, 513 and 257 values)
+    and K2b-bf16 (gated and ungated) at the 3-camera shapes, K4's
+    f32-update form on a bf16 cotangent at the 6-camera training shapes;
+ 6. each path below at full width with seeded random weights, the launch
+    counts set to 0 just before each path and read just after, for
+    ``configs/ddad/ddad_surround_fusion.yaml`` (6 cameras, ``FakeDataset``'s
+    even rig) and for the 3-camera front rig (``presets.build_config(
+    cameras=DDAD_CAM_LIST[:3])``, its "nuscenes" rig), each in f32 and in
+    bf16 (``mixed_precision=True``):
     serving: 3 requests (one frameset with its -1/+1 context frames each)
     through ``VFDepthModel.predict``; checks shapes, finiteness, the metric
     depth range, launches per request (6 cameras: K1 1, K3 1; 3 cameras:
-    K1b 1, K3 1), and request 1 against the same model run with the plain
-    versions; one more request under ``torch.profiler``;
+    K1b 1, K3 1; their bf16 forms in bf16), and request 1 against the same
+    model run with the plain versions; one more request under
+    ``torch.profiler``;
     unmerged request: request 1 with ``merge_backprojection`` off (each
     net back-projects its own features: K1 or K1b twice), held against the
     merged output;
- 6. training: batch 2 (the config's): one warm-up step, then 3 timed steps
+    training: batch 2 (the config's): one warm-up step, then 3 timed steps
     through ``train_step`` (forward, loss, backward, Adam); checks a finite
     loss, finite gradients non-zero in both nets, moved parameters and
     BatchNorm statistics, and launches per step (K1 or K1b 1, K2 or K2b 1,
-    K3 1, K4 1, K5 4); step 1 again from the same state with the plain
-    versions (loss and every gradient within stated tolerances); one more
-    step under ``torch.profiler``.
+    K3 1, K4 1, K5 4, in their bf16 forms in bf16); step 1 again from the
+    same state with the plain versions (loss and every gradient within
+    stated tolerances); one more step under ``torch.profiler``;
+    then the 6-camera bf16 model with ``sampler_3d: packed_f32grad``
+    (training: K4's f32-update form on the bf16 cotangent once a step, its
+    bf16-update form never) and the 6-camera f32 model with
+    ``batch_pose_frames: false`` (one pose-net pass per context frame:
+    serving at K1 3, K3 1 a request, training at K1 3, K2 3, K3 1, K4 1,
+    K5 4 a step).
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``): the model is an f32 model, and
-the comparisons must see only the kernels' differences.
+``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
+only the kernels' differences.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device": {...}}``.
@@ -1023,20 +1038,152 @@ def check_bf16_forms(cfg, device, gen):
     return errs
 
 
-def time_bf16_forms(cfg, device, gen, errs):
+def three_cam_bf16_config():
+    """The 3-camera front rig at full width with ``tpu.mixed_precision:
+    true``: ``presets.build_config(cameras=DDAD_CAM_LIST[:3],
+    mixed_precision=True)``."""
+    from vfdepth_tpu_torch import presets
+    from vfdepth_tpu_torch.config import DDAD_CAM_LIST
+    return presets.build_config(cameras=DDAD_CAM_LIST[:3],
+                                mixed_precision=True)
+
+
+def check_k1b_k2b_bf16(cfg3, device, gen):
+    """K1b-bf16 at the 3-camera bf16 serving shapes (merged: [3, 48, 80,
+    768] -> rows of 769) in the model's raw mode and the three normalised
+    modes, with K1b's special inputs (exact nearest-pick ties included),
+    and in raw mode at the unmerged nets' widths (512 and 256 channels:
+    rows of 513 and 257); K2b-bf16 at the 3-camera bf16 training shapes,
+    gated (rows of invalid points NaN) and ungated. Features within one
+    bf16 step of the largest magnitude; validity, mask values and rel
+    columns exact. Returns (K1b-bf16 err, K2b-bf16 err)."""
+    from vfdepth_tpu_torch.ops.backproject_sample import (
+        sample2d, sample2d_bwd, sample2d_bwd_plain, sample2d_plain)
+    feats, mask, cam3, rel_scale = k1b_inputs(cfg3, device, gen, True)
+    (fb,) = _bf16(feats)
+    h, w, c = fb.shape[1:]
+    pix = normalise(cam3, h, w, True, gen)
+    rel = torch.cat([cam3[..., 2] * rel_scale,
+                     torch.ones(cam3.shape[0], pix.shape[1] - cam3.shape[1],
+                                device=device)], dim=1)
+    cases = [("raw backproject", fb, "backproject", cam3, rel_scale, True),
+             ("bilinear", fb, "bilinear", pix, 1.0, False),
+             ("mask", fb, "mask", pix, 1.0, False),
+             ("backproject", fb, "backproject",
+              torch.cat([pix, rel[..., None]], dim=-1).contiguous(), 1.0,
+              False)]
+    for width in (512, 256):           # the unmerged nets' own features
+        cases.append((f"raw backproject C={width}",
+                      fb[..., :width].contiguous(), "backproject", cam3,
+                      rel_scale, True))
+    # the feature columns against their magnitude; the last column (mask
+    # value or rel, up to 1e28 for the far-away special points) exactly
+    errs, tols = {}, {}
+    for what, f, mode, coords, rs, raw in cases:
+        m = None if mode == "bilinear" else mask
+        out, v = sample2d(f, m, coords, mode, rs, raw)
+        ref, rv = sample2d_plain(f, m, coords, mode, rs, raw)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16, f"K1b-bf16 {what}: not bf16")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"K1b-bf16 {what}: not finite")
+        if mode != "bilinear":
+            check(torch.equal(out[..., -1], ref[..., -1]),
+                  f"K1b-bf16 {what}: the last column differs")
+        if v is not None:
+            check(torch.equal(v, rv), f"K1b-bf16 {what}: validity differs")
+            check(0 < v.sum().item() < v.numel(),
+                  f"K1b-bf16 {what}: validity is degenerate")
+        c_f = f.shape[-1]
+        got_f, ref_f = out[..., :c_f].float(), ref[..., :c_f].float()
+        errs[what] = (got_f - ref_f).abs().max().item()
+        tols[what] = BF16_STEP * ref_f.abs().max().item()
+        del out, ref, got_f, ref_f
+    print(f"K1b-bf16 check: N={cam3.shape[1]} (normalised {pix.shape[1]}) "
+          f"max_abs_err (tol) "
+          f"{({k: f'{e:.3e} ({tols[k]:.3e})' for k, e in errs.items()})}",
+          flush=True)
+    check(all(errs[k] <= tols[k] for k in errs),
+          f"K1b-bf16 differs from its plain version: {errs} > {tols}")
+    k1b_err = max(errs.values())
+    del feats, fb, mask, cam3, pix, rel, cases
+    torch.cuda.empty_cache()
+
+    g, cam3, valid, h, w, c = k2b_inputs(cfg3, device, gen, True)
+    errs, tols = [], []
+    for gate in (True, False):
+        if gate:
+            coords, v, raw = cam3, valid, True
+            (gb,) = _bf16(g)
+        else:
+            coords, v, raw = normalise(cam3, h, w, False), None, False
+            (gb,) = _bf16(torch.randn(cam3.shape[0], cam3.shape[1], c,
+                                      generator=gen).to(device))
+        out = sample2d_bwd(gb, coords, v, h, w, c, raw)
+        ref = sample2d_bwd_plain(gb, coords, v, h, w, c, raw)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16, "K2b-bf16 output not bf16")
+        check(bool(torch.isfinite(out.float()).all()), "K2b-bf16 not finite")
+        errs.append((out.float() - ref.float()).abs().max().item())
+        tols.append((BF16_STEP + K2_TOL) * ref.float().abs().max().item())
+        del out, ref
+    print(f"K2b-bf16 check: g {list(g.shape[:2])} x {c}(+1) bf16 max_abs_err "
+          f"gated {errs[0]:.3e} (tol {tols[0]:.3e}), ungated {errs[1]:.3e} "
+          f"(tol {tols[1]:.3e})", flush=True)
+    check(all(e <= t for e, t in zip(errs, tols)),
+          f"K2b-bf16 differs from its plain version: {errs} > {tols}")
+    return k1b_err, max(errs)
+
+
+def check_k4_f32_updates_bf16(cfg, device, gen):
+    """K4's f32-update form with a bf16 cotangent (6-camera bf16 training
+    shapes, ``sampler_3d: packed_f32grad``) against its plain version
+    (f32 tap planes and fold in JAX's order, rounded once) and against the
+    f32 K4 on the same values rounded once: both differ from it only by the
+    order of f32 sums, so within one bf16 step plus K4's own bound."""
+    from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear_bwd,
+                                                sample3d_trilinear_bwd_plain)
+    vol, coords = k3_inputs(cfg, device, gen, True, batch=cfg.batch_size)
+    shape = tuple(vol.shape)
+    (gb,) = _bf16(torch.randn(vol.shape[0], coords.shape[1], vol.shape[-1],
+                              generator=gen).to(device))
+    out = sample3d_trilinear_bwd(gb, coords, shape)
+    ref = sample3d_trilinear_bwd_plain(gb, coords, shape)
+    f32 = sample3d_trilinear_bwd(gb.float(), coords, shape)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16, "K4 f32-update bf16 output not bf16")
+    check(bool(torch.isfinite(out.float()).all()),
+          "K4 f32-update bf16 output not finite")
+    tol = (BF16_STEP + K4_TOL) * ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    err_f32 = (out.float() - f32.to(torch.bfloat16).float()).abs().max().item()
+    moved = (out != f32.to(torch.bfloat16)).float().mean().item()
+    print(f"K4 f32-update (bf16 g) check: g {list(gb.shape)} max_abs_err "
+          f"{err:.3e} vs plain, {err_f32:.3e} vs the f32 K4 rounded once "
+          f"(tol {tol:.3e}; {moved:.2e} of the values differ from it)",
+          flush=True)
+    check(err <= tol and err_f32 <= tol,
+          "K4 f32-update (bf16 g) differs from its plain version")
+    return err
+
+
+def time_bf16_forms(cfg, cfg3, device, gen, errs):
     """Each bf16 form, its plain version and its yardstick on the same bf16
     tensors (``F.grid_sample`` 2-D and 5-D, and their autograd input
     gradients), at the mixed-precision paths' shapes: K1-bf16 and K3-bf16
-    at serving's (batch 1), K2-bf16, K4-bf16 and K5-bf16 at training's
-    (batch 2; K5 one call of 24 warps). Bytes are the bf16 tensors' (f32
-    masks, coordinates and validity); operations are counted as the f32
-    forms count them (the arithmetic is f32)."""
+    at serving's (batch 1), K2-bf16, both K4 forms and K5-bf16 at
+    training's (batch 2; K5 one call of 24 warps); K1b-bf16 at the 3-camera
+    bf16 serving path's, K2b-bf16 at its training path's. Bytes are the
+    bf16 tensors' (f32 masks, coordinates and validity); operations are
+    counted as the f32 forms count them (the arithmetic is f32)."""
     from vfdepth_tpu_torch.ops.backproject_sample import (
         backproject_grouped, backproject_grouped_bwd,
-        backproject_grouped_bwd_plain, backproject_grouped_plain)
+        backproject_grouped_bwd_plain, backproject_grouped_plain, sample2d,
+        sample2d_bwd, sample2d_bwd_plain, sample2d_plain)
     from vfdepth_tpu_torch.ops.sample3d import (
-        sample3d_trilinear, sample3d_trilinear_bwd_bf16,
-        sample3d_trilinear_bwd_bf16_plain, sample3d_trilinear_plain)
+        sample3d_trilinear, sample3d_trilinear_bwd,
+        sample3d_trilinear_bwd_bf16, sample3d_trilinear_bwd_bf16_plain,
+        sample3d_trilinear_bwd_plain, sample3d_trilinear_plain)
     from vfdepth_tpu_torch.ops.warp import (warp_image_mask_maps,
                                             warp_image_mask_maps_plain)
     rows = {}
@@ -1110,6 +1257,8 @@ def time_bf16_forms(cfg, device, gen, errs):
         vol.shape[0], 1, 1, -1, 3).to(torch.bfloat16), mode="bilinear",
         padding_mode="zeros", align_corners=True)
     lib_g = gb.transpose(1, 2).reshape(lib_out.shape).contiguous()
+    lib4_ms = time_ms(lambda: torch.autograd.grad(lib_out, vol_czyx, lib_g,
+                                                  retain_graph=True))
     rows["K4-bf16"] = _row(
         "sample3d_trilinear_bwd_bf16", "sample3d_bwd.cu",
         "vfdepth_tpu/ops/sample3d_packed.py:146", errs["K4-bf16"],
@@ -1117,11 +1266,64 @@ def time_bf16_forms(cfg, device, gen, errs):
         time_ms(lambda: sample3d_trilinear_bwd_bf16_plain(gb, coords, shape),
                 reps=5),
         nbytes(gb, coords, dvol), coords.shape[1] * vol.shape[0]
-        * vol.shape[-1] * 8 * 2,
-        time_ms(lambda: torch.autograd.grad(lib_out, vol_czyx, lib_g,
-                                            retain_graph=True)),
+        * vol.shape[-1] * 8 * 2, lib4_ms,
+        dict(g=gb.shape, coords=coords.shape, dvol=dvol.shape))
+    # the f32-update form on the same bf16 cotangent (packed_f32grad): its
+    # zeroed f32 dvol (102 MB) is scratch, not counted
+    dvol = sample3d_trilinear_bwd(gb, coords, shape)
+    rows["K4-f32upd-bf16"] = _row(
+        "sample3d_trilinear_bwd (bf16 g)", "sample3d_bwd.cu",
+        "vfdepth_tpu/ops/sample3d_packed.py:146", errs["K4-f32upd-bf16"],
+        time_ms(lambda: sample3d_trilinear_bwd(gb, coords, shape)),
+        time_ms(lambda: sample3d_trilinear_bwd_plain(gb, coords, shape),
+                reps=5),
+        nbytes(gb, coords, dvol), coords.shape[1] * vol.shape[0]
+        * vol.shape[-1] * 8 * 2, lib4_ms,
         dict(g=gb.shape, coords=coords.shape, dvol=dvol.shape))
     del vol, coords, gb, dvol, vol_czyx, lib_out, lib_g
+    torch.cuda.empty_cache()
+
+    feats, mask, cam3, rel_scale = k1b_inputs(cfg3, device, gen, False)
+    (fb,) = _bf16(feats)
+    out, valid = sample2d(fb, mask, cam3, "backproject", rel_scale, True)
+    h, w = fb.shape[1:3]
+    feats_nchw = fb.permute(0, 3, 1, 2).contiguous()
+    pix = normalise(cam3, h, w, False)
+    bil_ms = time_ms(lambda: sample2d(fb, None, pix, "bilinear"))
+    pix_b = pix.to(torch.bfloat16)
+    rows["K1b-bf16"] = _row(
+        "sample2d (bf16)", "backproject_sample.cu",
+        "vfdepth_tpu/ops/pallas_sample.py:176", errs["K1b-bf16"],
+        time_ms(lambda: sample2d(fb, mask, cam3, "backproject", rel_scale,
+                                 True)),
+        time_ms(lambda: sample2d_plain(fb, mask, cam3, "backproject",
+                                       rel_scale, True), reps=5),
+        nbytes(fb, mask, cam3, out, valid),
+        valid.sum().item() * fb.shape[-1] * 4 * 2,
+        time_ms(lambda: _grid_sample_2d(feats_nchw, pix_b)),
+        dict(feats=fb.shape, cam3=cam3.shape, out=out.shape))
+    rows["K1b-bf16"]["bilinear_mode_ms"] = bil_ms
+    del feats, fb, mask, cam3, out, valid, feats_nchw, pix, pix_b
+    torch.cuda.empty_cache()
+
+    g, cam3, valid, h, w, c = k2b_inputs(cfg3, device, gen, False)
+    (gb,) = _bf16(g)
+    dfeat = sample2d_bwd(gb, cam3, valid, h, w, c, True)
+    lib2b = _library_bwd(torch.zeros(cam3.shape[0], h, w, c, device=device,
+                                     dtype=torch.bfloat16),
+                         normalise(cam3, h, w, False).to(torch.bfloat16),
+                         gb[..., :c].nan_to_num())
+    rows["K2b-bf16"] = _row(
+        "sample2d_bwd (bf16)", "backproject_sample_bwd.cu",
+        "vfdepth_tpu/ops/pallas_sample.py:301", errs["K2b-bf16"],
+        time_ms(lambda: sample2d_bwd(gb, cam3, valid, h, w, c, True)),
+        time_ms(lambda: sample2d_bwd_plain(gb, cam3, valid, h, w, c, True),
+                reps=5),
+        int(valid.sum().item()) * c * 2 + nbytes(cam3, valid, dfeat),
+        valid.sum().item() * c * 4 * 2, time_ms(lib2b, reps=5),
+        dict(g=gb.shape, cam3=cam3.shape, valid=valid.shape,
+             dfeat=dfeat.shape))
+    del g, gb, cam3, valid, dfeat, lib2b
     torch.cuda.empty_cache()
 
     img, mask, coords = k5_inputs(cfg, device, gen, False)
@@ -1166,9 +1368,12 @@ def kernel_counters():
             "K3": (sample3d_trilinear, f32), "K4": (sample3d_trilinear_bwd, f32),
             "K5": (warp_image_mask_maps, f32),
             "K1-bf16": (backproject_grouped, bf16),
+            "K1b-bf16": (sample2d, bf16),
             "K2-bf16": (backproject_grouped_bwd, bf16),
+            "K2b-bf16": (sample2d_bwd, bf16),
             "K3-bf16": (sample3d_trilinear, bf16),
             "K4-bf16": (sample3d_trilinear_bwd_bf16, f32),
+            "K4-f32upd-bf16": (sample3d_trilinear_bwd, bf16),
             "K5-bf16": (warp_image_mask_maps, bf16)}
 
 
@@ -1283,7 +1488,8 @@ def compare_outputs(what, got, ref, fwd_rtol=FWD_RTOL, pose_atol=POSE_ATOL):
         check(diff <= tol, f"{what}: {key} disagrees")
 
 
-def run_unmerged(model, request, merged_out, label: str, per_request):
+def run_unmerged(model, request, merged_out, label: str, per_request,
+                 tols=(FWD_RTOL, POSE_ATOL)):
     """One request with ``merge_backprojection: false`` (each net
     back-projects its own features) from the serving model's weights, held
     against that model's merged output for the same request, after one
@@ -1302,7 +1508,7 @@ def run_unmerged(model, request, merged_out, label: str, per_request):
     check(counts == per_request, f"{label} unmerged request: kernel launches "
                                  f"{counts}, expected {per_request}")
     print(f"{label} unmerged request: {ms:.2f} ms", flush=True)
-    compare_outputs(f"{label} unmerged vs merged", out, merged_out)
+    compare_outputs(f"{label} unmerged vs merged", out, merged_out, *tols)
     return counts, ms
 
 
@@ -1510,28 +1716,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = time_kernels(cfg, cfg3, device, gen, errs)
     cfg_mp = mixed_precision_config()
+    cfg3_mp = three_cam_bf16_config()
     errs.update(check_bf16_forms(cfg_mp, device, gen))
     torch.cuda.empty_cache()
-    rows.update(time_bf16_forms(cfg_mp, device, gen, errs))
+    errs["K1b-bf16"], errs["K2b-bf16"] = check_k1b_k2b_bf16(cfg3_mp, device,
+                                                          gen)
+    errs["K4-f32upd-bf16"] = check_k4_f32_updates_bf16(cfg_mp, device, gen)
+    torch.cuda.empty_cache()
+    rows.update(time_bf16_forms(cfg_mp, cfg3_mp, device, gen, errs))
 
     # each path: the counts set to 0 just before it, read just after
     paths = {}
+    bf16_tols = dict(tols=(BF16_FWD_RTOL, BF16_POSE_ATOL))
 
-    def serve(c, label, rig, per_request, unmerged):
+    def serve(c, label, rig, per_request, unmerged=None, **kw):
         counts, ms, model, requests, outputs = run_serving_path(
-            c, device, label, per_request, rig)
+            c, device, label, per_request, rig, **kw)
         print(f"{label} serving path: {N_REQUESTS} requests, per-request ms "
               f"{[round(m, 3) for m in ms]}, "
               f"{1e3 * N_REQUESTS / sum(ms):.3f} framesets/s", flush=True)
         paths[f"{label} serving"] = dict(launches=counts, ms=ms)
-        counts, ms = run_unmerged(model, requests[1], outputs[1], label,
-                                  unmerged)
-        paths[f"{label} unmerged request"] = dict(launches=counts, ms=[ms])
+        check(model.compute_dtype == (torch.bfloat16 if c.get(
+            "mixed_precision", False) else None), f"{label}: compute dtype")
+        if unmerged is not None:
+            counts, ms = run_unmerged(model, requests[1], outputs[1], label,
+                                      unmerged, **kw)
+            paths[f"{label} unmerged request"] = dict(launches=counts,
+                                                      ms=[ms])
         del model, outputs
         torch.cuda.empty_cache()
 
-    def train(c, label, rig, per_step):
-        counts, ms = run_training_path(c, device, label, per_step, rig)
+    def train(c, label, rig, per_step, **kw):
+        counts, ms = run_training_path(c, device, label, per_step, rig, **kw)
         print(f"{label} training path: {N_STEPS} steps at batch "
               f"{c.batch_size}, per-step ms {[round(m, 3) for m in ms]}, "
               f"{1e3 * N_STEPS * c.batch_size / sum(ms):.3f} framesets/s "
@@ -1549,28 +1765,33 @@ def main() -> int:
     train(cfg3, "3-camera", "nuscenes",
           launches(K1b=1, K2b=1, K3=1, K4=1, K5=4))
     # mixed precision: every kernel in its bf16 form, no f32 form
-    counts, ms, model, _, _ = run_serving_path(
-        cfg_mp, device, "6-camera bf16", launches(
-            **{"K1-bf16": 1, "K3-bf16": 1}), "even",
-        tols=(BF16_FWD_RTOL, BF16_POSE_ATOL))
-    check(model.compute_dtype == torch.bfloat16, "bf16 model not in bf16")
-    print(f"6-camera bf16 serving path: {N_REQUESTS} requests, per-request "
-          f"ms {[round(m, 3) for m in ms]}, "
-          f"{1e3 * N_REQUESTS / sum(ms):.3f} framesets/s", flush=True)
-    paths["6-camera bf16 serving"] = dict(launches=counts, ms=ms)
-    del model
-    torch.cuda.empty_cache()
-    counts, ms = run_training_path(
-        cfg_mp, device, "6-camera bf16", launches(
-            **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 1, "K4-bf16": 1,
-               "K5-bf16": 4}), "even",
-        tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
-    print(f"6-camera bf16 training path: {N_STEPS} steps at batch "
-          f"{cfg_mp.batch_size}, per-step ms {[round(m, 3) for m in ms]}, "
-          f"{1e3 * N_STEPS * cfg_mp.batch_size / sum(ms):.3f} framesets/s "
-          f"trained", flush=True)
-    paths["6-camera bf16 training"] = dict(launches=counts, ms=ms)
-    torch.cuda.empty_cache()
+    serve(cfg_mp, "6-camera bf16", "even",
+          launches(**{"K1-bf16": 1, "K3-bf16": 1}),
+          launches(**{"K1-bf16": 2, "K3-bf16": 1}), **bf16_tols)
+    train(cfg_mp, "6-camera bf16", "even", launches(
+        **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 1, "K4-bf16": 1,
+           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    serve(cfg3_mp, "3-camera bf16", "nuscenes",
+          launches(**{"K1b-bf16": 1, "K3-bf16": 1}),
+          launches(**{"K1b-bf16": 2, "K3-bf16": 1}), **bf16_tols)
+    train(cfg3_mp, "3-camera bf16", "nuscenes", launches(
+        **{"K1b-bf16": 1, "K2b-bf16": 1, "K3-bf16": 1, "K4-bf16": 1,
+           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    # f32 updates of the bf16 volume: K4's f32 form on a bf16 cotangent,
+    # never its bf16-update form
+    cfg_f32u = mixed_precision_config()
+    cfg_f32u.set("sampler_3d", "packed_f32grad")
+    train(cfg_f32u, "6-camera bf16 packed_f32grad", "even", launches(
+        **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 1, "K4-f32upd-bf16": 1,
+           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    # unbatched pose frames: one pose-net pass per context frame, each with
+    # its own back-projection, and the depth net's (K1 three times)
+    cfg_upf = get_config(str(CONFIG))
+    cfg_upf.set("batch_pose_frames", False)
+    serve(cfg_upf, "6-camera unbatched pose frames", "even",
+          launches(K1=3, K3=1))
+    train(cfg_upf, "6-camera unbatched pose frames", "even",
+          launches(K1=3, K2=3, K3=1, K4=1, K5=4))
     for key, row in rows.items():
         by_path = {p: v["launches"][key] for p, v in paths.items()}
         check(sum(by_path.values()) > 0, f"{key} launched on no path")

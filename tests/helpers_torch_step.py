@@ -1,6 +1,7 @@
 """One training step of the JAX package and of the port from the same
 weights, batch and tie-break noise, for the step parity tests of the port
-(``tests/test_torch_three_cam.py``, ``tests/test_torch_unmerged.py``).
+(``tests/test_torch_three_cam.py``, ``test_torch_unmerged.py``,
+``test_torch_pose_frames.py``, ``test_torch_mixed_three_cam.py``).
 
 The JAX step is ``forward(train=True)`` + ``jax.grad`` under ``jax.jit``;
 its noise comes from the same key splits as ``forward`` / ``total_loss`` and
@@ -38,18 +39,15 @@ def with_motion(params, translation=(2.0, 1.0, 3.0)):
     return params
 
 
-def step_pair(jcfg, tcfg, batch, step: int = 3,
-              translation=(2.0, 1.0, 3.0)):
-    """The JAX step's gradients, scalar logs, BatchNorm statistics and
-    auto-mask beside the port's, from the flax init (with ``with_motion``)."""
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jm = JaxModel(jcfg)
-    params, stats = jm.init(jax.random.PRNGKey(0), jbatch)
-    params = with_motion(params, translation)
-    b = batch["color/0/0"].shape[0]
+def jax_step(jm, params, stats, jbatch, step: int = 3,
+             compiler_options=None):
+    """One JAX training step (``forward(train=True)`` + ``jax.grad``),
+    jitted once: numpy (gradients, scalar logs, BatchNorm statistics,
+    tie-break noise, auto-mask). ``compiler_options`` go to XLA's compile
+    (the mixed-precision tests turn excess precision off)."""
+    b = jbatch["color/0/0"].shape[0]
 
-    @jax.jit
-    def jax_step(params, stats, batch, rng, step):
+    def fn(params, stats, batch, rng, step):
         rng = jax.random.fold_in(rng, step)
 
         def loss_fn(p):
@@ -69,13 +67,15 @@ def step_pair(jcfg, tcfg, batch, step: int = 3,
         return (grads, scalar, new_stats, jnp.stack(noise),
                 logs["reproj_mask"])
 
-    grads, logs, new_stats, noise, amask = jax_step(
-        params, stats, jbatch, jax.random.PRNGKey(11), jnp.int32(step))
-    np_params, np_stats, np_grads, np_new_stats = jax.tree_util.tree_map(
-        np.asarray, (params, stats, grads, new_stats))
+    args = (params, stats, jbatch, jax.random.PRNGKey(11), jnp.int32(step))
+    compiled = jax.jit(fn).lower(*args).compile(
+        compiler_options=compiler_options)
+    return jax.tree_util.tree_map(np.asarray, compiled(*args))
 
-    model = VFDepthModel(tcfg, device="cpu")
-    load_flax_params(model, np_params, np_stats)
+
+def port_step(model, batch, noise, step: int = 3):
+    """The port's training forward and backward on the CPU, on a fixed 4
+    threads: (scalar logs, auto-mask); the gradients stay on ``model``."""
     threads = torch.get_num_threads()
     torch.set_num_threads(4)
     try:
@@ -84,12 +84,28 @@ def step_pair(jcfg, tcfg, batch, step: int = 3,
         loss.backward()
     finally:
         torch.set_num_threads(threads)
+    return ({k: float(v.detach()) for k, v in tlogs.items() if v.dim() == 0},
+            tlogs["reproj_mask"].detach().numpy())
+
+
+def step_pair(jcfg, tcfg, batch, step: int = 3,
+              translation=(2.0, 1.0, 3.0)):
+    """The JAX step's gradients, scalar logs, BatchNorm statistics and
+    auto-mask beside the port's, from the flax init (with ``with_motion``)."""
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jm = JaxModel(jcfg)
+    params, stats = jm.init(jax.random.PRNGKey(0), jbatch)
+    params = with_motion(params, translation)
+    np_grads, logs, np_new_stats, noise, amask = jax_step(
+        jm, params, stats, jbatch, step)
+    np_params, np_stats = jax.tree_util.tree_map(np.asarray, (params, stats))
+
+    model = VFDepthModel(tcfg, device="cpu")
+    load_flax_params(model, np_params, np_stats)
+    tlogs, tmask = port_step(model, batch, noise, step)
     return dict(np_grads=np_grads, new_stats=np_new_stats, model=model,
-                logs={k: float(v) for k, v in logs.items()},
-                tlogs={k: float(v.detach()) for k, v in tlogs.items()
-                       if v.dim() == 0},
-                amask=(np.asarray(amask),
-                       tlogs["reproj_mask"].detach().numpy()))
+                logs={k: float(v) for k, v in logs.items()}, tlogs=tlogs,
+                amask=(amask, tmask), weights=(np_params, np_stats))
 
 
 def check_logs(pair, masked_tol: float, tol: float = 2e-5):

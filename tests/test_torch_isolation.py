@@ -73,11 +73,11 @@ def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_configs_raise():
-    """What is not ported raises: the fsm nets, mixed precision on a rig
-    that runs the per-camera sampler (the bf16 forms of K1b / K2b), unbatched
-    pose frames with more than one context frame, and the depth-synthesis
-    forward. (The 3-camera rig, ``merge_backprojection: false`` and mixed
-    precision on the 6-camera rig run.)"""
+    """What is not ported raises: the fsm nets, ``sampler_3d: gather``
+    under mixed precision and the depth-synthesis forward. Unbatched pose
+    frames and mixed precision on the 3-camera rig (the bf16 forms of K1b
+    and K2b) build, as do ``merge_backprojection: false`` and mixed
+    precision on the 6-camera rig."""
     def cfg_with(**over):
         cfg = get_config("configs/tiny_fake.yaml")
         for key, value in over.items():
@@ -85,15 +85,19 @@ def test_unported_configs_raise():
         return cfg
 
     for over in ({"depth_model": "fsm"}, {"pose_model": "fsm"},
-                 {"batch_pose_frames": False}):
+                 {"mixed_precision": True, "sampler_3d": "gather"}):
         with pytest.raises(NotImplementedError):
             VFDepthModel(cfg_with(**over), device="cpu")
+    model = VFDepthModel(cfg_with(batch_pose_frames=False), device="cpu")
+    assert len(model.frame_ids) == 3 and not model.batch_pose_frames
+    assert not model._can_merge_backproject()
     assert VFDepthModel(cfg_with(mixed_precision=True),
                         device="cpu").compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="K1b"):
-        VFDepthModel(presets.micro_config(mixed_precision=True), device="cpu")
+    three = VFDepthModel(presets.micro_config(mixed_precision=True),
+                         device="cpu")
+    assert three.compute_dtype == torch.bfloat16 and not three.grouped
     assert VFDepthModel(cfg_with(batch_pose_frames=False, frame_ids=[0, 1]),
-                        device="cpu").frame_ids == (0, 1)
+                        device="cpu")._can_merge_backproject()
     cfg = cfg_with(aug_depth=True)
     model = VFDepthModel(cfg, device="cpu")
     batch = FakeDataset(num_samples=1, num_cams=cfg.num_cams,

@@ -15,11 +15,15 @@ error per addition, random in sign). K5: 1e-6 (a 4-tap weighted sum of inputs in
 [0, 1], fma-contracted), masks exact, its coordinate gradient 1e-5 of its
 largest entry.
 
-The bf16 forms (K1, K2, K3, K5 with bf16 tensors; K4's bf16-update form)
-compute in f32 as their plain versions do and round each output once, so an
-f32 difference of a few ulp can move an output by one bf16 step: 2^-7 of
-the largest output magnitude (the f32 forms' bound added for K2), counts
-and masks exact. K4's bf16-update form sums in bf16 with atomics in a
+The bf16 forms (K1, K1b, K2, K2b, K3, K5 with bf16 tensors; K4 with a
+bf16 cotangent, in its f32-update and its bf16-update form) compute in f32
+as their plain versions do and round each output once, so an f32
+difference of a few ulp can move an output by one bf16 step: 2^-7 of the
+largest output magnitude (the f32 forms' bound added for K2, K2b and the
+f32-update K4), counts, validity, masks and K1b's last column exact. K1b's
+bf16 rows of C+1 values are odd for an even C, so every other row starts
+on a 2-byte boundary; the cases cover odd and even C and a feature map
+whose base is 2-byte aligned only (scalar reads). K4's bf16-update form sums in bf16 with atomics in a
 varying order, where its plain version sums with ``index_add_``: at
 coordinates whose base voxels are distinct (one addition per plane entry)
 the two agree bit for bit. With collisions each bf16 addition rounds: a
@@ -429,3 +433,105 @@ def test_warp_bf16_kernel_matches_plain(n):
         grads.append(c.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=(
         BF16_STEP * grads[1].abs().max().item()))
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary (2-byte aligned for bf16)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,raw,c,shifted", [
+    ("bilinear", False, 8, False), ("bilinear", False, 5, False),
+    ("mask", False, 768, False), ("mask", False, 6, True),
+    ("backproject", False, 768, False), ("backproject", False, 256, True),
+    ("backproject", True, 768, False), ("backproject", True, 7, False),
+    ("backproject", True, 512, True)])
+def test_sample2d_bf16_kernel_matches_plain(mode, raw, c, shifted):
+    _need_cuda()
+    b = 3
+    feats, mask, cam3 = _cams(c + raw + 90, c, b)
+    (fb,) = _bf16(feats)
+    if shifted:
+        fb = _misaligned(fb)
+    coords = cam3 if raw else _norm_coords(
+        c + 1, b, cam3.shape[1], 3 if mode == "backproject" else 2)
+    if not raw and mode == "backproject":
+        coords[:, 100:200, :2] = -3.0        # caller-sanitised points
+        coords[:, 100:150, 2] = float("nan")
+    m = None if mode == "bilinear" else mask
+    before = (sample2d.launches, sample2d.launches_bf16)
+    out, valid = sample2d(fb, m, coords, mode, 0.25, raw)
+    assert (sample2d.launches, sample2d.launches_bf16) == (before[0],
+                                                           before[1] + 1)
+    ref, ref_valid = sample2d_plain(fb, m, coords, mode, 0.25, raw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    if valid is not None:
+        assert valid.dtype == torch.float32
+        torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+        assert 0 < valid.sum() < valid.numel()
+    if mode != "bilinear":
+        torch.testing.assert_close(out[..., -1], ref[..., -1], rtol=0, atol=0)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=BF16_STEP * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate,raw,c,ldg", [
+    (True, True, 768, 769), (True, False, 512, 513), (True, True, 256, 257),
+    (False, False, 8, 9), (False, False, 7, 7)])
+def test_sample2d_bwd_bf16_kernel_matches_plain(gate, raw, c, ldg):
+    _need_cuda()
+    b = 3
+    feats, mask, cam3 = _cams(c + 95, c, b)
+    n = cam3.shape[1]
+    coords = cam3 if raw else _norm_coords(c + 2, b, n, 3)
+    valid = None
+    g = torch.randn(b, n, ldg, device="cuda")
+    if gate:
+        _, valid = sample2d(feats, mask, coords, "backproject", 0.25, raw)
+        g = torch.where(valid[..., None] > 0, g, float("nan"))  # unread rows
+    (gb,) = _bf16(g)
+    before = (sample2d_bwd.launches, sample2d_bwd.launches_bf16)
+    got = sample2d_bwd(gb, coords, valid, 16, 24, c, raw)
+    assert (sample2d_bwd.launches, sample2d_bwd.launches_bf16) == (
+        before[0], before[1] + 1)
+    ref = sample2d_bwd_plain(gb, coords, valid, 16, 24, c, raw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    used = n if valid is None else valid.sum().item() / b
+    hits = used * 4 / (16 * 24) + 1
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=(
+        BF16_STEP + 1e-4 * hits ** 0.5) * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 64])   # scalar and vector paths
+def test_sample3d_f32_update_kernel_with_bf16_cotangent(c):
+    _need_cuda()
+    rng = np.random.RandomState(c + 11)
+    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords[:, :2000] = rng.uniform(-1.0, -0.8, (2, 2000, 3))   # crowded
+    coords[:, 10, 1] = np.nan
+    coords[:, 12] = [40.0, -1e9, 3.0]
+    coords = torch.from_numpy(coords).cuda()
+    gb = torch.randn(2, 4001, c, device="cuda").to(torch.bfloat16)
+    shape = (2, 5, 6, 4, c)
+    before = (sample3d_trilinear_bwd.launches,
+              sample3d_trilinear_bwd.launches_bf16)
+    got = sample3d_trilinear_bwd(gb, coords, shape)
+    assert (sample3d_trilinear_bwd.launches,
+            sample3d_trilinear_bwd.launches_bf16) == (before[0],
+                                                      before[1] + 1)
+    ref = sample3d_trilinear_bwd_plain(gb, coords, shape)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=(
+        BF16_STEP + 1e-5 * (8 * 4001 / (5 * 6 * 4)) ** 0.5)
+        * ref.float().abs().max().item())

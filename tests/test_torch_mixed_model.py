@@ -55,7 +55,7 @@ from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
 
-from helpers_torch_step import by_port_name, with_motion
+from helpers_torch_step import by_port_name, jax_step, port_step, with_motion
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"
@@ -144,54 +144,20 @@ def steps(shared):
     after one step, f32 and mixed precision, from the same weights."""
     batch, jbatch, params, stats = shared
     params = with_motion(params)
-    b = batch["color/0/0"].shape[0]
     out = {}
     for mixed in (False, True):
         jcfg, tcfg = _cfgs(mixed)
-        jm = JaxModel(jcfg)
-
-        def jax_step(params, stats, batch, rng, step):
-            rng = jax.random.fold_in(rng, step)
-
-            def loss_fn(p):
-                _, (loss, logs), new_stats = jm.forward(
-                    p, stats, batch, rng, train=True, step=step)
-                return loss, (logs, new_stats)
-
-            grads, (logs, new_stats) = jax.grad(loss_fn, has_aux=True)(params)
-            key = jax.random.split(rng)[0]
-            noise = []
-            for _ in jm.scales:
-                key, k1 = jax.random.split(key)
-                noise.append(jax.random.normal(
-                    k1, (b, jm.num_cams, len(jm.frame_ids) - 1, jm.height,
-                         jm.width, 1)))
-            scalar = {k: v for k, v in logs.items() if v.ndim == 0}
-            return grads, scalar, new_stats, jnp.stack(noise)
-
-        args = (params, stats, jbatch, jax.random.PRNGKey(11),
-                jnp.int32(STEP))
-        fn = jax.jit(jax_step).lower(*args).compile(compiler_options=STRICT)
-        grads, logs, new_stats, noise = fn(*args)
+        grads, logs, new_stats, noise, _ = jax_step(
+            JaxModel(jcfg), params, stats, jbatch, STEP, STRICT)
         out[("jax", mixed)] = dict(
-            grads=by_port_name(jax.tree_util.tree_map(np.asarray, grads)),
+            grads=by_port_name(grads),
             logs={k: float(v) for k, v in logs.items()},
-            stats=by_port_name(jax.tree_util.tree_map(np.asarray,
-                                                      new_stats)))
+            stats=by_port_name(new_stats))
         model = _port(mixed, params, stats)
-        threads = torch.get_num_threads()
-        torch.set_num_threads(4)
-        try:
-            _, loss, tlogs = model(batch, step=STEP,
-                                   noise=torch.from_numpy(np.array(noise)))
-            loss.backward()
-        finally:
-            torch.set_num_threads(threads)
+        tlogs, _ = port_step(model, batch, noise, STEP)
         out[("port", mixed)] = dict(
-            model=model,
+            model=model, logs=tlogs,
             grads={k: p.grad.numpy() for k, p in model.named_parameters()},
-            logs={k: float(v.detach()) for k, v in tlogs.items()
-                  if v.dim() == 0},
             stats={k: v.numpy() for k, v in model.named_buffers()})
     return out
 

@@ -19,6 +19,17 @@ each:
   measured 0.075 to 0.09 on the one-stage modules and 0.23 on the frustum
   projection, and fails both bounds.
 
+The per-camera rows of the 3-camera rig (kernel K1b) meet the fusion as
+JAX sums them. ``fuse_depth`` adds each overlap group camera by camera in
+bf16 and the two groups' sums in bf16; only voxels seen by one or two
+cameras reach its MLPs, so at most two non-zero rows meet in a sum that
+counts and every order rounds alike (ratio measured 0, with the sums taken
+in f32 too). The pose branch's camera mean takes ``jnp.sum`` over all
+cameras (f32 accumulation, one rounding) and divides in bf16 by the bf16
+count; through BEVFold and the reduction conv it is held with the ratio of
+several stages (0.2; measured 0.08, 0.01 after BEVFold alone), which a
+camera-by-camera bf16 sum fails (measured 0.72).
+
 A bf16 network deepens the spread: one flipped rounding changes the next
 layer's sums, which flip more (tests/test_torch_mixed_model.py). In
 ResNet-18 the fraction of differing values grows from 0 at the first level
@@ -204,24 +215,26 @@ def depth_nets():
         jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in batch.items()})
     rng = np.random.RandomState(12)
     params, stats = _np_tree(params, rng), _np_tree(stats, rng)
-    jnets = {}
+    jnets, jpose = {}, {}
     for mixed in (False, True):
         jcfg = jax_get_config(TINY)
         jcfg.set("mixed_precision", mixed)
         jnets[mixed] = JaxModel(jcfg).depth_net
+        jpose[mixed] = JaxModel(jcfg).pose_net
     tcfg = get_config(TINY)
     tcfg.set("mixed_precision", True)
     tm = VFDepthModel(tcfg, device="cpu")
     load_flax_params(tm, params, stats)
     v = {"params": params["depth_net"], "batch_stats": stats["depth_net"]}
-    return jnets, v, tm.depth_net, batch
+    vp = {"params": params["pose_net"], "batch_stats": stats["pose_net"]}
+    return jnets, v, tm.depth_net, batch, (jpose, vp, tm.pose_net)
 
 
 def test_fuse_depth_and_frustum_projection_bf16_match_flax(depth_nets):
     """``fuse_depth`` (bf16 masks and MLPs) and ``project_voxel_into_image``
     (K3 on the bf16 volume, then the bf16 reduction convs), each from the
     same bf16 input."""
-    jnets, v, tnet, batch = depth_nets
+    jnets, v, tnet, batch, _ = depth_nets
     rng = np.random.RandomState(13)
     n = int(np.prod(jax_get_config(TINY).voxel_size))
     feat = _bf16(rng.randn(1, 2, n, 33))
@@ -257,3 +270,55 @@ def test_fuse_depth_and_frustum_projection_bf16_match_flax(depth_nets):
     want = projected[True]
     _check(_nhwc(_t(got)).reshape(want.shape), want, projected[False],
            ratio=0.2)
+
+
+def _per_camera(seed, cams, n, c):
+    """Per-camera back-projected rows as K1b gives them: bf16 features
+    where the camera sees the voxel, exact zeros elsewhere, and the bf16
+    count of cameras that see each voxel (0-3 here)."""
+    rng = np.random.RandomState(seed)
+    valid = (rng.rand(1, cams, n) < 0.35).astype(np.float32)
+    feat = _bf16(rng.randn(1, cams, n, c)) * valid[..., None]
+    return feat, valid.sum(1)
+
+
+def test_per_camera_fusion_bf16_matches_flax(depth_nets):
+    """``fuse_depth(grouped=False)``: the overlap groups ((0, 3, 4), (1, 2,
+    5)) summed camera by camera in bf16."""
+    jnets, v, tnet, _, _ = depth_nets
+    n = int(np.prod(jax_get_config(TINY).voxel_size))
+    feat, count = _per_camera(14, 6, n, 33)
+
+    def fuse(mdl, f, c):
+        return mdl.fusion_net.fuse_depth(f, c, grouped=False)
+    fused = {m: jnets[m].apply(v, jnp.asarray(feat).astype(dt),
+                               jnp.asarray(count).astype(dt), method=fuse)
+             for m, dt in ((True, BF), (False, jnp.float32))}
+    with torch.no_grad():
+        got = tnet.fusion_net.fuse_depth(torch.from_numpy(feat).bfloat16(),
+                                         torch.from_numpy(count).bfloat16(),
+                                         grouped=False)
+    assert got.dtype == torch.bfloat16
+    _check(_t(got), fused[True], fused[False])
+
+
+def test_per_camera_pose_bev_bf16_matches_flax(depth_nets):
+    """``pose_voxel_to_bev(grouped=False)``: the camera mean (an f32 sum
+    rounded once, divided in bf16 by the bf16 count), then BEVFold and the
+    reduction conv."""
+    jpose, vp, tpose = depth_nets[4]
+    n = int(np.prod(jax_get_config(TINY).voxel_size))
+    feat, count = _per_camera(15, 6, n, 33)
+
+    def bev(mdl, f, c):
+        return mdl.fusion_net.pose_voxel_to_bev(f, c, train=False,
+                                                grouped=False)
+    outs = {m: jpose[m].apply(vp, jnp.asarray(feat).astype(dt),
+                              jnp.asarray(count).astype(dt), method=bev)
+            for m, dt in ((True, BF), (False, jnp.float32))}
+    with torch.no_grad():
+        got = tpose.fusion_net.pose_voxel_to_bev(
+            torch.from_numpy(feat).bfloat16(),
+            torch.from_numpy(count).bfloat16(), grouped=False)
+    assert got.dtype == torch.bfloat16
+    _check(_nhwc(_t(got)), outs[True], outs[False], ratio=0.2)

@@ -29,6 +29,30 @@ the JAX functions they replace, and the ``sampler_3d`` rule.
   within 1e-2 of its largest entry.
 * ``intensity_align`` on a bf16 warped image: f32 statistics, the warped
   image's dtype out; one bf16 step.
+* K1b with bf16 features, in its four modes, against the Pallas entries
+  (``sample_bilinear_pallas``, ``..._with_nearest_mask_pallas``,
+  ``sample_backproject_pallas``, ``sample_backproject_raw_pallas``) in
+  interpret mode, with non-finite and huge coordinates, NaN and inf depths
+  and exact nearest-pick ties (pixel fraction 0.5, which both take
+  downwards): the Pallas kernel rounds its tap weights to bf16, the port
+  combines in f32 and rounds once, so features are held at the bf16
+  tolerance above (3e-2); validity, the nearest mask value and the
+  normalised rel column exact, the raw rel column (z * rel_scale, formed
+  in f32 by both) within one bf16 step of each value. The port's one
+  rounding is checked directly: its bf16 output is its f32 output (on the
+  same bf16 values) rounded once, bit for bit.
+* K2b with a bf16 cotangent, gated and ungated, with odd row widths,
+  against ``jax.vjp`` of the same entries: the Pallas kernel's one-hot
+  weights are bf16, its sums f32, its output rounded once; 3e-2 of the
+  largest entry, as K2. The port's bf16 gradient is its f32 gradient of
+  the same values rounded once, bit for bit.
+* K4's f32-update form with a bf16 cotangent (``sampler_3d:
+  packed_f32grad`` under mixed precision) against ``jax.vjp`` of
+  ``grid_sample_3d_packed(vol, coords, "f32", "yxz")`` on a bf16 volume:
+  exact where every point has its own base voxel (f32 products summed in
+  JAX's order, one rounding); elsewhere the f32 sums differ by summation
+  order alone, which one rounding to bf16 turns into at most one bf16 step
+  of a value (2^-7 relative).
 """
 import numpy as np
 import jax
@@ -38,18 +62,21 @@ import torch
 
 from vfdepth_tpu.geometry.view_rendering import intensity_align as \
     jax_intensity_align
+from vfdepth_tpu.ops import pallas_sample as jps
 from vfdepth_tpu.ops.pallas_sample import (_fwd_call_grouped,
                                            sample_backproject_grouped_raw_pallas)
 from vfdepth_tpu.ops.sample3d_packed import grid_sample_3d_packed
 from vfdepth_tpu.ops.warp_quad import warp_image_mask_quad
 from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.geometry.view_rendering import intensity_align
+from vfdepth_tpu_torch.ops import backproject_sample as tbs
 from vfdepth_tpu_torch.ops.backproject_sample import (
     BackprojectGrouped, backproject_grouped, backproject_grouped_bwd,
     backproject_grouped_plain)
 from vfdepth_tpu_torch.ops.sample3d import (
-    Sample3dTrilinear, sample3d_trilinear, sample3d_trilinear_bwd_bf16,
-    sample3d_trilinear_bwd_bf16_plain, sample3d_trilinear_bwd_plain)
+    Sample3dTrilinear, sample3d_trilinear, sample3d_trilinear_bwd,
+    sample3d_trilinear_bwd_bf16, sample3d_trilinear_bwd_bf16_plain,
+    sample3d_trilinear_bwd_plain)
 from vfdepth_tpu_torch.ops.warp import warp_image_mask, warp_image_mask_maps
 from vfdepth_tpu_torch.training.model import VFDepthModel
 
@@ -71,11 +98,13 @@ def _bf16_np(x):
 @pytest.mark.parametrize("mixed,sampler,want", [
     (False, None, "packed_f32grad"), (False, "packed", "packed"),
     (False, "packed_f32grad", "packed_f32grad"), (False, "gather", "gather"),
-    (True, None, "packed"), (True, "packed", "packed")])
+    (True, None, "packed"), (True, "packed", "packed"),
+    (True, "packed_f32grad", "packed_f32grad")])
 def test_sampler_3d_rule(mixed, sampler, want):
     """The JAX rule (training/model.py:177-182): bf16 updates for an
     explicit 'packed', in an f32 config too, and by default under mixed
-    precision."""
+    precision; 'packed_f32grad' under mixed precision takes f32 updates of
+    the bf16 cotangent (K4's f32 form with a bf16 g)."""
     cfg = get_config("configs/tiny_fake.yaml")
     cfg.set("mixed_precision", mixed)
     cfg.set("sampler_3d", sampler)
@@ -86,12 +115,16 @@ def test_sampler_3d_rule(mixed, sampler, want):
 
 
 def test_mixed_precision_with_f32_updates_raises():
+    """Of the f32-update samplers under mixed precision, 'packed_f32grad'
+    builds and 'gather' (an XLA scatter of bf16 updates in the JAX
+    package, not a TPU kernel) still raises."""
     cfg = get_config("configs/tiny_fake.yaml")
     cfg.set("mixed_precision", True)
-    for sampler in ("packed_f32grad", "gather"):
-        cfg.set("sampler_3d", sampler)
-        with pytest.raises(NotImplementedError, match="f32 updates"):
-            VFDepthModel(cfg, device="cpu")
+    cfg.set("sampler_3d", "packed_f32grad")
+    assert not VFDepthModel(cfg, device="cpu").depth_net.fusion_net.bf16_updates
+    cfg.set("sampler_3d", "gather")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        VFDepthModel(cfg, device="cpu")
 
 
 VOL = (2, 5, 6, 4, 16)          # [B, y, x, z, C]
@@ -308,3 +341,228 @@ def test_intensity_align_bf16_matches_jax():
     want = _f32(want)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=BF16_STEP * np.abs(want).max())
+
+
+# ---------------------------------------------------------- K1b / K2b bf16
+
+K1B_H, K1B_W = 17, 33      # 0.5 * (size - 1) = 8, 16: exact pixel ties
+
+
+def _k1b_inputs(seed, mode, c, raw=False, b=3, n=700):
+    """bf16-valued features [b, h, w, c], a 0/1 mask with holes, and
+    coordinates for ``mode``: normalised points over and past the image
+    with corners, non-finite and huge ones, or (``raw``) camera-plane
+    points behind the camera, off the image, at near-zero and non-finite
+    depths; both with exact nearest-pick ties (pixel fraction 0.5 on one
+    axis and on both)."""
+    rng = np.random.RandomState(seed)
+    h, w = K1B_H, K1B_W
+    feats = _bf16_np(rng.randn(b, h, w, c))
+    mask = (rng.rand(b, h, w) > 0.3).astype(np.float32)
+    ties = np.array([[3.5, 4.0], [10.0, 7.5], [20.5, 11.5], [0.5, 0.5],
+                     [w - 1.5, h - 1.5], [31.5, 2.0]], np.float32)
+    if raw:
+        z = rng.uniform(-2.0, 10.0, (b, n)).astype(np.float32)
+        z[:, :20] = rng.uniform(-1e-7, 1e-7, (b, 20))
+        px = rng.uniform(-6, w + 6, (b, n)).astype(np.float32)
+        py = rng.uniform(-6, h + 6, (b, n)).astype(np.float32)
+        coords = np.stack([px * z, py * z, z], axis=-1)
+        coords[:, 30:35, 0] = np.nan
+        coords[:, 35:40, 1] = np.inf
+        coords[:, 40:42, 2] = np.nan
+        coords[:, 42:44, 2] = -np.inf
+        # z = 1: the divide by z + 1e-8 (= 1 in f32) keeps the tie exact
+        coords[:, 50:56, :2] = ties
+        coords[:, 50:56, 2] = 1.0
+        return feats, mask, coords
+    coords = rng.uniform(-1.3, 1.3, (b, n, 3 if mode == "backproject"
+                                     else 2)).astype(np.float32)
+    coords[:, :4, :2] = [[-1.0, -1.0], [1.0, 1.0], [-1.0, 1.0], [1.0, -1.0]]
+    coords[:, 10, 0] = np.nan
+    coords[:, 11, 1] = np.inf
+    coords[:, 12, :2] = [-np.inf, 0.0]
+    coords[:, 13, :2] = [1e30, 0.2]
+    coords[:, 50:56, :2] = ties / (0.5 * (np.array([w, h]) - 1)) - 1.0
+    if mode == "backproject":
+        coords[:, 20:40, :2] = -3.0           # caller-sanitised points
+        coords[:, :, 2] = rng.uniform(0.1, 2.0, (b, n))
+    return feats, mask, coords
+
+
+def _jax_k1b(mode, raw, fb, mask, coords, rel_scale):
+    """The Pallas entry of ``mode`` (interpret mode) on bf16 features:
+    [B, N, C (+1)] as the port's K1b lays it out, and the validity."""
+    m4 = jnp.asarray(mask[..., None])
+    if mode == "bilinear":
+        return jps.sample_bilinear_pallas(fb, jnp.asarray(coords)), None
+    if mode == "mask":
+        return jps.sample_bilinear_with_nearest_mask_pallas(
+            fb, m4, jnp.asarray(coords)), None
+    if raw:
+        return jps.sample_backproject_raw_pallas(fb, m4, jnp.asarray(coords),
+                                                 rel_scale)
+    return jps.sample_backproject_pallas(fb, m4, jnp.asarray(coords[..., :2]),
+                                         jnp.asarray(coords[..., 2]))
+
+
+@pytest.mark.parametrize("mode,raw,c", [
+    ("bilinear", False, 8), ("mask", False, 6), ("backproject", False, 8),
+    ("backproject", True, 7)])
+def test_k1b_bf16_matches_pallas_interpret(mode, raw, c):
+    rel_scale = 1.0 / 24.0 if raw else 1.0
+    feats, mask, coords = _k1b_inputs(50 + c, mode, c, raw)
+    fb = jnp.asarray(feats).astype(BF)
+    want, want_valid = _jax_k1b(mode, raw, fb, mask, coords, rel_scale)
+    assert want.dtype == BF
+    tf = torch.from_numpy(feats).bfloat16()
+    m = None if mode == "bilinear" else torch.from_numpy(mask)
+    tc = torch.from_numpy(coords)
+    out, valid = tbs.sample2d(tf, m, tc, mode, rel_scale, raw)
+    assert out.dtype == torch.bfloat16
+    assert out.shape == (3, coords.shape[1], c + (mode != "bilinear"))
+    got = out.float().numpy()
+    assert np.isfinite(got).all()
+    want = _f32(want)
+    if mode == "backproject":
+        np.testing.assert_array_equal(valid.numpy(), _f32(want_valid))
+        assert valid.dtype == torch.float32 and 0 < valid.sum() < valid.numel()
+        if raw:
+            np.testing.assert_allclose(got[..., -1], want[..., -1], rtol=BF16_STEP,
+                                       atol=0)
+        else:
+            np.testing.assert_array_equal(got[..., -1], want[..., -1])
+        feat_got, feat_want = got[..., :-1], want[..., :-1]
+    elif mode == "mask":
+        np.testing.assert_array_equal(got[..., -1], want[..., -1])
+        feat_got, feat_want = got[..., :-1], want[..., :-1]
+    else:
+        feat_got, feat_want = got, want
+    np.testing.assert_allclose(feat_got, feat_want, atol=3e-2, rtol=3e-2)
+    # one rounding of the f32 combine, bit for bit
+    ref, ref_valid = tbs.sample2d_plain(tf.float(), m, tc, mode, rel_scale,
+                                        raw)
+    torch.testing.assert_close(out, ref.to(torch.bfloat16), rtol=0, atol=0)
+    if valid is not None:
+        torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode,raw,c,gated", [
+    ("bilinear", False, 7, False), ("mask", False, 8, False),
+    ("backproject", False, 6, True), ("backproject", True, 8, True)])
+def test_k2b_bf16_matches_pallas_vjp(mode, raw, c, gated):
+    """Row widths C (+1): 7, 9, 7, 9 -- odd; the mask column's cotangent
+    is read by neither."""
+    rel_scale = 1.0 / 24.0 if raw else 1.0
+    feats, mask, coords = _k1b_inputs(60 + c, mode, c, raw)
+    fb = jnp.asarray(feats).astype(BF)
+    n, ldg = coords.shape[1], c + (mode != "bilinear")
+    g = _bf16_np(np.random.RandomState(61 + c).randn(3, n, ldg))
+    gb = jnp.asarray(g).astype(BF)
+    m4 = jnp.asarray(mask[..., None])
+
+    def jax_out(f):
+        out, _ = _jax_k1b(mode, raw, f, mask, coords, rel_scale)
+        return out
+    if mode == "backproject":
+        def jax_out(f):      # noqa: F811 (the two-output entries)
+            if raw:
+                return jps.sample_backproject_raw_pallas(
+                    f, m4, jnp.asarray(coords), rel_scale)
+            return jps.sample_backproject_pallas(
+                f, m4, jnp.asarray(coords[..., :2]),
+                jnp.asarray(coords[..., 2]))
+        cot = (gb, jnp.zeros((3, n), BF))
+    else:
+        cot = gb
+    (want,) = jax.vjp(jax_out, fb)[1](cot)
+    assert want.dtype == BF
+    tf = torch.from_numpy(feats).bfloat16().requires_grad_()
+    m = None if mode == "bilinear" else torch.from_numpy(mask)
+    out, valid = tbs.Sample2d.apply(tf, m, torch.from_numpy(coords), mode,
+                                    rel_scale, raw)
+    assert (valid is not None) == gated
+    out.backward(torch.from_numpy(g).bfloat16())
+    got = tf.grad
+    assert got.dtype == torch.bfloat16
+    want = _f32(want)
+    assert np.isfinite(got.float().numpy()).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=3e-2 * np.abs(want).max())
+    # one rounding of the f32 gradient, bit for bit
+    ref = tbs.sample2d_bwd_plain(torch.from_numpy(g), torch.from_numpy(coords),
+                                 valid, K1B_H, K1B_W, c, raw)
+    torch.testing.assert_close(got, ref.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_k1b_k2b_bf16_wrappers_take_plain_version_on_cpu():
+    feats, mask, coords = (torch.from_numpy(a) for a in _k1b_inputs(
+        70, "backproject", 9, raw=True))
+    fb = feats.bfloat16()
+    out, valid = tbs.sample2d(fb, mask, coords, "backproject", 0.5, True)
+    ref, ref_valid = tbs.sample2d_plain(fb, mask, coords, "backproject", 0.5,
+                                        True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+    g = torch.randn(out.shape).bfloat16()
+    got = tbs.sample2d_bwd(g, coords, valid, K1B_H, K1B_W, 9, True)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, tbs.sample2d_bwd_plain(
+        g, coords, valid, K1B_H, K1B_W, 9, True), rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        tbs.sample2d(feats.half(), mask, coords, "backproject", 0.5, True)
+    assert tbs.sample2d.launches_bf16 == 0
+    assert tbs.sample2d_bwd.launches_bf16 == 0
+
+
+# ------------------------------------------- K4, f32 updates of a bf16 g
+
+def _jax_f32_updates(vol, coords, g):
+    """dvol of ``grid_sample_3d_packed(.., "f32", "yxz")`` (interpret)."""
+    _, vjp = jax.vjp(lambda v: grid_sample_3d_packed(
+        v, jnp.asarray(coords), "f32", "yxz"), jnp.asarray(vol))
+    return vjp(jnp.asarray(g))[0]
+
+
+def test_k4_f32_updates_of_bf16_cotangent_match_jax():
+    rng = np.random.RandomState(80)
+    vol = jnp.asarray(rng.randn(*VOL).astype(np.float32)).astype(BF)
+    for coords, exact in ((_distinct_base_coords(81), True),
+                          (_random_coords(82), False)):
+        g = jnp.asarray(rng.randn(2, coords.shape[1], VOL[-1]).astype(
+            np.float32)).astype(BF)
+        want = _jax_f32_updates(vol, coords, g)
+        assert want.dtype == BF
+        # through the autograd Function, as the model calls it
+        v = torch.from_numpy(_f32(vol)).bfloat16().requires_grad_()
+        out = Sample3dTrilinear.apply(v, torch.from_numpy(coords), False,
+                                      False)
+        out.backward(torch.from_numpy(_f32(g)).bfloat16())
+        got = v.grad
+        assert got.dtype == torch.bfloat16
+        got, want = got.float().numpy(), _f32(want)
+        if exact:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
+                                       atol=1e-6 * np.abs(want).max())
+            # JAX's bf16-update form is another function: its bf16 sums
+            # round half of the values elsewhere (measured 57%), where the
+            # order of the f32 sums may move a few (measured none: on the
+            # CPU ``index_add_`` adds in XLA's scatter order)
+            bf16_upd = _f32(_jax_bf16_updates(vol, coords, g))
+            assert (bf16_upd != want).mean() > 0.3
+            assert (got != want).mean() < 0.03
+
+
+def test_k4_f32_update_wrapper_takes_plain_version_on_cpu():
+    coords = torch.from_numpy(_random_coords(83))
+    g = torch.randn(2, coords.shape[1], VOL[-1]).bfloat16()
+    got = sample3d_trilinear_bwd(g, coords, VOL)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, sample3d_trilinear_bwd_plain(
+        g, coords, VOL), rtol=0, atol=0)
+    # the f32 sums of the f32 form, rounded once
+    f32 = sample3d_trilinear_bwd_plain(g.float(), coords, VOL)
+    np.testing.assert_allclose(got.float().numpy(), f32.numpy(),
+                               rtol=2.0 ** -7, atol=1e-6 * f32.abs().max())
+    assert sample3d_trilinear_bwd.launches_bf16 == 0

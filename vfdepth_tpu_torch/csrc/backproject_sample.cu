@@ -53,6 +53,15 @@
 // row to bf16 and sums them in bf16). Its C+2 rows of 770 bf16 are 1540
 // bytes, 4-byte aligned: the 4 channels of a thread go out as two bf16x2
 // stores. The mask, coordinates and per-camera validity stay f32.
+//
+// K1b has the same bf16 form, in all four modes: the 4 taps of a bf16 map
+// are combined in f32 and the row is rounded once to bf16, as the JAX
+// kernel's bf16 output (pallas_sample.py:426); the mask value and the rel
+// column are f32 until that one rounding, the validity stays an f32 0/1.
+// Its rows are odd: C+1 = 769 (merged), 513 or 257 (unmerged) bf16 values,
+// so every other row starts on a 2-byte boundary and a thread's 4 channels
+// go out as scalar stores (``vec_width`` of elem.cuh picks 1 for an odd
+// row stride); the tap reads stay 4 bf16 wide where the map allows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -184,12 +193,13 @@ backproject_grouped_kernel(const T* __restrict__ feats,
 
 // K1b. kMode: 0 bilinear, 1 bilinear + nearest mask value, 2 back-projection
 // epilogue (raw or normalised coordinates; the others take normalised ones).
-template <bool kRaw, int kMode, bool kVec4>
+// T: the element type of feats and out (f32, or bf16 in the bf16 form).
+template <typename T, bool kRaw, int kMode, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-sample2d_kernel(const float* __restrict__ feats,
+sample2d_kernel(const T* __restrict__ feats,
                 const float* __restrict__ mask,
                 const float* __restrict__ coords,
-                float* __restrict__ out, float* __restrict__ valid_out,
+                T* __restrict__ out, float* __restrict__ valid_out,
                 int h, int w, int64_t c, int64_t n, int ncols,
                 float rel_scale, int out_vec) {
   __shared__ Taps taps[kTile];
@@ -235,9 +245,9 @@ sample2d_kernel(const float* __restrict__ feats,
   // phase 2: the tile's output rows are one contiguous run
   const int co = (int)c + (kMode == 0 ? 0 : 1);
   const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
-  float* dst = out + (cam * n + n0) * co;
+  T* dst = out + (cam * n + n0) * co;
   if (kVec4) {
-    // one thread per (point, 4 channels): float4 tap reads
+    // one thread per (point, 4 channels): 4-element tap reads
     const int c4 = (int)c / 4;
     for (int idx = threadIdx.x; idx < rows * c4; idx += kThreads) {
       const int p = idx / c4;
@@ -247,8 +257,7 @@ sample2d_kernel(const float* __restrict__ feats,
       if (t.keep != 0.0f) {
         for (int j = 0; j < 4; ++j) {
           if (t.off[j] < 0) continue;
-          const float4 f =
-              __ldg(reinterpret_cast<const float4*>(feats + t.off[j] + ch));
+          const float4 f = ld4(feats + t.off[j] + ch);
           acc.x += t.w[j] * f.x;
           acc.y += t.w[j] * f.y;
           acc.z += t.w[j] * f.z;
@@ -259,7 +268,7 @@ sample2d_kernel(const float* __restrict__ feats,
     }
     if (kMode != 0)
       for (int p = threadIdx.x; p < rows; p += kThreads)
-        dst[p * co + (int)c] = taps[p].extra;
+        st1(dst + p * co + (int)c, taps[p].extra);
   } else {
     for (int idx = threadIdx.x; idx < rows * co; idx += kThreads) {
       const int p = idx / co;
@@ -269,29 +278,61 @@ sample2d_kernel(const float* __restrict__ feats,
       if (ch < c) {
         if (t.keep != 0.0f)
           for (int j = 0; j < 4; ++j)
-            if (t.off[j] >= 0) acc += t.w[j] * __ldg(feats + t.off[j] + ch);
+            if (t.off[j] >= 0) acc += t.w[j] * ld1(feats + t.off[j] + ch);
       } else {
         acc = t.extra;
       }
-      dst[idx] = acc;
+      st1(dst + idx, acc);
     }
   }
 }
 
-template <bool kRaw, int kMode>
+template <typename T, bool kRaw, int kMode>
 void launch_sample2d(const dim3& grid, cudaStream_t s, bool vec4,
-                     const float* feats, const float* mask,
-                     const float* coords, float* out, float* valid, int h,
-                     int w, int64_t c, int64_t n, int ncols, float rel_scale,
-                     int out_vec) {
+                     const T* feats, const float* mask, const float* coords,
+                     T* out, float* valid, int h, int w, int64_t c, int64_t n,
+                     int ncols, float rel_scale, int out_vec) {
   if (vec4)
-    sample2d_kernel<kRaw, kMode, true><<<grid, kThreads, 0, s>>>(
+    sample2d_kernel<T, kRaw, kMode, true><<<grid, kThreads, 0, s>>>(
         feats, mask, coords, out, valid, h, w, c, n, ncols, rel_scale,
         out_vec);
   else
-    sample2d_kernel<kRaw, kMode, false><<<grid, kThreads, 0, s>>>(
+    sample2d_kernel<T, kRaw, kMode, false><<<grid, kThreads, 0, s>>>(
         feats, mask, coords, out, valid, h, w, c, n, ncols, rel_scale,
         out_vec);
+}
+
+template <typename T>
+int launch_sample2d_modes(const T* feats, const float* mask,
+                          const float* coords, T* out, float* valid,
+                          int64_t B, int64_t h, int64_t w, int64_t c,
+                          int64_t n, int64_t ncols, int mode, int raw,
+                          float rel_scale, void* stream) {
+  if (mode < 0 || mode > 2 || (raw && mode != 2) || ncols < 2 ||
+      ((raw || mode == 2) && ncols < 3) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = c % 4 == 0 && vec_width(feats, c) == 4;
+  const int out_vec = vec_width(out, c + (mode == 0 ? 0 : 1));
+  const int nc = (int)ncols;
+  if (mode == 0)
+    launch_sample2d<T, false, 0>(grid, s, vec4, feats, mask, coords, out,
+                                 valid, (int)h, (int)w, c, n, nc, rel_scale,
+                                 out_vec);
+  else if (mode == 1)
+    launch_sample2d<T, false, 1>(grid, s, vec4, feats, mask, coords, out,
+                                 valid, (int)h, (int)w, c, n, nc, rel_scale,
+                                 out_vec);
+  else if (raw)
+    launch_sample2d<T, true, 2>(grid, s, vec4, feats, mask, coords, out,
+                                valid, (int)h, (int)w, c, n, nc, rel_scale,
+                                out_vec);
+  else
+    launch_sample2d<T, false, 2>(grid, s, vec4, feats, mask, coords, out,
+                                 valid, (int)h, (int)w, c, n, nc, rel_scale,
+                                 out_vec);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -346,26 +387,16 @@ extern "C" int vf_sample2d(const float* feats, const float* mask,
                            int64_t B, int64_t h, int64_t w, int64_t c,
                            int64_t n, int64_t ncols, int mode, int raw,
                            float rel_scale, void* stream) {
-  if (mode < 0 || mode > 2 || (raw && mode != 2) || ncols < 2 ||
-      ((raw || mode == 2) && ncols < 3) || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(feats) % 16 == 0;
-  const int out_vec = vec_width(out, c + (mode == 0 ? 0 : 1));
-  const int nc = (int)ncols;
-  if (mode == 0)
-    launch_sample2d<false, 0>(grid, s, vec4, feats, mask, coords, out, valid,
-                              (int)h, (int)w, c, n, nc, rel_scale, out_vec);
-  else if (mode == 1)
-    launch_sample2d<false, 1>(grid, s, vec4, feats, mask, coords, out, valid,
-                              (int)h, (int)w, c, n, nc, rel_scale, out_vec);
-  else if (raw)
-    launch_sample2d<true, 2>(grid, s, vec4, feats, mask, coords, out, valid,
-                             (int)h, (int)w, c, n, nc, rel_scale, out_vec);
-  else
-    launch_sample2d<false, 2>(grid, s, vec4, feats, mask, coords, out, valid,
-                              (int)h, (int)w, c, n, nc, rel_scale, out_vec);
-  return (int)cudaGetLastError();
+  return launch_sample2d_modes(feats, mask, coords, out, valid, B, h, w, c,
+                               n, ncols, mode, raw, rel_scale, stream);
+}
+
+// K1b's bf16 form: feats and out bf16; mask, coords and valid f32
+extern "C" int vf_sample2d_bf16(const __nv_bfloat16* feats, const float* mask,
+                                const float* coords, __nv_bfloat16* out,
+                                float* valid, int64_t B, int64_t h, int64_t w,
+                                int64_t c, int64_t n, int64_t ncols, int mode,
+                                int raw, float rel_scale, void* stream) {
+  return launch_sample2d_modes(feats, mask, coords, out, valid, B, h, w, c,
+                               n, ncols, mode, raw, rel_scale, stream);
 }

@@ -46,6 +46,10 @@
 // channels), the taps and the f32 atomics into the zeroed f32 feature
 // gradient are the f32 form's, and the caller rounds the gradient once to
 // bf16, as the JAX kernel's bf16 output does (pallas_sample.py:552, :581).
+// K2b has the same bf16 form, gated and ungated: its cotangent rows hold
+// C_in >= C bf16 values, 769 (merged) or 513 / 257 (unmerged) in the
+// model, odd, so every other row starts on a 2-byte boundary and the reads
+// fall back to scalar loads (``vec_width`` picks 1 for an odd stride).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -154,9 +158,9 @@ backproject_grouped_bwd_kernel(const T* __restrict__ g,
                          rows, c, ldg, gvec, dfeat);
 }
 
-template <bool kRaw, bool kVec4>
+template <typename T, bool kRaw, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-sample2d_bwd_kernel(const float* __restrict__ g,
+sample2d_bwd_kernel(const T* __restrict__ g,
                     const float* __restrict__ coords,
                     const float* __restrict__ valid,
                     float* __restrict__ dfeat, int h, int w, int64_t c,
@@ -175,8 +179,8 @@ sample2d_bwd_kernel(const float* __restrict__ g,
   __syncthreads();
 
   const int rows = (n - n0 < kTile) ? (int)(n - n0) : kTile;
-  scatter_tile<float, kVec4>(g + (cam * n + n0) * ldg, taps, seen, 1, rows,
-                             c, ldg, gvec, dfeat);
+  scatter_tile<T, kVec4>(g + (cam * n + n0) * ldg, taps, seen, 1, rows, c,
+                         ldg, gvec, dfeat);
 }
 
 template <typename T>
@@ -198,6 +202,29 @@ int launch_grouped_bwd(const T* g, const float* coords, const float* valid,
     if (vec4) VF_GROUPED_BWD(false, true); else VF_GROUPED_BWD(false, false);
   }
 #undef VF_GROUPED_BWD
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sample2d_bwd(const T* g, const float* coords, const float* valid,
+                        float* dfeat, int64_t B, int64_t h, int64_t w,
+                        int64_t c, int64_t ldg, int64_t n, int64_t ncols,
+                        int raw, void* stream) {
+  if (ldg < c || ncols < (raw ? 3 : 2) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = c % 4 == 0 && vec_width(dfeat, c) == 4;
+  const int gvec = vec_width(g, ldg);
+#define VF_SAMPLE2D_BWD(RAW, VEC)                                            \
+  sample2d_bwd_kernel<T, RAW, VEC><<<grid, kThreads, 0, s>>>(                \
+      g, coords, valid, dfeat, (int)h, (int)w, c, ldg, n, (int)ncols, gvec)
+  if (raw) {
+    if (vec4) VF_SAMPLE2D_BWD(true, true); else VF_SAMPLE2D_BWD(true, false);
+  } else {
+    if (vec4) VF_SAMPLE2D_BWD(false, true); else VF_SAMPLE2D_BWD(false, false);
+  }
+#undef VF_SAMPLE2D_BWD
   return (int)cudaGetLastError();
 }
 
@@ -231,20 +258,17 @@ extern "C" int vf_sample2d_bwd(const float* g, const float* coords,
                                int64_t h, int64_t w, int64_t c, int64_t ldg,
                                int64_t n, int64_t ncols, int raw,
                                void* stream) {
-  if (ldg < c || ncols < (raw ? 3 : 2) || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c % 4 == 0 && vec_width(dfeat, c) == 4;
-  const int gvec = vec_width(g, ldg);
-#define VF_SAMPLE2D_BWD(RAW, VEC)                                            \
-  sample2d_bwd_kernel<RAW, VEC><<<grid, kThreads, 0, s>>>(                   \
-      g, coords, valid, dfeat, (int)h, (int)w, c, ldg, n, (int)ncols, gvec)
-  if (raw) {
-    if (vec4) VF_SAMPLE2D_BWD(true, true); else VF_SAMPLE2D_BWD(true, false);
-  } else {
-    if (vec4) VF_SAMPLE2D_BWD(false, true); else VF_SAMPLE2D_BWD(false, false);
-  }
-#undef VF_SAMPLE2D_BWD
-  return (int)cudaGetLastError();
+  return launch_sample2d_bwd(g, coords, valid, dfeat, B, h, w, c, ldg, n,
+                             ncols, raw, stream);
+}
+
+// K2b's bf16 form: g bf16; coords, valid and dfeat f32
+extern "C" int vf_sample2d_bwd_bf16(const __nv_bfloat16* g,
+                                    const float* coords, const float* valid,
+                                    float* dfeat, int64_t B, int64_t h,
+                                    int64_t w, int64_t c, int64_t ldg,
+                                    int64_t n, int64_t ncols, int raw,
+                                    void* stream) {
+  return launch_sample2d_bwd(g, coords, valid, dfeat, B, h, w, c, ldg, n,
+                             ncols, raw, stream);
 }

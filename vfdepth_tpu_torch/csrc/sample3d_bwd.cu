@@ -30,6 +30,16 @@
 // serialise in L2. Consecutive points are consecutive depth bins of one
 // pixel, so a warp's atomics often hit the same rows; the sum order varies
 // from run to run (a few ulp).
+//
+// The f32 form also takes a bf16 cotangent (mixed precision with
+// `packed_f32grad`; vf_sample3d_trilinear_bwd_f32upd_bf16): g is read as
+// bf16 and widened, each tap product is formed in f32 (`_updates_kernel`
+// :146-155 with out_dtype f32) and added with the same float4 f32 atomics
+// into the zeroed f32 dvol; the caller rounds dvol once to bf16
+// (`_packed_bwd` :340 `astype(g.dtype)`). JAX sums each tap plane in f32
+// and folds the planes in f32: the same f32 sums in another order, so no
+// tap planes and no fold are needed here. The cotangent is half the bytes
+// of the f32 form's; the atomics are the same.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,8 +50,9 @@ namespace {
 
 constexpr int kWarps = 8;
 
+template <typename G>
 __global__ void __launch_bounds__(kWarps * 32)
-sample3d_trilinear_bwd_kernel(const float* __restrict__ g,
+sample3d_trilinear_bwd_kernel(const G* __restrict__ g,
                               const float* __restrict__ coords,
                               float* __restrict__ dvol, int64_t nb, int h,
                               int w, int d, int64_t c, int64_t n) {
@@ -51,14 +62,15 @@ sample3d_trilinear_bwd_kernel(const float* __restrict__ g,
   const PointTaps t = point_taps(coords, pt, n, h, w, d, c);
   float* base = dvol + t.base;
   for (int64_t ch = lane; ch < c; ch += 32) {
-    const float gv = __ldg(g + pt * c + ch);
+    const float gv = ld1(g + pt * c + ch);
     for (int k = 0; k < 8; ++k)
       if (t.wt[k] != 0.0f) atomicAdd(base + t.off[k] + ch, t.wt[k] * gv);
   }
 }
 
+template <typename G>
 __global__ void __launch_bounds__(kWarps * 32)
-sample3d_trilinear_bwd_vec4_kernel(const float* __restrict__ g,
+sample3d_trilinear_bwd_vec4_kernel(const G* __restrict__ g,
                                    const float* __restrict__ coords,
                                    float* __restrict__ dvol, int64_t nb,
                                    int h, int w, int d, int64_t c,
@@ -69,7 +81,7 @@ sample3d_trilinear_bwd_vec4_kernel(const float* __restrict__ g,
   const int64_t pt = idx / c4;
   const int64_t ch = (idx - pt * c4) * 4;
   const PointTaps t = point_taps(coords, pt, n, h, w, d, c);
-  const float4 gv = __ldg(reinterpret_cast<const float4*>(g + pt * c + ch));
+  const float4 gv = ld4(g + pt * c + ch);
   float* base = dvol + t.base + ch;
   for (int k = 0; k < 8; ++k) {
     const float wt = t.wt[k];
@@ -77,6 +89,27 @@ sample3d_trilinear_bwd_vec4_kernel(const float* __restrict__ g,
     atomicAdd(reinterpret_cast<float4*>(base + t.off[k]),
               make_float4(wt * gv.x, wt * gv.y, wt * gv.z, wt * gv.w));
   }
+}
+
+template <typename G>
+int launch_f32_updates(const G* g, const float* coords, float* dvol,
+                       int64_t b, int64_t h, int64_t w, int64_t d, int64_t c,
+                       int64_t n, void* stream) {
+  if (h < 2 || w < 2 || d < 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = c % 4 == 0 && vec_width(g, c) == 4 &&
+                    reinterpret_cast<uintptr_t>(dvol) % 16 == 0;
+  const int threads = kWarps * 32;
+  if (vec4) {
+    const int64_t blocks = (b * n * (c / 4) + threads - 1) / threads;
+    sample3d_trilinear_bwd_vec4_kernel<G><<<(unsigned)blocks, threads, 0, s>>>(
+        g, coords, dvol, b, (int)h, (int)w, (int)d, c, n);
+  } else {
+    const int64_t blocks = (b * n + kWarps - 1) / kWarps;
+    sample3d_trilinear_bwd_kernel<G><<<(unsigned)blocks, threads, 0, s>>>(
+        g, coords, dvol, b, (int)h, (int)w, (int)d, c, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -87,22 +120,15 @@ extern "C" int vf_sample3d_trilinear_bwd(const float* g, const float* coords,
                                          float* dvol, int64_t b, int64_t h,
                                          int64_t w, int64_t d, int64_t c,
                                          int64_t n, void* stream) {
-  if (h < 2 || w < 2 || d < 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(dvol) % 16 == 0;
-  const int threads = kWarps * 32;
-  if (vec4) {
-    const int64_t blocks = (b * n * (c / 4) + threads - 1) / threads;
-    sample3d_trilinear_bwd_vec4_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        g, coords, dvol, b, (int)h, (int)w, (int)d, c, n);
-  } else {
-    const int64_t blocks = (b * n + kWarps - 1) / kWarps;
-    sample3d_trilinear_bwd_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        g, coords, dvol, b, (int)h, (int)w, (int)d, c, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_f32_updates(g, coords, dvol, b, h, w, d, c, n, stream);
+}
+
+// the same with a bf16 g (f32 products and sums; dvol f32, zeroed by the
+// caller, who rounds it once to bf16)
+extern "C" int vf_sample3d_trilinear_bwd_f32upd_bf16(
+    const __nv_bfloat16* g, const float* coords, float* dvol, int64_t b,
+    int64_t h, int64_t w, int64_t d, int64_t c, int64_t n, void* stream) {
+  return launch_f32_updates(g, coords, dvol, b, h, w, d, c, n, stream);
 }
 
 // bf16-update form. What it computes, as `_packed_bwd` with grad_dtype

@@ -15,7 +15,10 @@ K3, backward K4 in the update dtype ``sampler_3d`` names) and ``BEVFold``.
 ``dtype`` is the compute dtype (``models/blocks.py``). Under mixed
 precision the back-projected features, the voxel volume and the frustum
 sample are bf16 (the samplers take and return the features' dtype); every
-sampling coordinate stays f32.
+sampling coordinate stays f32. The per-camera rows are summed as JAX sums
+them: each overlap group camera by camera in bf16 (``_GroupSums``, each add
+rounding), the all-camera sum and the count with one rounding (``sum``
+accumulates bf16 in f32, as ``jnp.sum`` does).
 """
 from __future__ import annotations
 
@@ -120,8 +123,10 @@ def backproject_features(feats_agg: torch.Tensor, mask: torch.Tensor,
     gradient).
 
     Returns (feat [b, cams, n, C+1] incl. the rel-depth channel, valid [b,
-    cams, n], count [b, n] = cameras that see each voxel). ``plain`` runs
-    the kernels' plain PyTorch versions on any device.
+    cams, n], count [b, n] = cameras that see each voxel), all three in
+    the features' dtype, as the JAX package returns them (the bf16 count is
+    exact, and the pose branch's camera mean divides by it in bf16).
+    ``plain`` runs the kernels' plain PyTorch versions on any device.
     """
     h_dim, w_dim = feats_agg.shape[-3], feats_agg.shape[-2]
     cam3, mask_lowres = _project_cam_points(
@@ -135,7 +140,7 @@ def backproject_features(feats_agg: torch.Tensor, mask: torch.Tensor,
         cam3.reshape(b * cams, -1, 3).contiguous(), 1.0 / voxel_size[0],
         plain)
     feat = feat.reshape(b, cams, -1, feat.shape[-1])
-    valid = valid.reshape(b, cams, -1)
+    valid = valid.reshape(b, cams, -1).to(feat.dtype)
     return feat, valid, valid.sum(dim=1)
 
 

@@ -42,11 +42,10 @@ point adds nothing), where the row is the camera's group (K2) or the camera
 itself (K2b); the trailing mask, rel and valid columns of the cotangent, the
 mask and the coordinates get no gradient.
 
-K1 and K2 have a bf16 form (mixed precision): bf16 features in and group
-sums out (K1), a bf16 cotangent in and a bf16 feature gradient out (K2);
-taps, weights and sums stay f32 and each output is rounded once. Masks,
-coordinates and the per-camera validity stay f32. K1b and K2b are f32 only
-and raise on a bf16 tensor.
+Every kernel has a bf16 form (mixed precision): bf16 features in and
+group sums (K1) or rows (K1b) out, a bf16 cotangent in and a bf16 feature
+gradient out (K2, K2b); taps, weights and sums stay f32 and each output is
+rounded once. Masks, coordinates and the per-camera validity stay f32.
 """
 from __future__ import annotations
 
@@ -359,20 +358,22 @@ def sample2d_plain(feats: torch.Tensor, mask: Optional[torch.Tensor],
                    raw: bool = False):
     """Plain PyTorch version of K1b, written with explicit gathers.
 
-    feats [B, h, w, C], mask [B, h, w] (modes "mask" and "backproject"),
-    coords [B, N, 2] (normalised; modes "bilinear" and "mask") or [B, N, 3]
-    (mode "backproject": raw (u, v, z), or normalised (x, y) plus the rel
-    column). Returns (out, valid): out [B, N, C] ("bilinear"), [B, N, C+1]
-    with the nearest mask value last ("mask") or [feat*valid, rel*valid]
-    ("backproject"); valid [B, N] in mode "backproject", else None.
+    feats [B, h, w, C] f32 or bf16, mask [B, h, w] (modes "mask" and
+    "backproject"), coords [B, N, 2] (normalised; modes "bilinear" and
+    "mask") or [B, N, 3] (mode "backproject": raw (u, v, z), or normalised
+    (x, y) plus the rel column). Returns (out, valid): out [B, N, C]
+    ("bilinear"), [B, N, C+1] with the nearest mask value last ("mask") or
+    [feat*valid, rel*valid] ("backproject"), in feats' dtype (taps combined
+    in f32, the mask value and rel in f32, each value rounded once); valid
+    [B, N] f32 in mode "backproject", else None.
     """
     b, h, w, c = feats.shape
     n = coords.shape[1]
     m = MODES.index(mode)
     out = feats.new_empty(b, n, c + (m > 0))
-    valid = feats.new_zeros(b, n) if m == 2 else None
+    valid = feats.new_zeros(b, n, dtype=torch.float32) if m == 2 else None
     for cam in range(b):
-        img = feats[cam].reshape(h * w, c)
+        img = feats[cam].reshape(h * w, c).float()
         for s in range(0, n, _POINT_CHUNK):
             sl = slice(s, s + _POINT_CHUNK)
             q = coords[cam, sl]
@@ -388,7 +389,7 @@ def sample2d_plain(feats: torch.Tensor, mask: Optional[torch.Tensor],
                     # a select: a NaN depth of an invalid point gives 0
                     out[cam, sl, c] = torch.where(keep, _rel(q, raw, rel_scale),
                                                   0.0)
-                    valid[cam, sl] = keep.to(feats.dtype)
+                    valid[cam, sl] = keep.float()
             out[cam, sl, :c] = _gather(img, _tap_rows(keep, ix, iy, fx, fy, h,
                                                       w))
     return out, valid
@@ -415,23 +416,27 @@ def sample2d(feats: torch.Tensor, mask: Optional[torch.Tensor],
     """K1b: the ungrouped sampler, one output row per (camera, point); see
     ``sample2d_plain`` for the arguments and outputs.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``sample2d.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    feats' dtype (``sample2d.launches`` counts the f32 form's launches,
+    ``.launches_bf16`` the bf16 form's) or raise.
     """
     _sample2d_shapes(feats, mask, coords, mode, raw)
     args = [("feats", feats), ("coords", coords)]
     if mode != "bilinear":
         args.append(("mask", mask))
-    _check(args, feats)
+    _check(args, feats, bf16=("feats",))
     if feats.device.type == "cpu":
         return sample2d_plain(feats, mask, coords, mode, rel_scale, raw)
     _cuda_ready(args)
     b, h, w, c = feats.shape
     n = coords.shape[1]
     m = MODES.index(mode)
-    out = torch.empty(b, n, c + (m > 0), device=feats.device)
+    bf16 = feats.dtype == torch.bfloat16
+    out = torch.empty(b, n, c + (m > 0), device=feats.device,
+                      dtype=feats.dtype)
     valid = torch.empty(b, n, device=feats.device) if m == 2 else None
-    fn = _build.function("backproject_sample", "vf_sample2d",
+    fn = _build.function("backproject_sample",
+                         "vf_sample2d_bf16" if bf16 else "vf_sample2d",
                          [_P] * 5 + [_I64] * 6 + [_I, _I, _F, _P])
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -440,11 +445,15 @@ def sample2d(feats: torch.Tensor, mask: Optional[torch.Tensor],
                  0 if valid is None else valid.data_ptr(), b, h, w, c, n,
                  coords.shape[2], m, int(raw), float(rel_scale), stream)
     _launch("sample2d", err)
-    sample2d.launches += 1
+    if bf16:
+        sample2d.launches_bf16 += 1
+    else:
+        sample2d.launches += 1
     return out, valid
 
 
 sample2d.launches = 0
+sample2d.launches_bf16 = 0
 
 
 def sample2d_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
@@ -452,31 +461,34 @@ def sample2d_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
                        raw: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K2b (``index_add_``).
 
-    g [B, N, >= C] (the forward output's cotangent; columns past C are
-    ignored), coords [B, N, 2-3], valid [B, N] (the gate) or None (every
-    live point) -> dfeats [B, h, w, C].
+    g [B, N, >= C] f32 or bf16 (the forward output's cotangent; columns
+    past C are ignored), coords [B, N, 2-3], valid [B, N] (the gate) or
+    None (every live point) -> dfeats [B, h, w, C] in g's dtype (summed in
+    f32, rounded once).
     """
     b, n = g.shape[:2]
-    dfeat = g.new_zeros(b, h * w, c)
+    dfeat = g.new_zeros(b, h * w, c, dtype=torch.float32)
     for cam in range(b):
         for s in range(0, n, _POINT_CHUNK):
             sl = slice(s, s + _POINT_CHUNK)
             live, ix, iy, fx, fy = _taps(coords[cam, sl], h, w, raw)
             sel = live if valid is None else live & (valid[cam, sl] != 0)
-            _scatter(dfeat[cam], g[cam, sl, :c],
+            _scatter(dfeat[cam], g[cam, sl, :c].float(),
                      _tap_rows(sel, ix, iy, fx, fy, h, w))
-    return dfeat.reshape(b, h, w, c)
+    return dfeat.reshape(b, h, w, c).to(g.dtype)
 
 
 def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
                  valid: Optional[torch.Tensor], h: int, w: int, c: int,
                  raw: bool = False) -> torch.Tensor:
-    """K2b, the feature gradient of ``sample2d``: g [B, N, >= C] (its
-    output's cotangent), coords [B, N, 2-3] and valid [B, N] (its validity,
-    back-projection mode) or None -> dfeats [B, h, w, C] float32.
+    """K2b, the feature gradient of ``sample2d``: g [B, N, >= C] float32 or
+    bfloat16 (its output's cotangent), coords [B, N, 2-3] and valid [B, N]
+    (its validity, back-projection mode) or None -> dfeats [B, h, w, C] in
+    g's dtype (the bf16 form adds in f32 and rounds once).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``sample2d_bwd.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    g's dtype (``sample2d_bwd.launches`` counts the f32 form's launches,
+    ``.launches_bf16`` the bf16 form's) or raise.
     """
     b, n = coords.shape[:2]
     if (g.dim() != 3 or g.shape[:2] != (b, n) or g.shape[2] < c
@@ -489,12 +501,14 @@ def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
     args = [("g", g), ("coords", coords)]
     if valid is not None:
         args.append(("valid", valid))
-    _check(args, g)
+    _check(args, g, bf16=("g",))
     if g.device.type == "cpu":
         return sample2d_bwd_plain(g, coords, valid, h, w, c, raw)
     _cuda_ready(args)
+    bf16 = g.dtype == torch.bfloat16
     dfeat = torch.zeros(b, h, w, c, device=g.device)
-    fn = _build.function("backproject_sample_bwd", "vf_sample2d_bwd",
+    fn = _build.function("backproject_sample_bwd",
+                         "vf_sample2d_bwd_bf16" if bf16 else "vf_sample2d_bwd",
                          [_P] * 4 + [_I64] * 7 + [_I, _P])
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -502,18 +516,23 @@ def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
                  0 if valid is None else valid.data_ptr(), dfeat.data_ptr(),
                  b, h, w, c, g.shape[2], n, coords.shape[2], int(raw), stream)
     _launch("sample2d_bwd", err)
+    if bf16:
+        sample2d_bwd.launches_bf16 += 1
+        return dfeat.to(torch.bfloat16)
     sample2d_bwd.launches += 1
     return dfeat
 
 
 sample2d_bwd.launches = 0
+sample2d_bwd.launches_bf16 = 0
 
 
 class Sample2d(torch.autograd.Function):
     """``sample2d`` (K1b) forward, K2b backward; ``plain`` runs both plain
     versions on any device. Returns (out, valid) as the forward does (valid
     None outside the back-projection mode, which is also the backward's
-    gate); only ``feats`` gets a gradient."""
+    gate); only ``feats`` gets a gradient, in the dtype of the output's
+    cotangent (feats' dtype: bf16 under mixed precision)."""
 
     @staticmethod
     def forward(ctx, feats, mask, coords, mode: str, rel_scale: float = 1.0,

@@ -12,7 +12,10 @@ Backward: the TPU update kernel ``_updates_kernel`` (:146, launched by
 :305-340) become ``csrc/sample3d_bwd.cu``, in the form ``grad_dtype`` names:
 
 * f32 updates (``packed_f32grad``; ``sample3d_trilinear_bwd``): ONE
-  scatter-add kernel into an f32 dvol;
+  scatter-add kernel into an f32 dvol; g may be f32 or bf16 (mixed
+  precision: the tap products are formed in f32 from the bf16 cotangent,
+  summed in f32 and dvol is rounded once to bf16); its plain version sums
+  the f32 tap planes and folds them as the bf16-update form's does;
 * bf16 updates (``packed``; ``sample3d_trilinear_bwd_bf16``): each tap
   product w_t(n) * g[n] formed in f32 and rounded once to bf16, summed in
   bf16 per tap plane ``acc[b, base(n), t, c]``, then the 8 planes folded
@@ -178,41 +181,39 @@ def _check_bwd(g: torch.Tensor, coords: torch.Tensor, vol_shape) -> None:
 
 def sample3d_trilinear_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
                                  vol_shape) -> torch.Tensor:
-    """Plain PyTorch version of the f32-update backward kernel
-    (``index_add_`` of the 8 weighted taps). g [B, N, C], coords [B, N, 3]
-    -> dvol ``vol_shape`` = [B, H, W, D, C]."""
-    nb, h, w, d, c = vol_shape
-    n = coords.shape[1]
-    dvol = g.new_zeros(nb, h * w * d, c)
-    offs = _tap_offsets(w, d)
-    for b in range(nb):
-        for s in range(0, n, _POINT_CHUNK):
-            base, wts = _point_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
-            gg = g[b, s:s + _POINT_CHUNK]
-            for t in range(8):
-                dvol[b].index_add_(0, base + offs[t], gg * wts[t][:, None])
-    return dvol.reshape(vol_shape)
+    """Plain PyTorch version of the f32-update backward kernel, in
+    ``_packed_bwd``'s own order: f32 products summed into f32 tap planes,
+    then ``fold_tap_planes``. g [B, N, C] f32 or bf16, coords [B, N, 3] ->
+    dvol ``vol_shape`` = [B, H, W, D, C] in g's dtype; a bf16 result is the
+    f32 sum JAX's is, rounded once, so the two agree exactly where no two
+    points share a base voxel (the kernel's atomics sum in another
+    order)."""
+    return _tap_plane_bwd_plain(g, coords, vol_shape, torch.float32)
 
 
 def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
                            vol_shape) -> torch.Tensor:
     """Volume gradient of ``sample3d_trilinear`` with f32 updates: g [B, N,
-    C] float32 (its output's cotangent) and coords [B, N, 3] -> dvol [B, H,
-    W, D, C] float32.
+    C] float32 or bfloat16 (its output's cotangent) and coords [B, N, 3] ->
+    dvol [B, H, W, D, C] in g's dtype (a bf16 g is widened, its products
+    summed in f32 and the sum rounded once).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``sample3d_trilinear_bwd.launches`` counts launches) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    g's dtype (``sample3d_trilinear_bwd.launches`` counts the f32 form's
+    launches, ``.launches_bf16`` those with a bf16 g) or raise.
     """
     _check_bwd(g, coords, vol_shape)
-    if g.dtype != torch.float32:
-        raise TypeError(f"g must be float32, got {g.dtype}")
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
     if g.device.type == "cpu":
         return sample3d_trilinear_bwd_plain(g, coords, vol_shape)
     _check_cuda((("g", g), ("coords", coords)))
     nb, h, w, d, c = vol_shape
+    bf16 = g.dtype == torch.bfloat16
     dvol = torch.zeros(tuple(vol_shape), device=g.device)
-    fn = _build.function("sample3d_bwd", "vf_sample3d_trilinear_bwd",
-                         _FWD_ARGS)
+    fn = _build.function("sample3d_bwd",
+                         "vf_sample3d_trilinear_bwd_f32upd_bf16" if bf16
+                         else "vf_sample3d_trilinear_bwd", _FWD_ARGS)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), coords.data_ptr(), dvol.data_ptr(), nb, h, w,
@@ -220,11 +221,15 @@ def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sample3d_trilinear_bwd launch failed: CUDA "
                            f"error {err}")
+    if bf16:
+        sample3d_trilinear_bwd.launches_bf16 += 1
+        return dvol.to(torch.bfloat16)
     sample3d_trilinear_bwd.launches += 1
     return dvol
 
 
 sample3d_trilinear_bwd.launches = 0
+sample3d_trilinear_bwd.launches_bf16 = 0
 
 
 def _shift_from_lower(a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -245,6 +250,25 @@ def fold_tap_planes(acc: torch.Tensor) -> torch.Tensor:
     return x2[..., 0, :] + _shift_from_lower(x2[..., 1, :], 1)    # dy
 
 
+def _tap_plane_bwd_plain(g: torch.Tensor, coords: torch.Tensor, vol_shape,
+                         acc_dtype: torch.dtype) -> torch.Tensor:
+    """``_packed_bwd`` in plain PyTorch: each tap product formed in f32 and
+    rounded once to ``acc_dtype``, ``index_add_``-ed into its tap plane of
+    that dtype, then ``fold_tap_planes`` and one rounding to g's dtype."""
+    nb, h, w, d, c = vol_shape
+    n = coords.shape[1]
+    acc = g.new_zeros(nb, 8, h * w * d, c, dtype=acc_dtype)
+    for b in range(nb):
+        for s in range(0, n, _POINT_CHUNK):
+            base, wts = _point_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
+            gg = g[b, s:s + _POINT_CHUNK].float()
+            for t in range(8):
+                acc[b, t].index_add_(0, base, (gg * wts[t][:, None]).to(
+                    acc_dtype))
+    planes = acc.reshape(nb, 8, h, w, d, c).permute(0, 2, 3, 4, 1, 5)
+    return fold_tap_planes(planes).to(g.dtype)
+
+
 def sample3d_trilinear_bwd_bf16_plain(g: torch.Tensor, coords: torch.Tensor,
                                       vol_shape) -> torch.Tensor:
     """Plain PyTorch version of the bf16-update backward kernel: each tap
@@ -254,18 +278,7 @@ def sample3d_trilinear_bwd_bf16_plain(g: torch.Tensor, coords: torch.Tensor,
     in g's dtype. (``index_add_`` may take a bf16 sum in another order, or
     round less often, than the kernel's atomics: where points collide the
     two agree to a bound, not bit for bit.)"""
-    nb, h, w, d, c = vol_shape
-    n = coords.shape[1]
-    acc = g.new_zeros(nb, 8, h * w * d, c, dtype=torch.bfloat16)
-    for b in range(nb):
-        for s in range(0, n, _POINT_CHUNK):
-            base, wts = _point_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
-            gg = g[b, s:s + _POINT_CHUNK].float()
-            for t in range(8):
-                acc[b, t].index_add_(0, base, (gg * wts[t][:, None]).to(
-                    torch.bfloat16))
-    planes = acc.reshape(nb, 8, h, w, d, c).permute(0, 2, 3, 4, 1, 5)
-    return fold_tap_planes(planes).to(g.dtype)
+    return _tap_plane_bwd_plain(g, coords, vol_shape, torch.bfloat16)
 
 
 def sample3d_trilinear_bwd_bf16(g: torch.Tensor, coords: torch.Tensor,
@@ -308,8 +321,8 @@ sample3d_trilinear_bwd_bf16.launches = 0
 
 class Sample3dTrilinear(torch.autograd.Function):
     """``sample3d_trilinear`` (K3) forward, K4 backward with bf16 updates
-    (``bf16_updates``) or f32 ones; ``plain`` runs the plain versions on
-    any device."""
+    (``bf16_updates``) or f32 ones (of an f32 or a bf16 cotangent);
+    ``plain`` runs the plain versions on any device."""
 
     @staticmethod
     def forward(ctx, vol, coords, plain: bool = False,

@@ -9,7 +9,10 @@ back-projection is group-reduced (kernel K1) where the rig's two overlap
 groups are equal (the 6-camera rig) and per camera (kernel K1b) otherwise
 (the 3-camera rig). ``tpu.merge_backprojection: false`` runs the JAX
 ``predict_pose`` / ``predict_depth`` instead: each net back-projects its
-own features (``FusedPoseNet.forward``, ``FusedDepthNet.forward``).
+own features (``FusedPoseNet.forward``, ``FusedDepthNet.forward``). So does
+``tpu.batch_pose_frames: false`` with more than one context frame: the
+pose net then runs once per context frame, as the reference VFDepth
+predicts pose.
 
 * ``predict(batch)`` serves: BatchNorm in eval mode, under
   ``torch.inference_mode``; returns ``cam_T_cam`` and ``disp/{s}``,
@@ -25,21 +28,22 @@ own features (``FusedPoseNet.forward``, ``FusedDepthNet.forward``).
 package does (``compute_dtype``; parameters, BatchNorm statistics and Adam
 state stay f32, ``models/blocks.py`` says where each layer casts): the
 back-projected features, the voxel volume and the frustum sample are bf16
-(the bf16 forms of kernels K1, K2, K3), the colours are cast to bf16 before
-rendering (K5's bf16 form; the loss targets stay f32), and the disparity
-sigmoid, the pose head and every sampling coordinate stay f32.
+(the bf16 forms of kernels K1 / K1b, K2 / K2b, K3), the colours are cast to
+bf16 before rendering (K5's bf16 form; the loss targets stay f32), and the
+disparity sigmoid, the pose head and every sampling coordinate stay f32.
 
 ``tpu.sampler_3d`` picks the frustum sampler's backward (K4) as the JAX
 package does: 'packed' sums bf16 updates (K4's bf16-update form, in an f32
-config too), 'packed_f32grad' and 'gather' f32 ones (the same function up
+config too), 'packed_f32grad' f32 ones (of a bf16 cotangent too, under
+mixed precision), 'gather' f32 ones in an f32 config (the same function up
 to summation order), and None means 'packed' under mixed precision and
 'packed_f32grad' otherwise.
 
-Not ported yet (raise ``NotImplementedError``): the 'fsm' nets, unbatched
-pose frames with more than one context frame, mixed precision on a rig
-that runs the per-camera sampler (K1b / K2b have no bf16 form yet) or with
-f32 updates of the bf16 volume, the depth-synthesis branch (``predict``
-skips it, ``forward`` raises). Config keys that name TPU alternates of one
+Not ported yet (raise ``NotImplementedError``): the 'fsm' nets,
+``sampler_3d: gather`` under mixed precision (JAX's backward is an XLA
+scatter of bf16 updates into a bf16 volume, not a TPU kernel), the
+depth-synthesis branch (``predict`` skips it, ``forward`` raises). Config
+keys that name TPU alternates of one
 function map onto the port's one implementation (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors): ``tpu.sampler_2d``,
 ``tpu.warp_op`` and ``tpu.warp_window`` (the port's warps are dense; the
@@ -115,10 +119,10 @@ class VFDepthModel(nn.Module):
         self.compute_dtype = (torch.bfloat16
                               if cfg.get("mixed_precision", False) else None)
         self.frame_ids = tuple(cfg.frame_ids)
-        if not cfg.get("batch_pose_frames", True) and len(self.frame_ids) > 2:
-            raise NotImplementedError("unbatched pose frames are not ported")
+        # one pose-net pass for all context frames, or one per frame
+        self.batch_pose_frames = bool(cfg.get("batch_pose_frames", True))
         # one back-projection for both nets (JAX _can_merge_backproject,
-        # whose other conditions the port meets whenever it builds)
+        # whose net-type conditions the port meets whenever it builds)
         self.merge_backproject = bool(cfg.get("merge_backprojection", True))
         if cfg.get("sampler_2d") not in _SAMPLERS_2D:
             raise ValueError(f"unknown sampler_2d {cfg.get('sampler_2d')!r}")
@@ -133,18 +137,11 @@ class VFDepthModel(nn.Module):
         self.groups = tuple(map(tuple, cfg.overlap_groups))
         # K1 where the two overlap groups split the rig equally, else K1b
         self.grouped = grouped_backprojection_ok(self.groups, cfg.num_cams)
-        if self.compute_dtype is not None:
-            if not self.grouped:
-                raise NotImplementedError(
-                    "mixed precision on a rig whose overlap groups differ in "
-                    "size needs the bf16 forms of the per-camera sampler K1b "
-                    "and its backward K2b, which are not ported yet (ROADMAP "
-                    "A5)")
-            if self.sampler_3d != "packed":
-                raise NotImplementedError(
-                    f"mixed precision with sampler_3d {self.sampler_3d!r} "
-                    f"(f32 updates of a bf16 volume) is not ported; "
-                    f"'packed' is (ROADMAP A5)")
+        if self.compute_dtype is not None and self.sampler_3d == "gather":
+            raise NotImplementedError(
+                "mixed precision with sampler_3d 'gather' (an XLA scatter of "
+                "bf16 updates into the bf16 volume) is not ported; 'packed' "
+                "and 'packed_f32grad' are (ROADMAP A5)")
 
         self.scales = tuple(cfg.scales)
         self.height, self.width = cfg.height, cfg.width
@@ -273,17 +270,28 @@ class VFDepthModel(nn.Module):
 
     def predict_pose(self, x: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The pose net alone, on its own back-projection (JAX
-        ``predict_pose`` with batched pose frames): cam_T_cam [b, cams,
-        n_ctx, 4, 4] from a batch already on the device."""
+        ``predict_pose``): cam_T_cam [b, cams, n_ctx, 4, 4] from a batch
+        already on the device. With batched pose frames the context pairs
+        go through one pass; otherwise through one pass each, in the order
+        of ``frame_ids[1:]`` (pairs in time order, a past frame's motion
+        inverted), and in train mode each pass normalises with its own
+        batch statistics and updates the running ones in turn."""
         lev = self.fusion_level + 1
         ctx = self.frame_ids[1:]
-        curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"] for f in ctx])
-        nxts = torch.cat([x[f"color_aug/{0 if f < 0 else f}/0"] for f in ctx])
-        axisangle, translation = self.pose_net(
-            curs, nxts, x["mask"], x[f"K/{lev}"], x[f"inv_K/{lev}"],
-            x["extrinsics"], x["extrinsics_inv"], n_ctx=len(ctx),
-            plain=self.plain_samplers)
-        return self._cam_t_cam(axisangle, translation, x,
+        calib = (x["mask"], x[f"K/{lev}"], x[f"inv_K/{lev}"], x["extrinsics"],
+                 x["extrinsics_inv"])
+        pairs = [(x[f"color_aug/{f if f < 0 else 0}/0"],
+                  x[f"color_aug/{0 if f < 0 else f}/0"]) for f in ctx]
+        if self.batch_pose_frames or len(ctx) < 2:
+            outs = [self.pose_net(torch.cat([c for c, _ in pairs]),
+                                  torch.cat([n for _, n in pairs]), *calib,
+                                  n_ctx=len(ctx), plain=self.plain_samplers)]
+        else:
+            outs = [self.pose_net(c, n, *calib, plain=self.plain_samplers)
+                    for c, n in pairs]
+        # per-frame passes stack group-major, as one batched pass returns
+        return self._cam_t_cam(torch.cat([o[0] for o in outs]),
+                               torch.cat([o[1] for o in outs]), x,
                                x["color_aug/0/0"].shape[0])
 
     def predict_depth(self, x: Mapping[str, torch.Tensor]
@@ -299,7 +307,8 @@ class VFDepthModel(nn.Module):
     def _can_merge_backproject(self) -> bool:
         # an instance-level predict_pose override must keep routing through
         # predict_pose: the merged path would silently bypass it
-        return self.merge_backproject and "predict_pose" not in self.__dict__
+        return (self.merge_backproject and "predict_pose" not in self.__dict__
+                and (self.batch_pose_frames or len(self.frame_ids) <= 2))
 
     def _predict(self, x: Mapping[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:

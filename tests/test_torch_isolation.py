@@ -74,7 +74,8 @@ def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_configs_raise():
     """What is not ported raises: the fsm nets, ``sampler_3d: gather``
-    under mixed precision and the depth-synthesis forward. Unbatched pose
+    under mixed precision and the depth-synthesis branch (in ``forward``
+    and in ``predict``). Unbatched pose
     frames and mixed precision on the 3-camera rig (the bf16 forms of K1b
     and K2b) build, as do ``merge_backprojection: false`` and mixed
     precision on the 6-camera rig."""
@@ -105,6 +106,10 @@ def test_unported_configs_raise():
                         fusion_level=cfg.fusion_level).batch([0])
     with pytest.raises(NotImplementedError, match="depth-synthesis"):
         model(batch, step=0, noise=torch.zeros(model.noise_shape(batch)))
+    # serving too: JAX's forward(train=False) returns the depth-synthesis
+    # outputs, which the port cannot give
+    with pytest.raises(NotImplementedError, match="depth-synthesis"):
+        model.predict(batch)
 
 
 def _run_smoke(cwd):

@@ -8,10 +8,14 @@ Imports no JAX, so it runs on a GPU machine without it:
 where there is no CUDA device. Tolerances, relative to the largest input
 magnitude: K1 1e-4 (bilinear taps and a group sum of up to 8 cameras,
 fma-contracted in the kernel; K1b and the normalised K1 the same), K3
-1e-5 (an 8-term weighted sum); validity and nearest mask values are exact. The backward kernels add with atomics in a varying
-order: K2, K2b 1e-4 and K4 1e-5 of the largest output magnitude times
-the square root of the mean additions one address receives (a rounding
-error per addition, random in sign). K5: 1e-6 (a 4-tap weighted sum of inputs in
+1e-5 (an 8-term weighted sum); validity and nearest mask values are exact.
+The backward kernels sum each output in their plan's order, which is not
+the plain versions' (tap planes, or one ``index_add_`` per tap): K2, K2b
+1e-4 and K4 1e-5 of the largest output magnitude times the square root of
+the mean additions one address receives (a rounding error per addition,
+random in sign). Their plans equal the plain plans exactly, two launches
+give the same bits, and the bf16-update K4 equals its model in plan order
+(``tests/helpers_torch_plan.py``) bit for bit. K5: 1e-6 (a 4-tap weighted sum of inputs in
 [0, 1], fma-contracted), masks exact, its coordinate gradient 1e-5 of its
 largest entry.
 
@@ -23,8 +27,8 @@ largest output magnitude (the f32 forms' bound added for K2, K2b and the
 f32-update K4), counts, validity, masks and K1b's last column exact. K1b's
 bf16 rows of C+1 values are odd for an even C, so every other row starts
 on a 2-byte boundary; the cases cover odd and even C and a feature map
-whose base is 2-byte aligned only (scalar reads). K4's bf16-update form sums in bf16 with atomics in a
-varying order, where its plain version sums with ``index_add_``: at
+whose base is 2-byte aligned only (scalar reads). K4's bf16-update form rounds every addition to bf16,
+where its plain version's ``index_add_`` accumulates in f32: at
 coordinates whose base voxels are distinct (one addition per plane entry)
 the two agree bit for bit. With collisions each bf16 addition rounds: a
 running bf16 sum of k random-sign terms drifts by about 2^-9 * sqrt(k / 3)
@@ -37,11 +41,15 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch_plan import k2_in_plan_order, k4_in_plan_order
 from vfdepth_tpu_torch.ops.backproject_sample import (
+    backproject_bwd_plan, backproject_bwd_plan_plain,
     backproject_grouped, backproject_grouped_bwd,
     backproject_grouped_bwd_plain, backproject_grouped_plain, sample2d,
     sample2d_bwd, sample2d_bwd_plain, sample2d_plain)
-from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
+from vfdepth_tpu_torch.ops.sample3d import (sample3d_bwd_plan,
+                                            sample3d_bwd_plan_plain,
+                                            sample3d_trilinear,
                                             sample3d_trilinear_bwd,
                                             sample3d_trilinear_bwd_bf16,
                                             sample3d_trilinear_bwd_bf16_plain,
@@ -535,3 +543,115 @@ def test_sample3d_f32_update_kernel_with_bf16_cotangent(c):
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=(
         BF16_STEP + 1e-5 * (8 * 4001 / (5 * 6 * 4)) ** 0.5)
         * ref.float().abs().max().item())
+
+
+# The seven redesigned backward forms: K4 (f32 updates; f32 updates of a
+# bf16 cotangent; bf16 updates), K2, K2-bf16, K2b, K2b-bf16.
+BACKWARD_FORMS = ["K4", "K4-f32upd-bf16", "K4-bf16", "K2", "K2-bf16", "K2b",
+                  "K2b-bf16"]
+
+
+def _hot_k4(seed, c=64):
+    """3000 of 4001 points on one base voxel's neighbourhood (hundreds of
+    additions per voxel; the tile's list is cut in chunks)."""
+    rng = np.random.RandomState(seed)
+    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords[:, :3000] = rng.uniform(-1.0, -0.97, (2, 3000, 3))
+    coords[:, 10, 1] = np.nan
+    coords[:, 12] = [40.0, -1e9, 3.0]
+    return torch.from_numpy(coords).cuda(), (2, 9, 10, 4, c)
+
+
+def _hot_k2(seed, form):
+    """Raw camera points with 2500 per camera on one pixel's neighbourhood
+    (K2: grouped, 1 x 2 x 3 cameras; K2b: 3 cameras, gated)."""
+    b, gs, c = 1, 3, 40
+    feats, mask, cam3 = _raw_inputs(seed, b, gs, c=c)
+    if form.startswith("K2b"):
+        feats, mask, cam3 = (t[:3].contiguous() for t in (feats, mask, cam3))
+    z = cam3[..., 2:3].abs() + 1.0
+    hot = torch.tensor([7.3, 5.6], device="cuda") + 0.2 * torch.rand(
+        cam3.shape[0], 2500, 2, device="cuda")
+    cam3[:, :2500] = torch.cat([hot * z[:, :2500], z[:, :2500]], -1)
+    mask[:, 5:7, 7:9] = 1.0
+    return feats, mask, cam3.contiguous(), b, gs, c
+
+
+def _plans_equal(got, want):
+    for name, a in got.fields().items():
+        b = want.fields()[name]
+        assert torch.equal(a.cpu(), b.cpu()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", BACKWARD_FORMS)
+def test_backward_plan_determinism_and_hot_spot(form):
+    """The CUDA plan equals the plain plan element for element, a hot tile
+    is cut in chunks, two launches give the same bits, and the result
+    agrees with the plain version and with the model of its order."""
+    _need_cuda()
+    bf16_g = form.endswith("bf16")
+    if form.startswith("K4"):
+        coords, shape = _hot_k4(70 + len(form))
+        planes = form == "K4-bf16"
+        g = torch.randn(2, 4001, shape[-1], device="cuda")
+        if form != "K4":
+            g = g.to(torch.bfloat16)
+        plan = sample3d_bwd_plan(coords, shape, planes)
+        _plans_equal(plan, sample3d_bwd_plan_plain(coords, shape, planes))
+        bwd = sample3d_trilinear_bwd_bf16 if planes else sample3d_trilinear_bwd
+
+        def run():
+            return bwd(g, coords, shape)
+        ref = (sample3d_trilinear_bwd_bf16_plain if planes
+               else sample3d_trilinear_bwd_plain)(g, coords, shape)
+        model = k4_in_plan_order(g.cpu(), coords.cpu(), shape, planes)
+        adds = 8 * 4001 / (9 * 10 * 4)
+    else:
+        feats, mask, cam3, b, gs, c = _hot_k2(80 + len(form), form)
+        h, w = feats.shape[1:3]
+        if form.startswith("K2b"):
+            _, valid = sample2d(feats, mask, cam3, "backproject", 0.25, True)
+            g = torch.randn(3, cam3.shape[1], c + 1, device="cuda")
+            g = torch.where(valid[..., None] > 0, g, float("nan"))
+        else:
+            _, valid = backproject_grouped(feats, mask, cam3, 0.25, b, gs)
+            g = torch.randn(b, 2, cam3.shape[1], c + 2, device="cuda")
+        if form.endswith("bf16"):
+            g = g.to(torch.bfloat16)
+        plan = backproject_bwd_plan(cam3, valid, h, w, True)
+        _plans_equal(plan, backproject_bwd_plan_plain(cam3, valid, h, w,
+                                                      True))
+        if form.startswith("K2b"):
+            def run():
+                return sample2d_bwd(g, cam3, valid, h, w, c, True)
+            ref = sample2d_bwd_plain(g, cam3, valid, h, w, c, True)
+            model = k2_in_plan_order(g.cpu(), cam3.cpu(), valid.cpu(), h, w,
+                                     c, 0, True)
+        else:
+            def run():
+                return backproject_grouped_bwd(g, cam3, valid, h, w, c, gs)
+            ref = backproject_grouped_bwd_plain(g, cam3, valid, h, w, c, gs)
+            model = k2_in_plan_order(g.cpu(), cam3.cpu(), valid.cpu(), h, w,
+                                     c, gs, True)
+        model = model.to(g.dtype)
+        adds = valid.sum().item() * 4 / (valid.shape[0] * h * w)
+    chunks = plan.chunk_off[1:] - plan.chunk_off[:-1]
+    assert int(chunks.max()) >= 2 and int(plan.params[1]) > 0   # cut
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    assert got.dtype == g.dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)                             # bit for bit
+    got, ref = got.float().cpu(), ref.float().cpu()
+    if form == "K4-bf16":
+        assert torch.equal(got, model.float())
+        cos, rel = _cosine_rel(got, ref)
+        assert cos > 0.995 and rel < 0.1, (cos, rel)
+        return
+    rtol = 1e-5 if form.startswith("K4") else 1e-4
+    step = 2.0 ** -7 if bf16_g else 0.0
+    torch.testing.assert_close(got, ref, rtol=0, atol=(
+        step + rtol * (adds + 1) ** 0.5) * ref.abs().max().item())
+    torch.testing.assert_close(got, model.float(), rtol=0, atol=(
+        step + 1e-6 * (adds + 1) ** 0.5) * ref.abs().max().item())

@@ -100,8 +100,8 @@ __device__ __forceinline__ float nearest_mask(const TapPoint& p,
              ? mask_cam[(int64_t)yn * w + xn] : 0.0f;
 }
 
-// 4 consecutive elements at `o` (f32 or bf16), stored or loaded `vec` (4,
-// 2 or 1: ``vec_width`` of elem.cuh) elements at a time.
+// 4 consecutive elements at `o` (f32 or bf16), stored `vec` (4, 2 or 1:
+// ``vec_width`` of elem.cuh) elements at a time.
 template <typename T>
 __device__ __forceinline__ void store4(T* o, float4 v, int vec) {
   if (vec == 4) {
@@ -112,14 +112,4 @@ __device__ __forceinline__ void store4(T* o, float4 v, int vec) {
   } else {
     st1(o, v.x); st1(o + 1, v.y); st1(o + 2, v.z); st1(o + 3, v.w);
   }
-}
-
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p, int vec) {
-  if (vec == 4) return ld4(p);
-  if (vec == 2) {
-    const float2 a = ld2(p), b = ld2(p + 2);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  return make_float4(ld1(p), ld1(p + 1), ld1(p + 2), ld1(p + 3));
 }

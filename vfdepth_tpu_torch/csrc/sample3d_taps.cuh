@@ -33,6 +33,28 @@ __device__ __forceinline__ void axis_weights(float coord, int size, int& base,
   w1 = t * is0 + (1.0f - t) * isp1;
 }
 
+// A point's clamped base voxel (y0, x0, z0) and its 8 tap weights, tap t =
+// dz*4 + dx*2 + dy (dy fastest), the TPU kernel's order, from its
+// coordinates q = (x, y, z).
+struct PointBase {
+  int y, x, z;
+  float wt[8];
+};
+
+__device__ __forceinline__ PointBase point_base(const float* q, int h, int w,
+                                                int d) {
+  float x = q[0], y = q[1], z = q[2];
+  if (!(isfinite(x) && isfinite(y) && isfinite(z))) x = y = z = -4.0f;
+  float wx0, wx1, wy0, wy1, wz0, wz1;
+  PointBase p;
+  axis_weights(x, w, p.x, wx0, wx1);
+  axis_weights(y, h, p.y, wy0, wy1);
+  axis_weights(z, d, p.z, wz0, wz1);
+  const float wzx[4] = {wz0 * wx0, wz0 * wx1, wz1 * wx0, wz1 * wx1};
+  for (int k = 0; k < 8; ++k) p.wt[k] = wzx[k >> 1] * ((k & 1) ? wy1 : wy0);
+  return p;
+}
+
 struct PointWeights {
   int64_t vox;         // flat index of tap (y0, x0, z0) in [b, h, w, d]
   float wt[8];         // tap t = dz*4 + dx*2 + dy (dy fastest)
@@ -43,19 +65,10 @@ __device__ __forceinline__ PointWeights point_weights(const float* coords,
                                                       int64_t pt, int64_t n,
                                                       int h, int w, int d) {
   const int64_t bi = pt / n;
-  const float* q = coords + pt * 3;
-  float x = q[0], y = q[1], z = q[2];
-  if (!(isfinite(x) && isfinite(y) && isfinite(z))) x = y = z = -4.0f;
-  int xb, yb, zb;
-  float wx0, wx1, wy0, wy1, wz0, wz1;
-  axis_weights(x, w, xb, wx0, wx1);
-  axis_weights(y, h, yb, wy0, wy1);
-  axis_weights(z, d, zb, wz0, wz1);
+  const PointBase b = point_base(coords + pt * 3, h, w, d);
   PointWeights p;
-  // tap index t = dz*4 + dx*2 + dy (dy fastest), the TPU kernel's order
-  const float wzx[4] = {wz0 * wx0, wz0 * wx1, wz1 * wx0, wz1 * wx1};
-  for (int k = 0; k < 8; ++k) p.wt[k] = wzx[k >> 1] * ((k & 1) ? wy1 : wy0);
-  p.vox = ((bi * h + yb) * w + xb) * (int64_t)d + zb;
+  for (int k = 0; k < 8; ++k) p.wt[k] = b.wt[k];
+  p.vox = ((bi * h + b.y) * w + b.x) * (int64_t)d + b.z;
   return p;
 }
 

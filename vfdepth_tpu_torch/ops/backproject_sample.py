@@ -40,7 +40,12 @@ Backward: dfeat[cam, tap pixel] += W_tap * g[row, point, :C] for every point
 the forward sampled for that camera (the validity is a select: an invalid
 point adds nothing), where the row is the camera's group (K2) or the camera
 itself (K2b); the trailing mask, rel and valid columns of the cotangent, the
-mask and the coordinates get no gradient.
+mask and the coordinates get no gradient. Both backward kernels are
+deterministic reductions over destination tiles (``csrc/dest_tiles.cuh``):
+``backproject_bwd_plan`` sorts the (camera, point) pairs that add something
+by the pixel of their tap base, and each block sums the pairs that reach its
+4 x 4 pixels of one camera in the plan's order and writes them once;
+``backproject_bwd_plan_plain`` is the same plan in plain PyTorch.
 
 Every kernel has a bf16 form (mixed precision): bf16 features in and
 group sums (K1) or rows (K1b) out, a bf16 cotangent in and a bf16 feature
@@ -54,11 +59,13 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, dest_tiles
 
 _POINT_CHUNK = 32768   # plain versions: points per gather (bounds memory)
 MAX_GROUP_SIZE = 8     # csrc/backproject_sample.cu kMaxGroup
 MODES = ("bilinear", "mask", "backproject")   # K1b's modes, kernel order
+K2_TILE = (4, 4)       # K2 / K2b output tiles: 4 x 4 pixels of one camera
+_K2_CHANNELS = 128     # csrc/backproject_sample_bwd.cu kCS
 
 
 def _taps(q: torch.Tensor, h: int, w: int, raw: bool):
@@ -157,6 +164,94 @@ def _launch(fn_name: str, err: int) -> None:
 
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+
+
+# ------------------------------------------------------ the backward plan
+
+def backproject_bwd_keys(coords: torch.Tensor, valid: Optional[torch.Tensor],
+                         h: int, w: int, raw: bool) -> torch.Tensor:
+    """Each (camera, point)'s plan key (``csrc/dest_tiles.cuh``): the tile
+    of its tap base pixel (floor x, floor y) in its camera's map; dead
+    (``n_keys``) where it is not live or not valid. coords [cams, N, 2-3],
+    valid [cams, N] or None -> [cams * N] int64."""
+    cams, n = coords.shape[:2]
+    grid = dest_tiles.Grid(cams, h, w, *K2_TILE)
+    keys = []
+    for cam in range(cams):
+        for s in range(0, n, _POINT_CHUNK):
+            sl = slice(s, s + _POINT_CHUNK)
+            live, ix, iy, _, _ = _taps(coords[cam, sl], h, w, raw)
+            if valid is not None:
+                live = live & (valid[cam, sl] != 0)
+            keys.append(grid.keys(torch.full_like(ix, cam), iy, ix, live))
+    return torch.cat(keys)
+
+
+def backproject_bwd_plan_plain(coords: torch.Tensor,
+                               valid: Optional[torch.Tensor], h: int, w: int,
+                               raw: bool = True) -> dest_tiles.Plan:
+    """K2's / K2b's plan in plain PyTorch (bincount, cumsum, stable
+    argsort), on coords' device."""
+    return dest_tiles.plan_plain(
+        backproject_bwd_keys(coords, valid, h, w, raw),
+        dest_tiles.Grid(coords.shape[0], h, w, *K2_TILE))
+
+
+def backproject_bwd_plan(coords: torch.Tensor, valid: Optional[torch.Tensor],
+                         h: int, w: int, raw: bool = True) -> dest_tiles.Plan:
+    """K2's / K2b's plan built on the card (``vf_backproject_bwd_plan``):
+    equal, element for element, to ``backproject_bwd_plan_plain``. coords
+    [cams, N, 2-3] and valid [cams, N] (or None) f32 on a CUDA device."""
+    args = [("coords", coords)] + ([] if valid is None else [("valid",
+                                                              valid)])
+    _cuda_ready(args)
+    cams, n, ncols = coords.shape
+    grid = dest_tiles.Grid(cams, h, w, *K2_TILE)
+    plan, ws = dest_tiles.new_plan(cams * n, grid, coords.device)
+    fn = _build.function("backproject_sample_bwd", "vf_backproject_bwd_plan",
+                         [_P] * 8 + [_I64] * 5 + [_I] + [_I64] * 2 + [_P])
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(coords.data_ptr(), 0 if valid is None else valid.data_ptr(),
+                 *dest_tiles.plan_pointers(plan, ws), cams, h, w, n, ncols,
+                 int(raw), *K2_TILE, stream)
+    _launch("backproject_bwd_plan", err)
+    return plan
+
+
+def _bwd_launch(g, coords, valid, raw: bool, h: int, w: int, c: int,
+                lead: tuple, plan: dest_tiles.Plan) -> torch.Tensor:
+    """The tiled kernel of the form that ``lead`` and g's dtype name, on
+    ``plan``, which must be ``backproject_bwd_plan(coords, valid, h, w,
+    raw)`` -> dfeat [cams, h, w, c] f32, written once. ``lead``: the C
+    entry's arguments before h (K2: b, group size; K2b: the camera count);
+    after c it takes ldg and N, then (K2b) the coordinate columns. The
+    scratch for cut tiles is sized for the plan's most slots
+    (``Grid.max_slots``): 71.6 MB for K2 and 36.2 MB for K2b at the
+    production shapes."""
+    cams, n, ncols = coords.shape
+    grid = dest_tiles.Grid(cams, h, w, *K2_TILE)
+    dest_tiles.check_plan(plan, grid, cams * n, g.device)
+    fn_name = ("vf_backproject_grouped_bwd" if len(lead) == 2
+               else "vf_sample2d_bwd") + (
+                   "_bf16" if g.dtype == torch.bfloat16 else "")
+    slices = -(-c // _K2_CHANNELS)
+    partial = torch.empty(grid.max_slots * slices * grid.ty * grid.tx
+                          * _K2_CHANNELS, device=g.device)
+    dfeat = torch.empty(cams, h, w, c, device=g.device)
+    tail = (ncols,) if len(lead) == 1 else ()
+    fn = _build.function("backproject_sample_bwd", fn_name,
+                         [_P] * 9 + [_I64] * 7 + [_I] + [_I64] * 2 + [_P])
+    p = plan
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), coords.data_ptr(), p.order.data_ptr(),
+                 p.start.data_ptr(), p.chunk_off.data_ptr(),
+                 p.slot_off.data_ptr(), p.params.data_ptr(),
+                 partial.data_ptr(), dfeat.data_ptr(), *lead, h, w, c,
+                 g.shape[-1], n, *tail, int(raw), *K2_TILE, stream)
+    _launch(fn_name, err)
+    return dfeat
 
 
 # ---------------------------------------------------------------- K1 / K2
@@ -284,9 +379,10 @@ def backproject_grouped_bwd(g: torch.Tensor, coords: torch.Tensor,
     and valid [b*2*gs, N] (its per-camera validity) -> dfeats [b*2*gs, h,
     w, C] in g's dtype (the bf16 form adds in f32 and rounds once).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel of
-    g's dtype (``backproject_grouped_bwd.launches`` counts the f32 form's
-    launches, ``.launches_bf16`` the bf16 form's) or raise.
+    CPU tensors take the plain version; CUDA tensors build the plan
+    (``backproject_bwd_plan``) and launch the kernel of g's dtype
+    (``backproject_grouped_bwd.launches`` counts the f32 form's launches,
+    ``.launches_bf16`` the bf16 form's) or raise.
     """
     bc, n = valid.shape
     if g.dim() != 4 or g.shape[1] != 2 or g.shape[2] != n or g.shape[3] < c \
@@ -303,17 +399,9 @@ def backproject_grouped_bwd(g: torch.Tensor, coords: torch.Tensor,
     if group_size > MAX_GROUP_SIZE:
         raise ValueError(f"group_size {group_size} > {MAX_GROUP_SIZE}")
     bf16 = g.dtype == torch.bfloat16
-    dfeat = torch.zeros(bc, h, w, c, device=g.device)
-    fn = _build.function("backproject_sample_bwd",
-                         "vf_backproject_grouped_bwd_bf16" if bf16
-                         else "vf_backproject_grouped_bwd",
-                         [_P] * 4 + [_I64] * 7 + [_I, _P])
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), coords.data_ptr(), valid.data_ptr(),
-                 dfeat.data_ptr(), g.shape[0], group_size, h, w, c,
-                 g.shape[3], n, int(raw), stream)
-    _launch("backproject_grouped_bwd", err)
+    dfeat = _bwd_launch(g, coords, valid, raw, h, w, c,
+                        (g.shape[0], group_size),
+                        backproject_bwd_plan(coords, valid, h, w, raw))
     if bf16:
         backproject_grouped_bwd.launches_bf16 += 1
         return dfeat.to(torch.bfloat16)
@@ -486,8 +574,9 @@ def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
     (its validity, back-projection mode) or None -> dfeats [B, h, w, C] in
     g's dtype (the bf16 form adds in f32 and rounds once).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel of
-    g's dtype (``sample2d_bwd.launches`` counts the f32 form's launches,
+    CPU tensors take the plain version; CUDA tensors build the plan
+    (``backproject_bwd_plan``) and launch the kernel of g's dtype
+    (``sample2d_bwd.launches`` counts the f32 form's launches,
     ``.launches_bf16`` the bf16 form's) or raise.
     """
     b, n = coords.shape[:2]
@@ -506,16 +595,8 @@ def sample2d_bwd(g: torch.Tensor, coords: torch.Tensor,
         return sample2d_bwd_plain(g, coords, valid, h, w, c, raw)
     _cuda_ready(args)
     bf16 = g.dtype == torch.bfloat16
-    dfeat = torch.zeros(b, h, w, c, device=g.device)
-    fn = _build.function("backproject_sample_bwd",
-                         "vf_sample2d_bwd_bf16" if bf16 else "vf_sample2d_bwd",
-                         [_P] * 4 + [_I64] * 7 + [_I, _P])
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), coords.data_ptr(),
-                 0 if valid is None else valid.data_ptr(), dfeat.data_ptr(),
-                 b, h, w, c, g.shape[2], n, coords.shape[2], int(raw), stream)
-    _launch("sample2d_bwd", err)
+    dfeat = _bwd_launch(g, coords, valid, raw, h, w, c, (b,),
+                        backproject_bwd_plan(coords, valid, h, w, raw))
     if bf16:
         sample2d_bwd.launches_bf16 += 1
         return dfeat.to(torch.bfloat16)

@@ -1,5 +1,5 @@
-"""Trilinear frustum sampler (kernel K3) and its backward (kernel K4, in two
-forms).
+"""Trilinear frustum sampler (kernel K3) and its backward (kernel K4, in
+three forms).
 
 Port of ``vfdepth_tpu/ops/sample3d_packed.py grid_sample_3d_packed(vol,
 coords, grad_dtype, "yxz")`` (:257). Forward: the XLA oct build + row gather
@@ -11,8 +11,8 @@ Backward: the TPU update kernel ``_updates_kernel`` (:146, launched by
 ``_build_updates`` :161) + the XLA scatter and fold (``_packed_bwd``,
 :305-340) become ``csrc/sample3d_bwd.cu``, in the form ``grad_dtype`` names:
 
-* f32 updates (``packed_f32grad``; ``sample3d_trilinear_bwd``): ONE
-  scatter-add kernel into an f32 dvol; g may be f32 or bf16 (mixed
+* f32 updates (``packed_f32grad``; ``sample3d_trilinear_bwd``): f32
+  products and f32 sums, dvol in g's dtype; g may be f32 or bf16 (mixed
   precision: the tap products are formed in f32 from the bf16 cotangent,
   summed in f32 and dvol is rounded once to bf16); its plain version sums
   the f32 tap planes and folds them as the bf16-update form's does;
@@ -22,6 +22,12 @@ Backward: the TPU update kernel ``_updates_kernel`` (:146, launched by
   back into the volume in f32 (dz first, then dx, then dy) and rounded once
   to g's dtype. g may be f32 (an f32 config with ``sampler_3d: packed``) or
   bf16 (mixed precision).
+
+Both CUDA forms are deterministic reductions over destination tiles
+(``csrc/dest_tiles.cuh``): ``sample3d_bwd_plan`` sorts the live frustum
+points by the voxel column of their base, and each block sums the points
+that reach its tile of columns in the plan's order and writes its outputs
+once. ``sample3d_bwd_plan_plain`` is the same plan in plain PyTorch.
 
 ``Sample3dTrilinear`` ties a forward to a backward as one autograd
 Function; only the volume gets a gradient.
@@ -38,9 +44,14 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, dest_tiles
 
 _POINT_CHUNK = 1 << 18   # plain version: points per gather
+# K4's output tiles, (y, x) voxel columns at full depth, one per block: 4 x 4
+# for f32 updates (80 KB of f32 sums at depth 20 and 64 channels), 2 x 2 for
+# bf16 updates (the 8 bf16 tap planes of each voxel, 80 KB)
+K4_TILES = {False: (4, 4), True: (2, 2)}
+_BLOCK_CHANNELS = 64     # csrc/sample3d_bwd.cu kCS
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -186,9 +197,100 @@ def sample3d_trilinear_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
     then ``fold_tap_planes``. g [B, N, C] f32 or bf16, coords [B, N, 3] ->
     dvol ``vol_shape`` = [B, H, W, D, C] in g's dtype; a bf16 result is the
     f32 sum JAX's is, rounded once, so the two agree exactly where no two
-    points share a base voxel (the kernel's atomics sum in another
-    order)."""
+    points share a base voxel (the kernel sums each voxel's taps in its
+    plan's order)."""
     return _tap_plane_bwd_plain(g, coords, vol_shape, torch.float32)
+
+
+def _grid(vol_shape, bf16_updates: bool) -> dest_tiles.Grid:
+    nb, h, w, _, _ = vol_shape
+    return dest_tiles.Grid(nb, h, w, *K4_TILES[bf16_updates])
+
+
+def sample3d_bwd_keys(coords: torch.Tensor, vol_shape,
+                      bf16_updates: bool) -> torch.Tensor:
+    """Each point's plan key (``csrc/dest_tiles.cuh``): the (y, x) column of
+    its base voxel in its frameset; dead (``n_keys``) where all 8 weights
+    are 0. coords [B, N, 3] -> [B * N] int64."""
+    nb, h, w, d, _ = vol_shape
+    grid = _grid(vol_shape, bf16_updates)
+    keys = []
+    for b in range(nb):
+        base, wts = _point_taps(coords[b], h, w, d)
+        live = torch.stack(wts).ne(0).any(0)
+        yb, xb = base // (w * d), (base // d) % w
+        keys.append(grid.keys(torch.full_like(yb, b), yb, xb, live))
+    return torch.cat(keys)
+
+
+def sample3d_bwd_plan_plain(coords: torch.Tensor, vol_shape,
+                            bf16_updates: bool = False) -> dest_tiles.Plan:
+    """K4's plan of the points coords [B, N, 3] in plain PyTorch (bincount,
+    cumsum, stable argsort), on coords' device."""
+    return dest_tiles.plan_plain(sample3d_bwd_keys(coords, vol_shape,
+                                                   bf16_updates),
+                                 _grid(vol_shape, bf16_updates))
+
+
+def sample3d_bwd_plan(coords: torch.Tensor, vol_shape,
+                      bf16_updates: bool = False) -> dest_tiles.Plan:
+    """K4's plan built on the card (``vf_sample3d_bwd_plan``): equal, element
+    for element, to ``sample3d_bwd_plan_plain``. coords [B, N, 3] f32 on a
+    CUDA device."""
+    _check_cuda((("coords", coords),))
+    nb, h, w, d, _ = vol_shape
+    _check_volume(h, w, d)
+    grid = _grid(vol_shape, bf16_updates)
+    n = coords.shape[1]
+    plan, ws = dest_tiles.new_plan(nb * n, grid, coords.device)
+    fn = _build.function("sample3d_bwd", "vf_sample3d_bwd_plan",
+                         [_P] * 7 + [_I64] * 7 + [_P])
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(coords.data_ptr(), *dest_tiles.plan_pointers(plan, ws), nb,
+                 h, w, d, n, grid.ty, grid.tx, stream)
+    if err != 0:
+        raise RuntimeError(f"sample3d_bwd_plan launch failed: CUDA error {err}")
+    return plan
+
+
+_BWD_ARGS = [_P] * 9 + [_I64] * 8
+
+
+def _bwd_launch(g, coords, vol_shape, bf16_updates: bool,
+                plan: dest_tiles.Plan) -> torch.Tensor:
+    """The tiled kernel of the form that g's dtype and ``bf16_updates`` name,
+    on ``plan``, which must be ``sample3d_bwd_plan(coords, vol_shape,
+    bf16_updates)`` -> dvol in g's dtype, written once. The scratch for cut
+    tiles is sized for the plan's most slots (``Grid.max_slots``): 52.5 MB
+    for f32 updates and 206 MB for bf16 updates at the production shapes."""
+    nb, h, w, d, c = vol_shape
+    grid = _grid(vol_shape, bf16_updates)
+    dest_tiles.check_plan(plan, grid, nb * g.shape[1], g.device)
+    bf16_g = g.dtype == torch.bfloat16
+    if bf16_updates:
+        fn_name, extra = "vf_sample3d_trilinear_bwd_bf16", (int(bf16_g),)
+    else:
+        fn_name, extra = ("vf_sample3d_trilinear_bwd_f32upd_bf16" if bf16_g
+                          else "vf_sample3d_trilinear_bwd"), ()
+    cell = _BLOCK_CHANNELS * (16 if bf16_updates else 4)
+    slices = -(-c // _BLOCK_CHANNELS)
+    partial = torch.empty(grid.max_slots * slices * grid.ty * grid.tx * d
+                          * cell, dtype=torch.uint8, device=g.device)
+    dvol = torch.empty(tuple(vol_shape), device=g.device, dtype=g.dtype)
+    fn = _build.function("sample3d_bwd", fn_name,
+                         _BWD_ARGS + [_I] * len(extra) + [_P])
+    p = plan
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), coords.data_ptr(), p.order.data_ptr(),
+                 p.start.data_ptr(), p.chunk_off.data_ptr(),
+                 p.slot_off.data_ptr(), p.params.data_ptr(),
+                 partial.data_ptr(), dvol.data_ptr(), nb, h, w, d, c,
+                 g.shape[1], grid.ty, grid.tx, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    return dvol
 
 
 def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
@@ -198,9 +300,10 @@ def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
     dvol [B, H, W, D, C] in g's dtype (a bf16 g is widened, its products
     summed in f32 and the sum rounded once).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel of
-    g's dtype (``sample3d_trilinear_bwd.launches`` counts the f32 form's
-    launches, ``.launches_bf16`` those with a bf16 g) or raise.
+    CPU tensors take the plain version; CUDA tensors build the plan
+    (``sample3d_bwd_plan``) and launch the kernel of g's dtype
+    (``sample3d_trilinear_bwd.launches`` counts the f32 form's launches,
+    ``.launches_bf16`` those with a bf16 g) or raise.
     """
     _check_bwd(g, coords, vol_shape)
     if g.dtype not in _DTYPES:
@@ -208,23 +311,13 @@ def sample3d_trilinear_bwd(g: torch.Tensor, coords: torch.Tensor,
     if g.device.type == "cpu":
         return sample3d_trilinear_bwd_plain(g, coords, vol_shape)
     _check_cuda((("g", g), ("coords", coords)))
-    nb, h, w, d, c = vol_shape
     bf16 = g.dtype == torch.bfloat16
-    dvol = torch.zeros(tuple(vol_shape), device=g.device)
-    fn = _build.function("sample3d_bwd",
-                         "vf_sample3d_trilinear_bwd_f32upd_bf16" if bf16
-                         else "vf_sample3d_trilinear_bwd", _FWD_ARGS)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), coords.data_ptr(), dvol.data_ptr(), nb, h, w,
-                 d, c, g.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"sample3d_trilinear_bwd launch failed: CUDA "
-                           f"error {err}")
+    dvol = _bwd_launch(g, coords, vol_shape, False,
+                       sample3d_bwd_plan(coords, vol_shape))
     if bf16:
         sample3d_trilinear_bwd.launches_bf16 += 1
-        return dvol.to(torch.bfloat16)
-    sample3d_trilinear_bwd.launches += 1
+    else:
+        sample3d_trilinear_bwd.launches += 1
     return dvol
 
 
@@ -275,9 +368,10 @@ def sample3d_trilinear_bwd_bf16_plain(g: torch.Tensor, coords: torch.Tensor,
     product formed in f32, rounded once to bf16 and ``index_add_``-ed into
     its bf16 tap plane, then ``fold_tap_planes`` and one rounding to g's
     dtype. g [B, N, C] f32 or bf16, coords [B, N, 3] -> dvol ``vol_shape``
-    in g's dtype. (``index_add_`` may take a bf16 sum in another order, or
-    round less often, than the kernel's atomics: where points collide the
-    two agree to a bound, not bit for bit.)"""
+    in g's dtype. ``index_add_`` into a bf16 plane accumulates each call
+    in f32 and rounds once, where the kernel rounds every addition (as
+    XLA's scatter does): the two agree bit for bit where every plane entry
+    takes one addition (distinct base voxels), to a bound elsewhere."""
     return _tap_plane_bwd_plain(g, coords, vol_shape, torch.bfloat16)
 
 
@@ -287,10 +381,11 @@ def sample3d_trilinear_bwd_bf16(g: torch.Tensor, coords: torch.Tensor,
     package's ``grid_sample_3d_packed(..., "bf16")``): g [B, N, C] float32
     or bfloat16 and coords [B, N, 3] -> dvol [B, H, W, D, C] in g's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
+    CPU tensors take the plain version; CUDA tensors build the plan
+    (``sample3d_bwd_plan(coords, vol_shape, True)``) and launch the kernel
     (``sample3d_trilinear_bwd_bf16.launches`` counts launches) or raise.
-    The kernel needs a zeroed bf16 accumulator of the 8 tap planes, [B,
-    H*W*D, 8, C] (410 MB at the production shapes, batch 2).
+    Each block keeps the bf16 tap planes of its 2 x 2 voxel columns
+    in shared memory; nothing is zeroed in device memory.
     """
     _check_bwd(g, coords, vol_shape)
     if g.dtype not in _DTYPES:
@@ -298,20 +393,8 @@ def sample3d_trilinear_bwd_bf16(g: torch.Tensor, coords: torch.Tensor,
     if g.device.type == "cpu":
         return sample3d_trilinear_bwd_bf16_plain(g, coords, vol_shape)
     _check_cuda((("g", g), ("coords", coords)))
-    nb, h, w, d, c = vol_shape
-    acc = torch.zeros(nb, h * w * d, 8, c, device=g.device,
-                      dtype=torch.bfloat16)
-    dvol = torch.empty(tuple(vol_shape), device=g.device, dtype=g.dtype)
-    fn = _build.function("sample3d_bwd", "vf_sample3d_trilinear_bwd_bf16",
-                         [_P] * 4 + [_I64] * 6 + [_I, _P])
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), coords.data_ptr(), acc.data_ptr(),
-                 dvol.data_ptr(), nb, h, w, d, c, g.shape[1],
-                 int(g.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"sample3d_trilinear_bwd_bf16 launch failed: CUDA "
-                           f"error {err}")
+    dvol = _bwd_launch(g, coords, vol_shape, True,
+                       sample3d_bwd_plan(coords, vol_shape, True))
     sample3d_trilinear_bwd_bf16.launches += 1
     return dvol
 

@@ -323,7 +323,11 @@ class VFDepthModel(nn.Module):
         """Batch dict (NHWC numpy arrays or tensors, the JAX package's
         contract) -> {'cam_T_cam' [b, cams, n_ctx, 4, 4], 'disp/{s}',
         'depth/{s}' [b, cams, H, W, 1]} on this model's device. BatchNorm
-        runs in eval mode."""
+        runs in eval mode. Raises under ``aug_depth`` (the depth-synthesis
+        outputs ``disp/{s}/aug`` and ``depth/{s}/aug`` are not ported)."""
+        if self.loss_cfg.aug_depth:
+            raise NotImplementedError("the depth-synthesis branch is not "
+                                      "ported")
         lev = self.fusion_level + 1
         keys = {f"K/{lev}", f"inv_K/{lev}", "K/0", "mask", "extrinsics",
                 "extrinsics_inv",

@@ -39,7 +39,10 @@ Phases (any failure exits non-zero):
     input; K5: 2-D ``F.grid_sample`` on the RGB), beside the bound: bytes
     over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger,
     counted from this run's inputs; the backward forms' two stages (plan,
-    reduce) are timed apart beside the whole call;
+    reduce) are timed apart beside the whole call; K1, K1b, K3 and their
+    bf16 forms also a call at a time over 20 calls issued back to back
+    (``stream_ms``: without the wrapper's host time; K5's too, on the
+    step's coordinates below);
  5. the bf16 forms (mixed precision) against their plain versions with the
     same special inputs, then timed beside their bounds and bf16
     yardsticks: K1-, K2-, K3-, K5-bf16 and K4's bf16-update form at the
@@ -68,7 +71,11 @@ Phases (any failure exits non-zero):
     BatchNorm statistics, and launches per step (K1 or K1b 1, K2 or K2b 1,
     K3 1, K4 1, K5 4, in their bf16 forms in bf16); step 1 again from the
     same state with the plain versions (loss and every gradient within
-    stated tolerances); one more step under ``torch.profiler``;
+    stated tolerances); one more step under ``torch.profiler``; on the
+    6-camera rig (f32 and bf16) K5's 4 calls of the warm-up step are
+    captured, checked against the plain version and timed: K5's row then
+    holds those times (the coordinates of a real step), its random-depth
+    input as ``stress_ms``;
     then the 6-camera bf16 model with ``sampler_3d: packed_f32grad``
     (training: K4's f32-update form on the bf16 cotangent once a step, its
     bf16-update form never) and the 6-camera f32 model with
@@ -185,6 +192,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def stream_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """``fn``'s time a call over ``reps`` calls issued back to back between
+    two CUDA events: the host's per-call work (argument checks, the output
+    allocation, the launch) overlaps the previous call's kernel, where
+    ``time_ms``, which times each call alone, counts it."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -201,8 +225,8 @@ def k1_inputs(cfg, device, gen, special: bool, batch: int = 1):
     points through the port's ``_project_cam_points`` (cameras group-major,
     the same rig for every frameset). ``special`` appends points that are
     behind the camera, out of the image, non-finite or at near-zero depth,
-    and a crowd on one pixel (``hot_points``; N is then not a multiple of
-    the kernel's 32-point tile)."""
+    and a crowd on one pixel (``hot_points``; N is then odd and not a
+    multiple of the kernel's 32-point tile)."""
     from vfdepth_tpu_torch.data import FakeDataset
     from vfdepth_tpu_torch.models.vfnet import _project_cam_points
 
@@ -529,8 +553,8 @@ def k1b_inputs(cfg3, device, gen, special: bool, batch: int = 1):
     (front and +-55 degrees) through ``_project_cam_points``. ``special``
     appends points behind the camera, off the image, non-finite, at
     near-zero depth, at exact nearest-pick ties (z = 1, pixel k + 0.5) and
-    a crowd on one pixel (``hot_points``; N is then not a multiple of the
-    kernel's 32-point tile)."""
+    a crowd on one pixel (``hot_points``; N is then odd and not a multiple
+    of the kernel's 32-point tile)."""
     from vfdepth_tpu_torch.data import FakeDataset
     from vfdepth_tpu_torch.models.vfnet import _project_cam_points
 
@@ -770,6 +794,8 @@ def _print_rows(rows):
     for key, r in rows.items():
         stages = (f" (plan {r['plan_ms']:.4f} + reduce {r['reduce_ms']:.4f})"
                   if "plan_ms" in r else "")
+        if "stream_ms" in r:
+            stages += f" ({r['stream_ms']:.4f} a call back to back)"
         print(f"{key} {r['name']}: kernel {r['ms']:.4f} ms{stages}, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
@@ -829,6 +855,8 @@ def time_kernels(cfg, cfg3, device, gen, errs):
         live_pairs * feats.shape[-1] * 4 * 2,
         time_ms(lambda: _grid_sample_2d(feats_nchw, pix)),
         dict(feats=feats.shape, cam3=cam3.shape, out=out.shape))
+    rows["K1"]["stream_ms"] = stream_ms(
+        lambda: backproject_grouped(feats, mask, cam3, rel_scale, 1, gs))
     del feats, mask, cam3, out, valid, feats_nchw, pix
 
     feats, mask, cam3, rel_scale = k1b_inputs(cfg3, device, gen, False)
@@ -856,6 +884,8 @@ def time_kernels(cfg, cfg3, device, gen, errs):
         time_ms(lambda: _grid_sample_2d(feats_nchw, pix)),
         dict(feats=feats.shape, cam3=cam3.shape, out=out.shape))
     rows["K1b"]["bilinear_mode_ms"] = bil_ms
+    rows["K1b"]["stream_ms"] = stream_ms(
+        lambda: sample2d(feats, mask, cam3, "backproject", rel_scale, True))
     del feats, mask, cam3, out, valid, feats_nchw, pix
     torch.cuda.empty_cache()
 
@@ -933,6 +963,8 @@ def time_kernels(cfg, cfg3, device, gen, errs):
         nbytes(vol, coords, out), coords.shape[1] * vol.shape[-1] * 8 * 2,
         time_ms(library3), dict(vol=vol.shape, coords=coords.shape,
                                 out=out.shape))
+    rows["K3"]["stream_ms"] = stream_ms(lambda: sample3d_trilinear(vol,
+                                                                   coords))
     del vol, coords, out, vol_czyx, grid
 
     vol, coords = k3_inputs(cfg, device, gen, False, batch=cfg.batch_size)
@@ -1343,6 +1375,8 @@ def time_bf16_forms(cfg, cfg3, device, gen, errs):
         valid.sum().item() * fb.shape[-1] * 4 * 2,
         time_ms(lambda: _grid_sample_2d(feats_nchw, pix)),
         dict(feats=fb.shape, cam3=cam3.shape, out=out.shape))
+    rows["K1-bf16"]["stream_ms"] = stream_ms(
+        lambda: backproject_grouped(fb, mask, cam3, rel_scale, 1, gs))
     del feats, fb, mask, cam3, out, valid, feats_nchw, pix
     torch.cuda.empty_cache()
 
@@ -1388,6 +1422,8 @@ def time_bf16_forms(cfg, cfg3, device, gen, errs):
                                       padding_mode="zeros",
                                       align_corners=True)),
         dict(vol=vb.shape, coords=coords.shape, out=out.shape))
+    rows["K3-bf16"]["stream_ms"] = stream_ms(lambda: sample3d_trilinear(
+        vb, coords))
     del vol, vb, coords, out, vol_czyx, grid
 
     vol, coords = k3_inputs(cfg, device, gen, False, batch=cfg.batch_size)
@@ -1452,6 +1488,8 @@ def time_bf16_forms(cfg, cfg3, device, gen, errs):
         time_ms(lambda: _grid_sample_2d(feats_nchw, pix_b)),
         dict(feats=fb.shape, cam3=cam3.shape, out=out.shape))
     rows["K1b-bf16"]["bilinear_mode_ms"] = bil_ms
+    rows["K1b-bf16"]["stream_ms"] = stream_ms(
+        lambda: sample2d(fb, mask, cam3, "backproject", rel_scale, True))
     del feats, fb, mask, cam3, out, valid, feats_nchw, pix, pix_b
     torch.cuda.empty_cache()
 
@@ -1666,12 +1704,82 @@ def _grads(model):
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
+def capture_k5(fn):
+    """Runs ``fn()`` with ``render_views``' warp entry recording a copy of
+    what it hands K5: returns [(img, mask, coords)], one per call, in call
+    order."""
+    from vfdepth_tpu_torch.geometry import view_rendering
+    original = view_rendering.warp_image_mask
+    calls = []
+
+    def recording(img, mask, coords, plain=False):
+        calls.append((img.clone(), mask.clone(), coords.clone()))
+        return original(img, mask, coords, plain)
+    view_rendering.warp_image_mask = recording
+    try:
+        fn()
+    finally:
+        view_rendering.warp_image_mask = original
+    return calls
+
+
+def time_k5_on_step(key, row, calls):
+    """K5's row (``key`` "K5" or "K5-bf16") timed on the coordinates that
+    ``render_views`` handed it in one training step (``calls``, from
+    ``capture_k5``): each call against its plain version, then timed beside
+    its bound; the row's ``ms`` and ``bound_ms`` become the calls' means,
+    and the random-depth input's become ``stress_ms`` and
+    ``stress_bound_ms``."""
+    from vfdepth_tpu_torch.ops.warp import (warp_image_mask_maps,
+                                            warp_image_mask_maps_plain)
+    check(len(calls) == 4, f"{key}: {len(calls)} calls in a step, expected 4")
+    bf16 = key.endswith("bf16")
+    tol = BF16_STEP if bf16 else K5_TOL
+    img, mask, coords = calls[0]
+    got = warp_image_mask_maps(img, mask, coords)
+    ref = warp_image_mask_maps_plain(img, mask, coords)
+    torch.cuda.synchronize()
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(got, ref))
+    check(err <= tol, f"{key} on the step's coordinates differs from its "
+                      f"plain version: {err} > {tol}")
+    del got, ref
+    times, streams, bounds = [], [], []
+    for img, mask, coords in calls:
+        maps = warp_image_mask_maps(img, mask, coords)
+        times.append(time_ms(lambda: warp_image_mask_maps(img, mask,
+                                                          coords)))
+        streams.append(stream_ms(lambda: warp_image_mask_maps(img, mask,
+                                                              coords)))
+        bounds.append(bound(nbytes(img, mask, coords, *maps),
+                            coords.shape[0] * coords.shape[1] * 3 * 11)[0])
+        del maps
+    row.update(stress_ms=row["ms"], stress_bound_ms=row["bound_ms"],
+               ms=statistics.mean(times), bound_ms=statistics.mean(bounds),
+               stream_ms=statistics.mean(streams), step_call_ms=times,
+               step_call_stream_ms=streams, step_call_bound_ms=bounds,
+               max_abs_err=max(row["max_abs_err"], err))
+    print(f"{key} on the step's own coordinates (4 calls of one training "
+          f"step; call 1 against plain: max_abs_err {err:.3e}, tol "
+          f"{tol:.1e}): per call {[round(t, 4) for t in times]} ms, back "
+          f"to back {[round(t, 4) for t in streams]} ms, bound "
+          f"{[round(b, 4) for b in bounds]} ms, mean {row['ms']:.4f} ms "
+          f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound; back to "
+          f"back {row['stream_ms']:.4f}, "
+          f"{100 * row['bound_ms'] / row['stream_ms']:.1f}%); stress input "
+          f"(random depth per pixel) {row['stress_ms']:.4f} ms "
+          f"({100 * row['stress_bound_ms'] / row['stress_ms']:.1f}%)",
+          flush=True)
+
+
 def run_training_path(cfg, device, label: str, per_step, rig: str,
-                      tols=(STEP_LOSS_RTOL, STEP_GRAD_RTOL)):
+                      tols=(STEP_LOSS_RTOL, STEP_GRAD_RTOL), k5_calls=None):
     """Full-width training steps at the config's batch through
     ``train_step``; returns (launches per kernel over the timed steps,
     per-step ms). ``tols``: step 1 against the plain versions, the loss's
-    relative difference and each gradient's relative L2 difference."""
+    relative difference and each gradient's relative L2 difference.
+    ``k5_calls``: a list that receives K5's inputs of the (uncounted)
+    warm-up step."""
     loss_rtol, grad_rtol = tols
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
@@ -1687,7 +1795,15 @@ def run_training_path(cfg, device, label: str, per_step, rig: str,
     def noise_gen(step):      # the same tie-break noise for a repeated step
         return torch.Generator(device).manual_seed(1000 + step)
 
-    logs0 = train_step(model, opt, batches[0], 0, noise_gen(0))   # warm-up
+    warm = {}
+
+    def warm_up():
+        warm["logs"] = train_step(model, opt, batches[0], 0, noise_gen(0))
+    if k5_calls is None:
+        warm_up()
+    else:
+        k5_calls.extend(capture_k5(warm_up))
+    logs0 = warm["logs"]
     torch.cuda.synchronize()
     print(f"{label} training path set-up (model, data, warm-up step): "
           f"{time.perf_counter() - t0:.1f} s; step 0 loss "
@@ -1908,7 +2024,14 @@ def main() -> int:
 
     serve(cfg, "6-camera", "even", launches(K1=1, K3=1),
           launches(K1=2, K3=1))
-    train(cfg, "6-camera", "even", launches(K1=1, K2=1, K3=1, K4=1, K5=4))
+    # K5 is also timed on the coordinates the 6-camera steps hand it (f32
+    # and bf16), captured from each path's warm-up step
+    k5_calls = []
+    train(cfg, "6-camera", "even", launches(K1=1, K2=1, K3=1, K4=1, K5=4),
+          k5_calls=k5_calls)
+    time_k5_on_step("K5", rows["K5"], k5_calls)
+    del k5_calls[:]
+    torch.cuda.empty_cache()
     serve(cfg3, "3-camera", "nuscenes", launches(K1b=1, K3=1),
           launches(K1b=2, K3=1))
     # K5's calls do not depend on the rig: one temporal, one spatial and
@@ -1921,7 +2044,11 @@ def main() -> int:
           launches(**{"K1-bf16": 2, "K3-bf16": 1}), **bf16_tols)
     train(cfg_mp, "6-camera bf16", "even", launches(
         **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 1, "K4-bf16": 1,
-           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL),
+          k5_calls=k5_calls)
+    time_k5_on_step("K5-bf16", rows["K5-bf16"], k5_calls)
+    del k5_calls[:]
+    torch.cuda.empty_cache()
     serve(cfg3_mp, "3-camera bf16", "nuscenes",
           launches(**{"K1b-bf16": 1, "K3-bf16": 1}),
           launches(**{"K1b-bf16": 2, "K3-bf16": 1}), **bf16_tols)

@@ -655,3 +655,106 @@ def test_backward_plan_determinism_and_hot_spot(form):
         step + rtol * (adds + 1) ** 0.5) * ref.abs().max().item())
     torch.testing.assert_close(got, model.float(), rtol=0, atol=(
         step + 1e-6 * (adds + 1) ** 0.5) * ref.abs().max().item())
+
+
+# The forward samplers' staged stores (K1, K1b): a row whose stride is not
+# 16-byte aligned leaves the warp as 16-byte stores, whatever its start.
+# N = 5003 is not a multiple of the 32-point tile, and it is odd, so every
+# camera's (K1b) or group's (K1) run after the first starts off a 16-byte
+# boundary: at elements n * (C + 1) or n * (C + 2) of the output.
+FWD_STRIDES = [("grouped", 768), ("grouped", 512), ("grouped", 256),
+               ("backproject", 768), ("backproject", 512),
+               ("backproject", 256), ("mask", 768), ("bilinear", 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("form,c", FWD_STRIDES,
+                         ids=[f"{f}-{c}" for f, c in FWD_STRIDES])
+def test_forward_sampler_row_strides(form, c, dtype):
+    """Every row stride the modes take (grouped 770/514/258, per camera
+    769/513/257 and 768) against the plain version, with the tolerances of
+    the cases above; the rows of the second and third run, which start at a
+    camera's (or group's) offset, are checked on their own too; two
+    launches give the same bits."""
+    _need_cuda()
+    if form == "grouped":
+        feats, mask, cam3 = _raw_inputs(c + 5, 2, 1, c=c)   # b = 2, gs = 1
+        coords = cam3
+    else:
+        feats, mask, cam3 = _cams(c + 6, c)
+        coords = cam3 if form == "backproject" else _norm_coords(
+            c, 3, cam3.shape[1], 2)
+    if dtype == "bf16":
+        (feats,) = _bf16(feats)
+    n = coords.shape[1]
+    assert n % 2 == 1
+
+    def run():
+        if form == "grouped":
+            return backproject_grouped(feats, mask, coords, 0.25, 2, 1)
+        m = None if form == "bilinear" else mask
+        return sample2d(feats, m, coords, form, 0.25, form == "backproject")
+    out, valid = run()
+    if form == "grouped":
+        ref, ref_valid = backproject_grouped_plain(feats, mask, coords, 0.25,
+                                                   2, 1)
+    else:
+        ref, ref_valid = sample2d_plain(
+            feats, None if form == "bilinear" else mask, coords, form, 0.25,
+            form == "backproject")
+    again, _ = run()
+    torch.cuda.synchronize()
+    assert out.dtype == feats.dtype
+    assert out.shape[-1] == c + {"grouped": 2, "bilinear": 0}.get(form, 1)
+    if valid is not None:
+        torch.testing.assert_close(valid, ref_valid, rtol=0, atol=0)
+    if form != "bilinear":
+        torch.testing.assert_close(out[..., -1], ref[..., -1], rtol=0, atol=0)
+    scale = (1e-4 * feats.float().abs().max().item() if dtype == "f32"
+             else BF16_STEP * ref.float().abs().max().item())
+    assert torch.isfinite(out.float()).all()
+    rows, ref_rows = out.reshape(-1, n, out.shape[-1]), ref.reshape(
+        -1, n, out.shape[-1])
+    for k in range(rows.shape[0]):         # each run, from its own offset
+        torch.testing.assert_close(rows[k].float(), ref_rows[k].float(),
+                                   rtol=0, atol=scale)
+    assert torch.equal(out.view(torch.int16 if dtype == "bf16"
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == "bf16"
+                                  else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", [64, 12, 7])    # 8 (bf16) / 4-wide, scalar
+def test_sample3d_vector_paths(c, dtype):
+    """K3 at C = 64 (16-byte vectors: 4 f32 or 8 bf16 channels), at a C
+    divisible by 4 but not 8 (4-wide vectors in both) and at an odd C (one
+    warp per point), N = 4001 a multiple of no tile, against the plain
+    version; two launches give the same bits."""
+    _need_cuda()
+    rng = np.random.RandomState(c + 11)
+    vol = torch.from_numpy(rng.randn(2, 5, 6, 4, c).astype(np.float32))
+    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords[:, :2] = [[-1, -1, -1], [1, 1, 1]]
+    coords[:, 10, 1] = np.nan
+    coords[:, 12] = [40.0, -1e9, 3.0]
+    vol = vol.cuda()
+    if dtype == "bf16":
+        (vol,) = _bf16(vol)
+    coords = torch.from_numpy(coords).cuda()
+    before = (sample3d_trilinear.launches, sample3d_trilinear.launches_bf16)
+    out = sample3d_trilinear(vol, coords)
+    again = sample3d_trilinear(vol, coords)
+    bf16 = dtype == "bf16"
+    assert (sample3d_trilinear.launches, sample3d_trilinear.launches_bf16) \
+        == (before[0] + 2 * (not bf16), before[1] + 2 * bf16)
+    ref = sample3d_trilinear_plain(vol, coords)
+    torch.cuda.synchronize()
+    assert out.dtype == vol.dtype
+    tol = (BF16_STEP if bf16 else 1e-5) * vol.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    assert (out[:, [10, 12]] == 0).all()
+    view = torch.int16 if bf16 else torch.int32
+    assert torch.equal(out.view(view), again.view(view))

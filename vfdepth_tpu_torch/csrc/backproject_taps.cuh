@@ -99,17 +99,3 @@ __device__ __forceinline__ float nearest_mask(const TapPoint& p,
   return (xn >= 0 && xn < w && yn >= 0 && yn < h)
              ? mask_cam[(int64_t)yn * w + xn] : 0.0f;
 }
-
-// 4 consecutive elements at `o` (f32 or bf16), stored `vec` (4, 2 or 1:
-// ``vec_width`` of elem.cuh) elements at a time.
-template <typename T>
-__device__ __forceinline__ void store4(T* o, float4 v, int vec) {
-  if (vec == 4) {
-    st4(o, v);
-  } else if (vec == 2) {
-    st2(o, make_float2(v.x, v.y));
-    st2(o + 2, make_float2(v.z, v.w));
-  } else {
-    st1(o, v.x); st1(o + 1, v.y); st1(o + 2, v.z); st1(o + 3, v.w);
-  }
-}

@@ -29,21 +29,6 @@ __device__ __forceinline__ float2 bf16x2_float2(uint32_t bits) {
   return __bfloat1622float2(v);
 }
 
-// 2 consecutive elements, p aligned to 2 elements
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return bf16x2_float2(__ldg(reinterpret_cast<const unsigned int*>(p)));
-}
-
-__device__ __forceinline__ void st2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<uint32_t*>(p) = bf16x2_bits(v.x, v.y);
-}
-
 // 4 consecutive elements, p aligned to 4 elements
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -52,14 +37,6 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
   const float2 a = bf16x2_float2(u.x), b = bf16x2_float2(u.y);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
 }
 
 // Vector width (4, 2 or 1 elements) usable at `ptr + k * stride` for every

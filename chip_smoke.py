@@ -81,7 +81,41 @@ Phases (any failure exits non-zero):
     bf16-update form never) and the 6-camera f32 model with
     ``batch_pose_frames: false`` (one pose-net pass per context frame:
     serving at K1 3, K3 1 a request, training at K1 3, K2 3, K3 1, K4 1,
-    K5 4 a step).
+    K5 4 a step);
+ 7. the data feed: ``device_prefetch`` (pinned, non-blocking copies on a
+    side stream) against the pageable route over 50 full-width batch-2
+    training batches, bit for bit, in two passes: one batch ahead, read as
+    soon as yielded (a missing ``wait_event`` shows), and two ahead,
+    behind device work longer than the next batch's upload (a missing
+    ``record_stream`` shows);
+ 8. evaluation of the 6-camera model, f32 and bf16: the seeded model saved
+    with ``save_checkpoint``, then ``Trainer.evaluate`` loads it
+    (``models_to_load`` from the config) into a model of other weights and
+    scores 2 batches of ``eval_batch_size`` 4 (``FakeDataset(with_depth=
+    True)``, even rig); checks the loaded nets, finite metrics, launches a
+    batch (K1 1, K3 1, K5 0; their bf16 forms in bf16), batch 1's
+    ``depth/0`` against the plain versions (``FWD_RTOL`` /
+    ``BF16_FWD_RTOL``) and the metrics against a plain evaluation; one
+    more batch under ``torch.profiler``;
+ 9. the trainer: ``Trainer.learn`` on the 6-camera f32 model, 2 epochs of 3
+    batch-2 steps from a shuffled ``BatchLoader`` through
+    ``device_prefetch``, validation at steps 0, 2, 4, ``weights_0`` and
+    ``weights_1`` saved; checks finite losses, launches a step (K1 1, K2 1,
+    K3 1, K4 1, K5 4) and a validation (K1 1, K3 1, K5 4), and that
+    ``weights_1`` reloaded into a fresh model and optimizer on the card and
+    on the CPU holds the live parameters, BatchNorm statistics and Adam
+    state bit for bit; the loop's ms a step is its wall time less the
+    validations and checkpoint writes (its steps are not synchronised, so
+    the next batch's pinning overlaps the device's work as it would); then
+    one step under ``torch.profiler`` with the pinned prefetch and one with
+    the pageable route (their ``Memcpy HtoD`` device time), and one batch's
+    upload alone through the pageable route and through
+    ``device_prefetch`` (host clock);
+10. the command lines: ``python3 -m vfdepth_tpu_torch.train`` (2 steps of
+    ``configs/tiny_fake.yaml``, its ``log_dir`` moved to a temporary
+    directory) and ``python3 -m vfdepth_tpu_torch.eval`` on the
+    ``weights_0`` it wrote, both on the card, both exiting 0, eval printing
+    its metric and median lines.
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -97,6 +131,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1889,6 +1924,435 @@ def run_training_path(cfg, device, label: str, per_step, rig: str,
     return counts, ms
 
 
+PREFETCH_BATCHES = 50
+# device work queued before each read in the prefetch check: a few times
+# one full-width batch's pinning and copies (about 12 + 5 ms)
+PREFETCH_SLEEP_MS = 60
+EVAL_BATCHES = 2
+TRAINER_EPOCHS, TRAINER_STEPS = 2, 3        # steps an epoch
+# evaluation metrics, kernels against plain versions: relative, and
+# absolute for the a1-a3 fractions (a pixel at a threshold may fall on
+# either side; one pixel weighs ~3e-7 here). About 5 times the worst
+# differences read on an H100: f32 3.8e-8 and 8.5e-8, bf16 2.0e-5 and
+# 3.0e-6
+EVAL_METRIC_RTOL = 2e-7
+EVAL_FRACTION_ATOL = 1e-6
+BF16_EVAL_METRIC_RTOL = 1e-4
+BF16_EVAL_FRACTION_ATOL = 1.5e-5
+
+
+def _delta(before):
+    return {k: n - before[k] for k, n in read_counts().items()}
+
+
+def _sleep_cycles_per_ms(device) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 ** 6)                 # warm-up
+    start.record()
+    torch.cuda._sleep(2 * 10 ** 7)
+    end.record()
+    end.synchronize()
+    return 2 * 10 ** 7 / start.elapsed_time(end)
+
+
+def check_prefetch(cfg, device):
+    """``device_prefetch`` against the pageable route (``_to_device``'s
+    ``.to(device, float32)``) over ``PREFETCH_BATCHES`` full-width training
+    batches (5 distinct ones in turn, one of them float64), every tensor bit
+    for bit, in two passes, each built so that one fault shows on every
+    batch:
+
+    * one batch ahead, the consumer reads each batch as soon as it is
+      yielded, its own stream empty: the batch's copies were queued just
+      before, so a consumer that did not wait for them would read memory
+      still being written;
+    * two batches ahead (the trainer's depth), the consumer queues
+      ``PREFETCH_SLEEP_MS`` of device work before it reads each batch and
+      drops the batch at once: the next batch is pinned and copied well
+      within that time, so memory handed back to the side stream without
+      ``record_stream`` would hold the next batch by the time it is read.
+    """
+    from vfdepth_tpu_torch.data import device_prefetch
+    b = cfg.batch_size
+    ds = _dataset(cfg, 5 * b, "even")
+    distinct = [ds.batch(list(range(i * b, (i + 1) * b))) for i in range(5)]
+    distinct[1] = {k: v.astype("float64") for k, v in distinct[1].items()}
+    refs = [{k: torch.as_tensor(v).to(device, torch.float32)
+             for k, v in batch.items()} for batch in distinct]
+    sleep = int(PREFETCH_SLEEP_MS * _sleep_cycles_per_ms(device))
+    consumer = torch.cuda.current_stream(device)
+    mb = sum(v.nbytes for v in distinct[0].values()) / 2 ** 20
+    for size, busy in ((1, False), (2, True)):
+        mismatches, n = [], 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for got in device_prefetch((distinct[i % 5]
+                                    for i in range(PREFETCH_BATCHES)),
+                                   size=size, device=device):
+            if busy:
+                torch.cuda._sleep(sleep)
+            ref = refs[n % 5]
+            check(got.keys() == ref.keys(), "prefetch: keys differ")
+            mismatches.append(sum((got[k].view(torch.int32)
+                                   != ref[k].view(torch.int32)).sum()
+                                  for k in ref))
+            del got
+            if not busy:
+                consumer.synchronize()
+            n += 1
+        bad = int(torch.stack(mismatches).sum())
+        ms = (time.perf_counter() - t) * 1e3
+        what = (f"{PREFETCH_SLEEP_MS} ms of device work queued before each "
+                "read" if busy else "each batch read as soon as yielded")
+        print(f"prefetch check, {size} ahead, {what}: {n} batches of "
+              f"{mb:.1f} MB (f32) through device_prefetch against the "
+              f"pageable route, {bad} elements differ; {ms:.1f} ms",
+              flush=True)
+        check(n == PREFETCH_BATCHES and bad == 0,
+              f"prefetch ({size} ahead): {bad} elements differ from the "
+              "pageable route")
+    del refs, distinct
+
+
+def run_evaluation_path(cfg, device, label, per_batch, tmp,
+                        tols=(FWD_RTOL, POSE_ATOL, EVAL_METRIC_RTOL,
+                              EVAL_FRACTION_ATOL)):
+    """``Trainer.evaluate`` over ``EVAL_BATCHES`` full-width batches at the
+    config's ``eval_batch_size`` (``FakeDataset(with_depth=True)``, the even
+    rig), loading the seeded model's checkpoint (``save_checkpoint``) into a
+    model of other weights (``models_to_load`` from the config); then batch
+    1 and the metrics against the plain versions. Returns (launches over the
+    evaluation, per-batch ms, metric and median dicts)."""
+    from vfdepth_tpu_torch.data import BatchLoader, FakeDataset
+    from vfdepth_tpu_torch.training import (Trainer, VFDepthModel,
+                                            create_train_state,
+                                            save_checkpoint)
+    fwd_rtol, pose_atol, metric_rtol, fraction_atol = tols
+    b = cfg.eval_batch_size
+    check(cfg.batch_size == b, f"{label}: eval mode sets batch {b}")
+    t0 = time.perf_counter()
+    seeded = VFDepthModel(cfg, device=device, seed=0)
+    cfg.set("load_weights_dir", save_checkpoint(
+        str(tmp / "models"), 0, seeded, create_train_state(seeded), 0))
+    cfg.set("log_path", str(tmp / "log"))
+    model = VFDepthModel(cfg, device=device, seed=1)
+    ds = FakeDataset(num_samples=b * EVAL_BATCHES, num_cams=cfg.num_cams,
+                     height=cfg.height, width=cfg.width,
+                     frame_ids=tuple(cfg.frame_ids),
+                     fusion_level=cfg.fusion_level, rig="even",
+                     with_depth=True)
+    loader = BatchLoader(ds, b, shuffle=False, num_workers=2)
+    model.predict(ds.batch(list(range(b))))     # warm-up at batch b
+    torch.cuda.synchronize()
+    print(f"{label} evaluation set-up (models, checkpoint, data, warm-up): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    record = []
+    real_predict = model.predict
+
+    def counted(batch):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_predict(batch)
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t) * 1e3, _delta(before)))
+        return out
+    model.predict = counted
+    reset_counts()
+    metric, median = Trainer(cfg, model, use_tb=False).evaluate(loader)
+    counts = read_counts()
+    del model.predict
+    check(len(record) == EVAL_BATCHES,
+          f"{label}: {len(record)} batches evaluated")
+    for i, (ms, delta) in enumerate(record):
+        check(delta == per_batch, f"{label} evaluation batch {i}: kernel "
+                                  f"launches {delta}, expected {per_batch}")
+        print(f"{label} evaluation batch {i}: {ms:.2f} ms (batch {b})",
+              flush=True)
+    for name in cfg.models_to_load:
+        live, saved = (getattr(m, name).state_dict() for m in (model, seeded))
+        check(all(torch.equal(v, saved[k]) for k, v in live.items()),
+              f"{label}: evaluate did not load {name} from the checkpoint")
+    check(all(math.isfinite(v) for v in (*metric.values(), *median.values())),
+          f"{label}: metrics not finite")
+    del seeded
+
+    batch = ds.batch(list(range(b)))
+    got = model.predict(batch)
+    after = read_counts()
+    model.plain_samplers = True
+    ref = model.predict(batch)
+    plain_metric, plain_median = Trainer(cfg, model, use_tb=False).evaluate(
+        loader, load_weights=False)
+    model.plain_samplers = False
+    torch.cuda.synchronize()
+    check(read_counts() == after, "the plain evaluation launched a kernel")
+    compare_outputs(f"{label} evaluation batch 0 (batch {b}) kernels vs "
+                    f"plain", got, ref, fwd_rtol, pose_atol)
+    worst = {"relative": 0.0, "fraction": 0.0}
+    for name, got_d, ref_d in (("metric", metric, plain_metric),
+                               ("median", median, plain_median)):
+        for k, r in ref_d.items():
+            kind = "fraction" if k in ("a1", "a2", "a3") else "relative"
+            diff = abs(got_d[k] - r) / (1.0 if kind == "fraction" else abs(r))
+            worst[kind] = max(worst[kind], diff)
+            check(diff <= (fraction_atol if kind == "fraction"
+                           else metric_rtol),
+                  f"{label} evaluation {name} {k}: kernels {got_d[k]} vs "
+                  f"plain {r}")
+    print(f"{label} evaluation metrics, kernels vs plain: worst relative "
+          f"difference {worst['relative']:.3e} (limit {metric_rtol:g}), "
+          f"worst a1-a3 difference {worst['fraction']:.3e} (limit "
+          f"{fraction_atol:g})", flush=True)
+    del got, ref
+    profile(f"{label} evaluation batch (batch {b})",
+            lambda: model.predict(batch))
+    return counts, [ms for ms, _ in record], metric, median
+
+
+def _same_training_state(model, opt, other, other_opt, what):
+    """``other`` holds ``model``'s parameters, BatchNorm statistics and Adam
+    state, bit for bit, on its own device (the update count on the CPU)."""
+    theirs = other.state_dict()
+    for k, v in model.state_dict().items():
+        check(torch.equal(v.cpu(), theirs[k].cpu()), f"{what}: {k} differs")
+    mine = [p for g in opt.param_groups for p in g["params"]]
+    loaded = [p for g in other_opt.param_groups for p in g["params"]]
+    check(len(mine) == len(loaded), f"{what}: optimizer parameters differ")
+    for p, q in zip(mine, loaded):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(opt.state[p][key].cpu(),
+                              other_opt.state[q][key].cpu()),
+                  f"{what}: Adam {key} differs")
+        check(other_opt.state[q]["exp_avg"].device == q.device
+              and other_opt.state[q]["step"].device.type == "cpu",
+              f"{what}: Adam state on the wrong device")
+
+
+def run_trainer_path(cfg, device, label, per_step, per_validation, tmp):
+    """``Trainer.learn``: ``TRAINER_EPOCHS`` epochs of ``TRAINER_STEPS``
+    full-width steps at the config's batch, from a shuffled ``BatchLoader``
+    through ``device_prefetch``, validation at the log checkpoints (steps 0,
+    2, 4) on a cycled one-batch loader with depth, ``weights_<epoch>``
+    saved each epoch; ``weights_1`` reloaded on the card and on the CPU;
+    then one profiled step with the pinned prefetch and one with the
+    pageable route. Returns (launches over the run, the loop's ms a step:
+    its wall time less the validations and checkpoint writes, over the
+    steps)."""
+    from vfdepth_tpu_torch.data import BatchLoader, FakeDataset, device_prefetch
+    from vfdepth_tpu_torch.training import (Trainer, VFDepthModel,
+                                            create_train_state,
+                                            load_checkpoint, train_step)
+    from vfdepth_tpu_torch.training import trainer as trainer_module
+    b = cfg.batch_size
+    for key, value in (("num_fake_samples", b * TRAINER_STEPS),
+                       ("num_epochs", TRAINER_EPOCHS), ("log_frequency", 2),
+                       ("early_phase", 1000), ("late_log_frequency", 1000),
+                       ("save_frequency", 1), ("log_path", str(tmp / "log")),
+                       ("save_weights_root", str(tmp / "models"))):
+        cfg.set(key, value)
+    model = VFDepthModel(cfg, device=device, seed=0)
+    train_loader = BatchLoader(_dataset(cfg, b * TRAINER_STEPS, "even"), b,
+                               shuffle=True, num_workers=2)
+    val_loader = BatchLoader(
+        FakeDataset(num_samples=b, num_cams=cfg.num_cams, height=cfg.height,
+                    width=cfg.width, frame_ids=tuple(cfg.frame_ids),
+                    fusion_level=cfg.fusion_level, rig="even",
+                    with_depth=True), b, shuffle=False, num_workers=0)
+    trainer = Trainer(cfg, model, use_tb=False)
+    steps, validations, saves = [], [], []
+    real_step, real_validate = trainer_module.train_step, trainer._validate
+    real_save = trainer_module.save_checkpoint
+
+    # a step is not synchronised: the loop runs as it would, the next
+    # batch's pinning overlapping the device's work; CUDA events give each
+    # step's device span, from the end of the work queued before it
+    def counted_step(*args, **kwargs):
+        before = read_counts()
+        entered = time.perf_counter()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        logs = real_step(*args, **kwargs)
+        end.record()
+        steps.append((start, end, _delta(before),
+                      logs["total_loss"].detach(), entered))
+        return logs
+
+    # validations and checkpoint writes are timed to be taken out of the
+    # loop's wall time
+    def synchronised(fn, record):
+        def run(*args, **kwargs):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append(((time.perf_counter() - t) * 1e3, _delta(before)))
+            return out
+        return run
+    trainer._validate = synchronised(real_validate, validations)
+    trainer_module.train_step = counted_step
+    trainer_module.save_checkpoint = synchronised(real_save, saves)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        opt = trainer.learn(train_loader, val_loader, seed=0)
+        torch.cuda.synchronize()
+    finally:
+        trainer_module.train_step = real_step
+        trainer_module.save_checkpoint = real_save
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    n = TRAINER_EPOCHS * TRAINER_STEPS
+    check(len(steps) == n, f"{label}: {len(steps)} steps, expected {n}")
+    for i, (start, end, delta, loss, _) in enumerate(steps):
+        check(delta == per_step, f"{label} step {i}: kernel launches "
+                                 f"{delta}, expected {per_step}")
+        check(math.isfinite(loss.item()), f"{label} step {i}: loss not "
+                                          "finite")
+        print(f"{label} step {i}: train_step's device span "
+              f"{start.elapsed_time(end):.2f} ms (CUDA events; the feed "
+              f"not in it), loss {loss.item():.6f}", flush=True)
+    check(len(validations) == 3, f"{label}: {len(validations)} validations, "
+                                 "expected 3 (steps 0, 2, 4)")
+    for i, (_, delta) in enumerate(validations):
+        check(delta == per_validation, f"{label} validation {i}: kernel "
+                                       f"launches {delta}, expected "
+                                       f"{per_validation}")
+    check(len(saves) == TRAINER_EPOCHS, f"{label}: {len(saves)} checkpoints")
+    val_ms = sum(ms for ms, _ in validations)
+    save_ms = sum(ms for ms, _ in saves)
+    loop_ms = (wall - val_ms - save_ms) / n
+    print(f"{label}: learn() {wall:.2f} ms wall for {n} steps, "
+          f"{len(validations)} validations ({val_ms:.2f} ms) and "
+          f"{len(saves)} checkpoint writes ({save_ms:.2f} ms); the loop "
+          f"{loop_ms:.2f} ms a step with the pinned prefetch (wall less the "
+          f"validations and writes, over {n} steps: the feed included)",
+          flush=True)
+    gaps = [round(a[1].elapsed_time(b[0]), 2) for a, b in zip(steps, steps[1:])]
+    print(f"{label}: host {(steps[0][4] - t0) * 1e3:.2f} ms from learn()'s "
+          f"start to step 0; the device idle between steps {gaps} ms (CUDA "
+          f"events; a validation after steps 0, 2, 4, a checkpoint and a new "
+          f"epoch after step {TRAINER_STEPS - 1})", flush=True)
+
+    path = Path(cfg.save_weights_root)
+    check(sorted(p.name for p in path.iterdir()) == ["weights_0",
+                                                     "weights_1"],
+          f"{label}: checkpoints {sorted(path.iterdir())}")
+    spe = train_loader.steps_per_epoch
+    for where in (device, torch.device("cpu")):
+        fresh = VFDepthModel(cfg, device=where, seed=1)
+        fresh_opt = create_train_state(fresh, steps_per_epoch=spe)
+        step = load_checkpoint(str(path / "weights_1"), fresh, fresh_opt)
+        check(step == n, f"{label}: weights_1 holds step {step}")
+        _same_training_state(model, opt, fresh, fresh_opt,
+                             f"{label} weights_1 loaded on {where.type}")
+        del fresh, fresh_opt
+    print(f"{label}: weights_1 reloaded on the card and on the CPU: "
+          f"parameters, BatchNorm statistics and Adam state bit for bit",
+          flush=True)
+
+    gen = torch.Generator(device).manual_seed(5)
+    it = device_prefetch(train_loader, size=2, device=device)
+    train_step(model, opt, next(it), n, gen)
+    pageable = train_loader.dataset.batch(list(range(b)))
+    uploads = {}
+    for route, fn in (
+            ("pinned prefetch", lambda: train_step(model, opt, next(it),
+                                                   n + 1, gen)),
+            ("pageable", lambda: train_step(model, opt, pageable, n + 2,
+                                            gen))):
+        rows = profile(f"{label} step, {route}", fn)
+        uploads[route] = [(us, c) for key, us, c in rows
+                          if "Memcpy HtoD" in key]
+        for key, us, c in rows:
+            if "Memcpy" in key:
+                print(f"  {key}: {us / 1e3:.3f} ms x{c}", flush=True)
+    for route, ups in uploads.items():
+        print(f"{label} step upload ({route}): Memcpy HtoD "
+              f"{sum(us for us, _ in ups) / 1e3:.2f} ms device time over "
+              f"{sum(c for _, c in ups)} copies", flush=True)
+    del it
+    upload_times(pageable, device, label)
+    opt.zero_grad(set_to_none=True)
+    return counts, loop_ms
+
+
+def upload_times(batch, device, label, reps: int = 5):
+    """One batch's upload by each route, alone, median of ``reps``, host
+    clock: the pageable route (``_to_device``'s copies, to a sync), and
+    ``device_prefetch`` one batch ahead: the time its ``next()`` holds the
+    loop's thread (pinning, the copies queued) and the time to the end of
+    the copies (the consumer's stream synchronised)."""
+    from vfdepth_tpu_torch.data import device_prefetch
+    consumer = torch.cuda.current_stream(device)
+    mb = sum(v.nbytes for v in batch.values()) / 2 ** 20
+    times = {"pageable": [], "next": [], "copied": []}
+    it = device_prefetch((batch for _ in range(reps)), size=1, device=device)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dev = {k: torch.as_tensor(v).to(device, torch.float32)
+               for k, v in batch.items()}
+        torch.cuda.synchronize()
+        times["pageable"].append((time.perf_counter() - t) * 1e3)
+        del dev
+        t = time.perf_counter()
+        dev = next(it)
+        times["next"].append((time.perf_counter() - t) * 1e3)
+        consumer.synchronize()
+        times["copied"].append((time.perf_counter() - t) * 1e3)
+        del dev
+    check(next(it, None) is None, "device_prefetch yielded too many batches")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"{label} upload of one batch ({mb:.1f} MB, median of {reps}, host "
+          f"clock): pageable {med['pageable']:.2f} ms "
+          f"({mb / 1024 / med['pageable'] * 1e3:.1f} GiB/s); device_prefetch "
+          f"one ahead: next() {med['next']:.2f} ms on the loop's thread "
+          f"(pinning, copies queued), copies done at {med['copied']:.2f} ms",
+          flush=True)
+    return med
+
+
+def run_clis(tmp):
+    """The port's command lines on the card, as a user runs them: train 2
+    steps of ``configs/tiny_fake.yaml`` (its ``log_dir`` moved into
+    ``tmp``), then evaluate the checkpoint it wrote."""
+    src = (ROOT / "configs" / "tiny_fake.yaml").read_text()
+    check("log_dir: ./results/" in src, "tiny_fake.yaml has no log_dir")
+    cfg_file = tmp / "tiny_fake.yaml"
+    cfg_file.write_text(src.replace("log_dir: ./results/",
+                                    f"log_dir: {tmp}/"))
+    weights = tmp / "tiny_fake" / "models" / "weights_0"
+    outputs = {}
+    for name, args in (
+            ("train", ["--config_file", str(cfg_file), "--max_steps", "2"]),
+            ("eval", ["--config_file", str(cfg_file), "--weight_path",
+                      str(weights)])):
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m",
+                              f"vfdepth_tpu_torch.{name}", *args],
+                             cwd=str(ROOT), capture_output=True, text=True,
+                             timeout=600)
+        print(f"CLI {name}: exit {res.returncode} in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-3000:], flush=True)
+        check(res.returncode == 0, f"python -m vfdepth_tpu_torch.{name} "
+                                   f"exited {res.returncode}")
+        outputs[name] = res.stdout
+    check(weights.is_dir(), "the train CLI wrote no weights_0")
+    lines = [line for line in outputs["eval"].splitlines()
+             if line.strip().startswith(("metric", "median"))]
+    check(len(lines) == 2, "the eval CLI printed no metric and median lines")
+    for line in lines:
+        print(f"CLI eval: {line.strip()}", flush=True)
+
+
 def profile(label, fn, top: int = 14):
     """``fn`` once more under ``torch.profiler``: device time by kernel
     (self time, summed over launches), and the device's busy time as the
@@ -1936,6 +2400,7 @@ def profile(label, fn, top: int = 14):
     for key, (us, count) in sorted(ours.items()):
         print(f"  port kernel {key[:80]}: {us / 1e3:.3f} ms x{count}",
               flush=True)
+    return rows
 
 
 def main() -> int:
@@ -2070,6 +2535,45 @@ def main() -> int:
           launches(K1=3, K3=1))
     train(cfg_upf, "6-camera unbatched pose frames", "even",
           launches(K1=3, K2=3, K3=1, K4=1, K5=4))
+    # the evaluation and the training loop: the full-width model through
+    # Trainer.evaluate (batch 4) and Trainer.learn (pinned prefetch), then
+    # the command lines on the tiny config
+    check_prefetch(cfg, device)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        for mp, label, per_batch, tols in (
+                (False, "6-camera", launches(K1=1, K3=1),
+                 (FWD_RTOL, POSE_ATOL, EVAL_METRIC_RTOL,
+                  EVAL_FRACTION_ATOL)),
+                (True, "6-camera bf16",
+                 launches(**{"K1-bf16": 1, "K3-bf16": 1}),
+                 (BF16_FWD_RTOL, BF16_POSE_ATOL, BF16_EVAL_METRIC_RTOL,
+                  BF16_EVAL_FRACTION_ATOL))):
+            cfg_eval = get_config(str(CONFIG), mode="eval")
+            cfg_eval.set("mixed_precision", mp)
+            counts, ms, metric, median = run_evaluation_path(
+                cfg_eval, device, label, per_batch, tmp / f"eval_{mp}", tols)
+            b = cfg_eval.eval_batch_size
+            print(f"{label} evaluation path: {EVAL_BATCHES} batches of {b}, "
+                  f"per-batch ms {[round(m, 3) for m in ms]}, "
+                  f"{1e3 * b * len(ms) / sum(ms):.3f} framesets/s; metric "
+                  f"{json.dumps({k: round(v, 4) for k, v in metric.items()})}"
+                  f", median "
+                  f"{json.dumps({k: round(v, 4) for k, v in median.items()})}",
+                  flush=True)
+            paths[f"{label} evaluation"] = dict(launches=counts, ms=ms)
+            torch.cuda.empty_cache()
+        counts, ms = run_trainer_path(
+            get_config(str(CONFIG)), device, "6-camera trainer",
+            launches(K1=1, K2=1, K3=1, K4=1, K5=4),
+            launches(K1=1, K3=1, K5=4), tmp / "trainer")
+        print(f"6-camera trainer path: {TRAINER_EPOCHS * TRAINER_STEPS} "
+              f"steps at batch {cfg.batch_size}, the loop {ms:.3f} ms a step "
+              f"with the pinned prefetch", flush=True)
+        paths["6-camera trainer"] = dict(launches=counts, ms=[ms])
+        torch.cuda.empty_cache()
+        run_clis(tmp)
     for key, row in rows.items():
         by_path = {p: v["launches"][key] for p, v in paths.items()}
         check(sum(by_path.values()) > 0, f"{key} launched on no path")

@@ -17,10 +17,27 @@ from vfdepth_tpu_torch.training.model import VFDepthModel
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "vfdepth_tpu_torch"
-# the training slice's modules, named so a lost module fails loudly
+# the training slice's modules and the evaluation / training loop's, named
+# so a lost module fails loudly
 TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
                     "losses.composite", "ops.warp", "ops.ties",
-                    "training.step")
+                    "training.step", "utils.metrics", "utils.visualize",
+                    "utils.logger", "data.synthetic_scene", "data.factory",
+                    "data.loader", "training.checkpoint", "training.trainer",
+                    "eval", "train")
+# files outside both packages that import JAX: the JAX package's own entry
+# points and scripts, and the one converter that carries its checkpoints
+# into the port
+JAX_SIDE_FILES = {
+    "__graft_entry__.py", "bench.py", "eval.py", "train.py",
+    *(f"scripts/{name}.py" for name in (
+        "cold_start_diag", "cold_start_multiseed", "dump_tail_ops",
+        "op_rooflines", "smoke_forward", "time_gs3d", "time_gs3d_packed",
+        "time_kernels", "time_sweep", "time_warp_mxu", "tpu_ablate",
+        "tpu_bench_all", "tpu_learn_probe", "tpu_profile"))}
+BLOCK_JAX = ("import sys\n"
+             "for name in ('jax', 'jaxlib', 'flax', 'optax', 'vfdepth_tpu'):\n"
+             "    sys.modules[name] = None\n")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|vfdepth_tpu)\b",
                        re.M)
 
@@ -35,9 +52,7 @@ def test_port_imports_without_jax():
     """Every module of the port imports with jax, flax, optax and the JAX
     package blocked."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'vfdepth_tpu'):\n"
-        "    sys.modules[name] = None\n"
+        BLOCK_JAX + "import pkgutil, importlib\n"
         "import vfdepth_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
         "                                               pkg.__name__ + '.')]\n"
@@ -60,6 +75,47 @@ def test_no_jax_imports_in_sources():
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_only_the_converter_joins_the_two_packages():
+    """Outside the two packages, the files that import JAX are the JAX
+    package's own entry points and scripts, and the checkpoint converter;
+    none of the port's."""
+    files = sorted(ROOT.glob("*.py")) + sorted((ROOT / "scripts").glob("*.py"))
+    importers = {str(p.relative_to(ROOT)) for p in files
+                 if FORBIDDEN.search(p.read_text())}
+    assert importers - JAX_SIDE_FILES == {"scripts/convert_jax_checkpoint.py"}
+    assert "chip_smoke.py" not in importers
+
+
+@pytest.mark.parametrize("cli", ["eval", "train"])
+def test_port_clis_show_help_without_jax(cli):
+    code = (BLOCK_JAX + "import runpy\n"
+            f"sys.argv = ['vfdepth_tpu_torch.{cli}', '--help']\n"
+            f"runpy.run_module('vfdepth_tpu_torch.{cli}', run_name='__main__')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "--config_file" in res.stdout and "--cpu" in res.stdout
+
+
+def test_loop_and_clis_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """``resolve_device`` stays the default of the loader's prefetch, the
+    trainer (through its model) and both command lines."""
+    from vfdepth_tpu_torch import eval as eval_cli
+    from vfdepth_tpu_torch import train as train_cli
+    from vfdepth_tpu_torch.data import device_prefetch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(device_prefetch(iter([{"x": [1.0]}])))
+    assert next(device_prefetch(iter([{"x": [1.0]}]), device="cpu"))["x"] \
+        .device.type == "cpu"
+    args = ["--config_file", "configs/tiny_fake.yaml"]
+    for cli in (eval_cli, train_cli):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(args)
 
 
 def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):

@@ -36,6 +36,10 @@ of its size, 0.05 for the ~2000 additions the crowded points here give one
 plane entry (the JAX package's sequential bf16 scatter: 0.039 against f32).
 The bound is a cosine above 0.995 and a relative L2 difference below 0.1,
 against the plain version and against the f32-update form.
+
+Two checks of the data path on the card close the file, exact both:
+``device_prefetch`` against the pageable route, and a checkpoint moved
+between the card and the CPU.
 """
 import numpy as np
 import pytest
@@ -758,3 +762,96 @@ def test_sample3d_vector_paths(c, dtype):
     assert (out[:, [10, 12]] == 0).all()
     view = torch.int16 if bf16 else torch.int32
     assert torch.equal(out.view(view), again.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ahead", [1, 2])
+def test_device_prefetch_matches_pageable_route(ahead):
+    """50 full-width batches (6 cameras at 384x640, 5 distinct ones in
+    turn, one float64) through ``device_prefetch`` (pinned, on a side
+    stream) against the pageable route (``VFDepthModel._to_device``'s
+    ``.to(device, float32)``), every tensor bit for bit. Each case is built
+    so that one fault shows on every batch. One batch ahead, the consumer
+    reads each batch as soon as it is yielded, its own stream empty: a
+    consumer that did not wait for the copies, queued just before, would
+    read memory still being written. Two batches ahead (the trainer's
+    depth), the consumer queues 60 ms of device work before each read and
+    drops the batch at once: the next batch is pinned and copied well
+    within that time, so memory handed back to the side stream without
+    ``record_stream`` would hold the next batch when it is read."""
+    _need_cuda()
+    from vfdepth_tpu_torch.data import FakeDataset, device_prefetch
+    dev = torch.device("cuda")
+    ds = FakeDataset(num_samples=5, num_cams=6, height=384, width=640,
+                     fusion_level=2, with_depth=True)
+    distinct = [ds.batch([i]) for i in range(5)]
+    distinct[1] = {k: v.astype(np.float64) for k, v in distinct[1].items()}
+    refs = [{k: torch.as_tensor(v).to(dev, torch.float32)
+             for k, v in b.items()} for b in distinct]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    start.record()
+    torch.cuda._sleep(2 * 10 ** 7)
+    end.record()
+    end.synchronize()
+    sleep = int(60 * 2 * 10 ** 7 / start.elapsed_time(end))
+    consumer = torch.cuda.current_stream(dev)
+    mismatches = []
+    n = 0
+    torch.cuda.synchronize()
+    for got in device_prefetch((distinct[i % 5] for i in range(50)),
+                               size=ahead, device=dev):
+        if ahead == 2:
+            torch.cuda._sleep(sleep)
+        ref = refs[n % 5]
+        assert got.keys() == ref.keys()
+        mismatches.append(sum((got[k].view(torch.int32)
+                               != ref[k].view(torch.int32)).sum()
+                              for k in ref))
+        del got
+        if ahead == 1:
+            consumer.synchronize()
+        n += 1
+    assert n == 50
+    assert int(torch.stack(mismatches).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_moves_between_card_and_cpu(tmp_path):
+    """A checkpoint written from the card loads on the CPU, and one written
+    from the CPU loads on the card: parameters, BatchNorm statistics and
+    Adam's moments bit for bit, the update count on the CPU."""
+    _need_cuda()
+    from vfdepth_tpu_torch import presets
+    from vfdepth_tpu_torch.data import FakeDataset
+    from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
+                                            load_checkpoint, save_checkpoint,
+                                            train_step)
+    cfg = presets.micro_config()
+    card = VFDepthModel(cfg, device="cuda")
+    opt = create_train_state(card)
+    ds = FakeDataset(num_samples=1, num_cams=cfg.num_cams, height=cfg.height,
+                     width=cfg.width, fusion_level=cfg.fusion_level,
+                     rig="nuscenes")
+    train_step(card, opt, ds.batch([0]), 0,
+               torch.Generator("cuda").manual_seed(0))
+    path = save_checkpoint(str(tmp_path / "card"), 0, card, opt, 1)
+
+    def same(a, a_opt, b, b_opt):
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(x.cpu(), y.cpu()), k
+        for p, q in zip(a.parameters(), b.parameters()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(a_opt.state[p][key].cpu(),
+                                   b_opt.state[q][key].cpu()), key
+            assert b_opt.state[q]["step"].device.type == "cpu"
+            assert b_opt.state[q]["exp_avg"].device == q.device
+
+    cpu = VFDepthModel(cfg, device="cpu", seed=3)
+    cpu_opt = create_train_state(cpu)
+    assert load_checkpoint(path, cpu, cpu_opt) == 1
+    same(card, opt, cpu, cpu_opt)
+    path = save_checkpoint(str(tmp_path / "cpu"), 0, cpu, cpu_opt, 1)
+    back = VFDepthModel(cfg, device="cuda", seed=4)
+    back_opt = create_train_state(back)
+    assert load_checkpoint(path, back, back_opt) == 1
+    same(cpu, cpu_opt, back, back_opt)

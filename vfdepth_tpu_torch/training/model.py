@@ -22,7 +22,9 @@ predicts pose.
   statistics), then ``relative_cam_poses``, ``render_views`` (kernel K5)
   and ``total_loss``; returns (outputs, loss, logs). Its backward runs the
   kernels K2 (of K1) or K2b (of K1b), K4 (of K3) and K5's coordinate
-  gradient.
+  gradient. ``forward(..., train=False)`` is the eval step's pipeline
+  (BatchNorm in eval mode), optionally with the warped views for the
+  image panels (``return_renders``).
 
 ``tpu.mixed_precision: true`` computes every network in bf16 as the JAX
 package does (``compute_dtype``; parameters, BatchNorm statistics and Adam
@@ -348,15 +350,23 @@ class VFDepthModel(nn.Module):
         return (len(self.scales), b, cams, len(self.frame_ids) - 1, h, w, 1)
 
     def forward(self, batch: Mapping, step=None,
-                noise: Optional[torch.Tensor] = None):
-        """One training forward with the loss -> (outputs, loss, logs).
+                noise: Optional[torch.Tensor] = None, train: bool = True,
+                return_renders: bool = False):
+        """The whole pipeline with the loss -> (outputs, loss, logs).
 
-        BatchNorm runs in train mode: batch statistics, running statistics
-        updated in place. ``step`` drives the cold-start schedule when the
-        config sets one. ``noise`` [n_scales, b, cams, n_ctx, H, W, 1]
-        (``noise_shape``) holds the standard normals of the identity-loss
-        tie-break (the JAX package draws them from its key; see
-        ``training/step.py train_step``).
+        With ``train`` BatchNorm runs in train mode (batch statistics,
+        running statistics updated in place); without it in eval mode, on
+        the running statistics, which stay as they are (JAX
+        ``forward(train=False)``, the eval step's). ``step`` drives the
+        cold-start schedule when the config sets one. ``noise`` [n_scales,
+        b, cams, n_ctx, H, W, 1] (``noise_shape``) holds the standard
+        normals of the identity-loss tie-break (the JAX package draws them
+        from its key; see ``training/step.py train_step``).
+        ``return_renders`` adds the smallest scale's warped views and the
+        reprojection map and mask to the outputs (``temporal_img`` /
+        ``temporal_mask``, ``overlap_img`` / ``overlap_mask`` where the
+        overlap losses are on, ``reproj_map`` / ``reproj_mask``), for the
+        logger's image panels.
         """
         if self.loss_cfg.aug_depth:
             raise NotImplementedError("the depth-synthesis branch is not "
@@ -364,7 +374,7 @@ class VFDepthModel(nn.Module):
         x = self._to_device(batch)
         if noise is None or tuple(noise.shape) != self.noise_shape(x):
             raise ValueError(f"noise must have shape {self.noise_shape(x)}")
-        with self._bn_mode(True):
+        with self._bn_mode(train):
             cam_t_cam, disps = self._predict(x)
         k0 = x["K/0"]
         depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
@@ -387,4 +397,13 @@ class VFDepthModel(nn.Module):
         for s in self.scales:
             outputs[f"disp/{s}"] = disps[s]
             outputs[f"depth/{s}"] = depths[s]
+        if return_renders:
+            r0 = rendered[min(self.scales)]
+            outputs["temporal_img"] = r0.temporal_img
+            outputs["temporal_mask"] = r0.temporal_mask
+            if r0.overlap_img is not None:
+                outputs["overlap_img"] = r0.overlap_img
+                outputs["overlap_mask"] = r0.overlap_mask
+            outputs["reproj_map"] = logs["reproj_map"]
+            outputs["reproj_mask"] = logs["reproj_mask"]
         return outputs, loss, logs

@@ -1,5 +1,6 @@
-"""One training step (port of ``vfdepth_tpu/training/step.py``'s optimizer
-and ``build_train_step`` body).
+"""The training and evaluation steps (port of
+``vfdepth_tpu/training/step.py``'s optimizer, ``build_train_step`` body and
+``build_eval_step``).
 
 Optimizer parity with the JAX package (optax): one Adam over both nets
 (b1 0.9, b2 0.999, eps 1e-8, eps_root 0 -- ``torch.optim.Adam``'s update
@@ -11,11 +12,11 @@ linearly to exactly 1.0. ``count`` is the number of updates already made,
 as optax counts. The schedule's numbers ride in each parameter group, so
 the optimizer alone carries them.
 
-The trainer loop, checkpoints and the CLIs are not ported yet.
+The epoch loop around these steps is ``training/trainer.py``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -97,19 +98,44 @@ def create_train_state(model: VFDepthModel,
                           boost_fade_steps=max(ramp, 1))
 
 
+def _draw_noise(model: VFDepthModel, batch: Mapping,
+                generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(model.noise_shape(batch), generator=generator,
+                       device=generator.device)
+
+
+def _scalars(logs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in logs.items() if v.dim() == 0}
+
+
 def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
-               batch: Mapping, step: int,
-               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+               batch: Mapping, step: int, generator: torch.Generator,
+               noise: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
     """Forward, loss, backward and one Adam update at global step ``step``
     (the number of updates made before it). The identity tie-break noise
-    is drawn from ``generator`` (on its device). Returns the scalar logs,
-    detached, on the model's device."""
+    is ``noise`` where given (``model.noise_shape(batch)``), else drawn from
+    ``generator`` (on its device). Returns the scalar logs, detached, on the
+    model's device."""
     for group in optimizer.param_groups:
         group["lr"] = lr_at(group, step)
     optimizer.zero_grad(set_to_none=True)
-    noise = torch.randn(model.noise_shape(batch), generator=generator,
-                        device=generator.device)
+    if noise is None:
+        noise = _draw_noise(model, batch, generator)
     _, loss, logs = model(batch, step=step, noise=noise)
     loss.backward()
     optimizer.step()
-    return {k: v.detach() for k, v in logs.items() if v.dim() == 0}
+    return _scalars(logs)
+
+
+@torch.no_grad()
+def eval_step(model: VFDepthModel, batch: Mapping,
+              generator: torch.Generator, return_renders: bool = False
+              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The forward and the loss with BatchNorm in eval mode, no gradient
+    (JAX ``build_eval_step``): (outputs, scalar logs). The tie-break noise
+    is drawn from ``generator``; ``return_renders`` adds the warped views
+    for the image panels (``VFDepthModel.forward``)."""
+    outputs, _, logs = model(batch, noise=_draw_noise(model, batch, generator),
+                             train=False, return_renders=return_renders)
+    return outputs, _scalars(logs)

@@ -1,0 +1,203 @@
+"""Host-side training / evaluation loop on one device (port of
+``vfdepth_tpu/training/trainer.py``, the reference's ``VFDepthTrainer``).
+
+The epoch / step loop with the reference's logging cadence, periodic
+single-batch validation (a cycled iterator), per-epoch checkpoints, and the
+full evaluation with metric and median-scaled depth metrics. Each step is
+``training/step.py train_step`` (forward, loss, backward, one Adam update
+with the StepLR schedule and the pose-LR boost of ``create_train_state``);
+training batches reach the card through ``data/loader.py device_prefetch``.
+
+Left out, each with its ROADMAP item:
+  * the mesh branches of the JAX ``_build_step`` and its process-0 rule
+    (A7): one device, one process, one ``train_step``;
+  * ``_note_warp_overflow``'s dense fallback (A8): the port's warps are
+    dense and log no overflow;
+  * ``evaluate``'s depth-synthesis sweep (``syn_visualize``, A5) raises.
+
+Randomness is explicit: ``learn``'s ``seed`` seeds the ``torch.Generator``
+(on the model's device) that draws each step's tie-break noise; validation
+and the image panels draw from a generator of their own, so the training
+noise does not depend on the log cadence. ``noise_fn(step, shape)``, where
+given, supplies each step's noise instead (how a test hands in the JAX
+package's draws).
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .checkpoint import load_checkpoint, save_checkpoint
+from .model import VFDepthModel
+from .step import create_train_state, eval_step, train_step
+from ..data.loader import device_prefetch
+from ..utils.logger import Logger
+from ..utils.metrics import METRIC_NAMES, compute_depth_metrics
+
+NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
+
+
+def _numpy(tree: Mapping) -> Dict[str, np.ndarray]:
+    """The arrays and tensors of a batch or outputs dict as f32 numpy
+    arrays on the host (what the logger and the metrics read)."""
+    return {k: (v.detach().float().cpu().numpy()
+                if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in tree.items() if hasattr(v, "shape")}
+
+
+class Trainer:
+    def __init__(self, cfg, model: VFDepthModel, use_tb: bool = True):
+        self.cfg = cfg
+        self.model = model
+        self.num_epochs = cfg.num_epochs
+        # one process, so no process-0 rule for logs and checkpoints (A7)
+        self.logger = Logger(cfg, use_tb)
+
+    # ------------------------------------------------------------------
+    def learn(self, train_loader, val_loader=None, seed: int = 42,
+              max_steps: Optional[int] = None,
+              noise_fn: Optional[NoiseFn] = None) -> torch.optim.Optimizer:
+        """Full training run of ``self.model`` in place; returns the
+        optimizer. ``train_loader`` (a ``BatchLoader``) / ``val_loader``
+        yield numpy batch dicts (already collated, NHWC). The StepLR
+        boundary counts the loader's ``steps_per_epoch`` optimizer
+        updates."""
+        model = self.model
+        optimizer = create_train_state(
+            model, steps_per_epoch=train_loader.steps_per_epoch)
+        step = 0
+        if self.cfg.get("pretrain", False):
+            saved_step = load_checkpoint(self.cfg.load_weights_dir, model,
+                                         optimizer, self.cfg.models_to_load,
+                                         load_optimizer=True)
+            if saved_step is not None:
+                step = saved_step
+
+        device = model.device
+        train_gen = torch.Generator(device).manual_seed(seed)
+        eval_gen = torch.Generator(device).manual_seed(seed)
+        val_iter = iter(val_loader) if val_loader is not None else None
+        prefetch_depth = self.cfg.get("prefetch_depth", 2)
+
+        start_time = time.time()
+        for epoch in range(self.num_epochs):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            # uploads overlap the device's work on the current step
+            epoch_iter = device_prefetch(train_loader, size=prefetch_depth,
+                                         device=device)
+            for batch_idx, batch in enumerate(epoch_iter):
+                before = time.time()
+                noise = (noise_fn(step, model.noise_shape(batch))
+                         if noise_fn is not None else None)
+                logs = train_step(model, optimizer, batch, step, train_gen,
+                                  noise=noise)
+
+                if self.logger.is_checkpoint(step):
+                    logs = {k: float(v) for k, v in logs.items()}
+                    self.logger.log_time(
+                        epoch, batch_idx, time.time() - before,
+                        logs.get("total_loss", float("nan")), start_time)
+                    self.logger.log_scalars("train", logs, step)
+                    # train-batch panels (the reference logs its full panel
+                    # set from the training batch): one more forward, with
+                    # BatchNorm in eval mode, only where a writer takes them
+                    if self.logger.writers.get("train") is not None:
+                        p_out, _ = eval_step(model, batch, eval_gen,
+                                             return_renders=True)
+                        self.logger.log_images("train", _numpy(batch),
+                                               _numpy(p_out), step)
+                    if val_iter is not None:
+                        val_iter = self._validate(val_loader, val_iter,
+                                                  eval_gen, step)
+                step += 1
+                if max_steps is not None and step >= max_steps:
+                    break
+
+            # the reference saves every `save_frequency` epochs
+            # (trainer/vfdepth_trainer.py:46-47), and the JAX package at the
+            # last epoch too
+            save_freq = max(int(self.cfg.get("save_frequency", 1) or 1), 1)
+            if (epoch + 1) % save_freq == 0 or epoch == self.num_epochs - 1:
+                save_checkpoint(self.cfg.save_weights_root, epoch, model,
+                                optimizer, step)
+            print("-" * 110)
+            if max_steps is not None and step >= max_steps:
+                break
+        self.logger.close()
+        return optimizer
+
+    def _validate(self, val_loader, val_iter, generator: torch.Generator,
+                  step: int):
+        """Single-batch validation at log checkpoints; cycles the iterator
+        (the reference's ``next(self.val_iter)`` stops at exhaustion)."""
+        try:
+            batch = next(val_iter)
+        except StopIteration:
+            val_iter = iter(val_loader)
+            batch = next(val_iter)
+        outputs, logs = eval_step(self.model, batch, generator,
+                                  return_renders=True)
+        logs = {k: float(v) for k, v in logs.items()}
+        if "depth" in batch:
+            metric, median, med_scale = compute_depth_metrics(
+                np.asarray(batch["depth"]),
+                outputs["depth/0"].float().cpu().numpy(),
+                np.asarray(batch["mask"]),
+                self.cfg.eval_min_depth, self.cfg.eval_max_depth)
+            print(f"          | median scale = {med_scale}")
+            self.logger.print_perf(metric, "metric")
+            self.logger.print_perf(median, "median")
+        self.logger.log_scalars("val", logs, step)
+        if self.logger.writers.get("val") is not None:
+            self.logger.log_images("val", _numpy(batch), _numpy(outputs),
+                                   step)
+        return val_iter
+
+    # ------------------------------------------------------------------
+    def evaluate(self, eval_loader, vis_results: bool = False,
+                 load_weights: bool = True):
+        """Full-dataset evaluation (the reference's ``evaluate``:112-152):
+        (average metric dict, average median-scaled dict) over batches.
+
+        Each batch goes through ``VFDepthModel.predict``. The JAX package
+        runs its eval step here and discards the loss; only ``depth/0``
+        reaches the metrics, and predict computes the same tensor, so the
+        warps and the loss are skipped.
+        """
+        if self.cfg.get("syn_visualize", False):
+            raise NotImplementedError(
+                "the depth-synthesis sweep (syn_visualize) is not ported yet "
+                "(ROADMAP A5)")
+        if load_weights:
+            load_checkpoint(self.cfg.load_weights_dir, self.model,
+                            models_to_load=self.cfg.models_to_load,
+                            load_optimizer=False)
+
+        avg_metric = {k: 0.0 for k in METRIC_NAMES}
+        avg_median = {k: 0.0 for k in METRIC_NAMES}
+        n_batches = 0
+        for batch_idx, batch in enumerate(eval_loader):
+            outputs = self.model.predict(batch)
+            metric, median, _ = compute_depth_metrics(
+                np.asarray(batch["depth"]),
+                outputs["depth/0"].float().cpu().numpy(),
+                np.asarray(batch["mask"]),
+                self.cfg.eval_min_depth, self.cfg.eval_max_depth)
+            for k in METRIC_NAMES:
+                avg_metric[k] += metric[k]
+                avg_median[k] += median[k]
+            n_batches += 1
+            if vis_results:
+                self.logger.log_result(_numpy(outputs), batch_idx)
+
+        for k in METRIC_NAMES:
+            avg_metric[k] /= max(n_batches, 1)
+            avg_median[k] /= max(n_batches, 1)
+        print("Evaluation result...\n")
+        self.logger.print_perf(avg_metric, "metric")
+        self.logger.print_perf(avg_median, "median")
+        return avg_metric, avg_median

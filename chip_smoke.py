@@ -115,7 +115,34 @@ Phases (any failure exits non-zero):
     ``configs/tiny_fake.yaml``, its ``log_dir`` moved to a temporary
     directory) and ``python3 -m vfdepth_tpu_torch.eval`` on the
     ``weights_0`` it wrote, both on the card, both exiting 0, eval printing
-    its metric and median lines.
+    its metric and median lines;
+11. the fsm (Monodepth2) baseline at full width (``fsm_config``:
+    ``presets.build_config`` with the DDAD rig, 6 cameras at 384x640,
+    ``depth_model`` / ``pose_model`` fsm, ``ddad_baseline.yaml``'s loss),
+    f32 and bf16: 3 requests (no kernel: no voxel volume), 3 training
+    steps at batch 2 (K5 or K5-bf16 4 a step; step 1 against the plain
+    versions; K5's 4 calls of the warm-up step against the plain warp and
+    timed), ``Trainer.learn`` (2 epochs of 2 steps, validation at steps 0
+    and 2, a checkpoint an epoch; K5 4 a step and a validation) and
+    ``Trainer.evaluate`` of ``weights_1`` with ``models_to_load:
+    [depth_net]`` into a model of other weights (the depth net loaded, the
+    pose net not; no kernel; metrics against a plain evaluation);
+12. the host pipeline at DDAD's native 1216x1936, no decode: the native
+    resize of 18 frames (uint8 and f32) to 384x640 against a numpy float64
+    bilinear of the same rule, the LiDAR projection of a 120,000-point
+    sweep into 6 cameras, ``assemble_sample`` with the train-mode jitter,
+    each timed, and one batch of two assembled samples through a fsm
+    training step; then, where PIL is installed (else one line says it is
+    not), the readers: a DGP fixture (a train scene of 4 and a val scene
+    of 3 samples x 6 cameras at 1216x1936, PNG, LiDAR sweeps) and a
+    nuScenes one (3 samples x 3 sweeps x 6 cameras at 900x1600, JPEG)
+    written to a temporary directory; per dataset one sample's host work
+    timed in train mode and in val mode (LiDAR depth uncached) and one
+    image's decode; each read through ``construct_dataset`` ->
+    ``BatchLoader`` -> ``device_prefetch`` by the published fusion and fsm
+    configs (``configs/{ddad,nuscenes}/*_surround_fusion.yaml``,
+    ``*_baseline.yaml``, the fixture's path and the repository's masks) for
+    2 training steps each (launches checked, the rig read back).
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -2353,6 +2380,611 @@ def run_clis(tmp):
         print(f"CLI eval: {line.strip()}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the fsm (Monodepth2) baseline and the DDAD / nuScenes readers
+FSM_LEARN_EPOCHS, FSM_LEARN_STEPS = 2, 2     # steps an epoch
+READER_STEPS = 2                             # training steps per reader path
+DDAD_RAW_HW = (1216, 1936)                   # DDAD's native camera images
+NUSC_RAW_HW = (900, 1600)
+RESIZE_FRAMES = 18                           # 6 cameras x 3 frames
+# the native resize against a numpy float64 bilinear of the same rule: the
+# library sums 4 f32 products (fma contraction) and, for uint8, scales by
+# an f32 1/255 after the sum; values lie in [0, 1]
+RESIZE_ATOL = 1e-6
+LIDAR_POINTS = 120_000                       # about one DDAD sweep
+
+
+def fsm_config(mixed_precision: bool = False):
+    """The fsm baseline at full width: ``presets.build_config`` with the
+    DDAD rig (6 cameras, 384x640, frame_ids [0, -1, 1], scales [0]) and
+    ``depth_model`` / ``pose_model`` fsm, with
+    ``configs/ddad/ddad_baseline.yaml``'s loss and depth range."""
+    from vfdepth_tpu_torch import presets
+    from vfdepth_tpu_torch.config import get_config
+    cfg = presets.build_config(depth_model="fsm", pose_model="fsm",
+                               mixed_precision=mixed_precision)
+    baseline = get_config(str(ROOT / "configs" / "ddad" /
+                              "ddad_baseline.yaml"))
+    for key in ("disparity_smoothness", "spatio_coeff", "spatio_tempo_coeff",
+                "pose_loss_coeff", "min_depth", "max_depth"):
+        cfg.set(key, baseline.get(key))
+    check(cfg.pose_loss_coeff > 0, "the baseline's pose-consistency loss")
+    return cfg
+
+
+def check_k5_calls(key, row, calls, label):
+    """K5's calls of one step of another path (``capture_k5``) against
+    the plain warp; their errors join the row's ``max_abs_err`` and their
+    times go into the row under ``label``."""
+    from vfdepth_tpu_torch.ops.warp import (warp_image_mask_maps,
+                                            warp_image_mask_maps_plain)
+    check(len(calls) == 4, f"{key} ({label}): {len(calls)} calls in a step, "
+                           "expected 4")
+    tol = BF16_STEP if key.endswith("bf16") else K5_TOL
+    errs, times = [], []
+    for img, mask, coords in calls:
+        got = warp_image_mask_maps(img, mask, coords)
+        ref = warp_image_mask_maps_plain(img, mask, coords)
+        errs.append(max((a.float() - r.float()).abs().max().item()
+                        for a, r in zip(got, ref)))
+        del got, ref
+        times.append(time_ms(lambda: warp_image_mask_maps(img, mask,
+                                                          coords)))
+    check(max(errs) <= tol, f"{key} on the {label} step's coordinates "
+                            f"differs from its plain version: {max(errs)}")
+    row["max_abs_err"] = max(row["max_abs_err"], max(errs))
+    row[f"{label}_step_call_ms"] = times
+    print(f"{key} on the {label} step's coordinates: 4 calls against plain, "
+          f"max_abs_err {max(errs):.3e} (tol {tol:.1e}); per call "
+          f"{[round(t, 4) for t in times]} ms", flush=True)
+
+
+def run_fsm_learn_evaluate(cfg, device, label, per_step, per_validation,
+                           tmp):
+    """``Trainer.learn`` on the fsm baseline: ``FSM_LEARN_EPOCHS`` epochs
+    of ``FSM_LEARN_STEPS`` full-width steps from a shuffled ``BatchLoader``
+    through ``device_prefetch``, validation at steps 0 and 2, a checkpoint
+    each epoch; then ``Trainer.evaluate`` of ``weights_1`` with
+    ``models_to_load: [depth_net]`` (the baseline config's) into a model of
+    other weights, over 2 batches, against a plain evaluation. Returns
+    (launches over learn, launches over evaluate, the loop's ms a step,
+    the evaluation's per-batch ms)."""
+    from vfdepth_tpu_torch.data import BatchLoader, FakeDataset
+    from vfdepth_tpu_torch.training import Trainer, VFDepthModel
+    from vfdepth_tpu_torch.training import trainer as trainer_module
+    b = cfg.batch_size
+    n = FSM_LEARN_EPOCHS * FSM_LEARN_STEPS
+    for key, value in (("num_fake_samples", b * FSM_LEARN_STEPS),
+                       ("num_epochs", FSM_LEARN_EPOCHS), ("log_frequency", 2),
+                       ("early_phase", 1000), ("late_log_frequency", 1000),
+                       ("save_frequency", 1), ("log_path", str(tmp / "log")),
+                       ("save_weights_root", str(tmp / "models"))):
+        cfg.set(key, value)
+
+    def fake(count, with_depth):
+        return FakeDataset(num_samples=count, num_cams=cfg.num_cams,
+                           height=cfg.height, width=cfg.width,
+                           frame_ids=tuple(cfg.frame_ids),
+                           fusion_level=cfg.fusion_level, rig="even",
+                           with_depth=with_depth)
+    model = VFDepthModel(cfg, device=device, seed=0)
+    trainer = Trainer(cfg, model, use_tb=False)
+    steps, validations = [], []
+    real_step, real_validate = trainer_module.train_step, trainer._validate
+
+    def counted(fn, record):
+        def run(*args, **kwargs):
+            before = read_counts()
+            out = fn(*args, **kwargs)
+            record.append(_delta(before))
+            return out
+        return run
+    trainer_module.train_step = counted(real_step, steps)
+    trainer._validate = counted(real_validate, validations)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        trainer.learn(BatchLoader(fake(b * FSM_LEARN_STEPS, False), b,
+                                  shuffle=True, num_workers=2),
+                      BatchLoader(fake(b, True), b, shuffle=False,
+                                  num_workers=0), seed=0)
+        torch.cuda.synchronize()
+    finally:
+        trainer_module.train_step = real_step
+    wall = (time.perf_counter() - t0) * 1e3
+    learn_counts = read_counts()
+    check(len(steps) == n, f"{label}: {len(steps)} steps, expected {n}")
+    check(all(d == per_step for d in steps),
+          f"{label} learn: launches a step {steps}, expected {per_step}")
+    check(len(validations) == 2 and all(d == per_validation
+                                        for d in validations),
+          f"{label} learn: validations {validations}, expected 2 of "
+          f"{per_validation}")
+    path = Path(cfg.save_weights_root)
+    check(sorted(p.name for p in path.iterdir()) == ["weights_0",
+                                                     "weights_1"],
+          f"{label}: checkpoints {sorted(path.iterdir())}")
+    print(f"{label}: learn() {wall:.2f} ms wall for {n} steps, 2 "
+          f"validations and 2 checkpoint writes ({wall / n:.2f} ms a step "
+          f"with them)", flush=True)
+
+    cfg.set("models_to_load", ["depth_net"])
+    cfg.set("load_weights_dir", str(path / "weights_1"))
+    fresh = VFDepthModel(cfg, device=device, seed=1)
+    loader = BatchLoader(fake(2 * b, True), b, shuffle=False, num_workers=0)
+    fresh.predict(loader.dataset.batch(list(range(b))))      # warm-up
+    record = []
+    real_predict = fresh.predict
+
+    def timed(batch):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_predict(batch)
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t) * 1e3, _delta(before)))
+        return out
+    fresh.predict = timed
+    reset_counts()
+    metric, median = Trainer(cfg, fresh, use_tb=False).evaluate(loader)
+    eval_counts = read_counts()
+    del fresh.predict
+    check(len(record) == 2 and all(d == launches() for _, d in record),
+          f"{label} evaluate: launches a batch {[d for _, d in record]}, "
+          "expected none")
+    for name, loaded in (("depth_net", True), ("pose_net", False)):
+        live = getattr(fresh, name).state_dict()
+        trained = getattr(model, name).state_dict()
+        same = all(torch.equal(v, trained[k]) for k, v in live.items())
+        check(same == loaded, f"{label} evaluate: {name} "
+                              f"{'not ' if loaded else ''}loaded from "
+                              "weights_1 (models_to_load: [depth_net])")
+    check(all(math.isfinite(v) for v in (*metric.values(), *median.values())),
+          f"{label} evaluate: metrics not finite")
+    fresh.plain_samplers = True
+    plain = Trainer(cfg, fresh, use_tb=False).evaluate(loader,
+                                                       load_weights=False)
+    fresh.plain_samplers = False
+    for got_d, ref_d in zip((metric, median), plain):
+        for k, r in ref_d.items():
+            check(abs(got_d[k] - r) <= EVAL_METRIC_RTOL * abs(r) + 1e-12,
+                  f"{label} evaluate {k}: {got_d[k]} vs plain {r}")
+    ms = [m for m, _ in record]
+    print(f"{label} evaluate (weights_1, models_to_load [depth_net]): "
+          f"per-batch ms {[round(m, 3) for m in ms]} at batch {b}, "
+          f"{1e3 * b * len(ms) / sum(ms):.3f} framesets/s; metric "
+          f"{json.dumps({k: round(v, 4) for k, v in metric.items()})}",
+          flush=True)
+    del model, fresh
+    return learn_counts, eval_counts, wall / n, ms
+
+
+def _bilinear_plain(frames, out_hw):
+    """The native resize's rule in numpy float64: half-pixel centres
+    clamped to the image, bilinear taps; uint8 frames scaled by 1/255."""
+    import numpy as np
+
+    def axis(n_in, n_out):
+        src = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0,
+                      n_in - 1)
+        lo = np.floor(src).astype(np.int64)
+        return lo, np.minimum(lo + 1, n_in - 1), src - lo
+    y0, y1, wy = axis(frames.shape[1], out_hw[0])
+    x0, x1, wx = axis(frames.shape[2], out_hw[1])
+    f = frames.astype(np.float64)
+    if frames.dtype == np.uint8:
+        f /= 255.0
+    rows = (f[:, y0] * (1 - wy)[:, None, None] + f[:, y1] * wy[:, None, None])
+    return (rows[:, :, x0] * (1 - wx)[:, None] + rows[:, :, x1] * wx[:, None])
+
+
+def _median_ms(fn, reps: int = 5):
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _smooth_frame(rng, hw):
+    """A uint8 camera frame of smooth gradients and mild noise (quick to
+    encode, unlike white noise)."""
+    import numpy as np
+    h, w = hw
+    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                         np.linspace(0, 1, w, dtype=np.float32),
+                         indexing="ij")
+    phase = rng.uniform(0, 6.28, 3).astype(np.float32)
+    img = np.stack([0.5 + 0.4 * np.sin(6 * xx + 3 * yy + p) for p in phase],
+                   axis=-1)
+    img += rng.uniform(-0.03, 0.03, img.shape).astype(np.float32)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+class _Frames:
+    """Distinct fixture frames made cheaply: 4 smooth base frames, each
+    drawn one rolled by a seeded offset."""
+
+    def __init__(self, rng, hw):
+        self.rng = rng
+        self.base = [_smooth_frame(rng, hw) for _ in range(4)]
+
+    def __call__(self):
+        import numpy as np
+        frame = self.base[self.rng.randint(len(self.base))]
+        return np.roll(frame, tuple(self.rng.randint(0, 64, 2)), axis=(0, 1))
+
+
+def _lidar_points(rng, n):
+    """A synthetic sweep in the LiDAR frame (x forward): points on a ring
+    of walls 5-40 m away and on the ground."""
+    import numpy as np
+    az = rng.uniform(-np.pi, np.pi, n)
+    r = rng.uniform(5.0, 40.0, n)
+    z = rng.uniform(-1.8, 2.0, n)
+    return np.stack([r * np.cos(az), r * np.sin(az), z], axis=1)
+
+
+def run_host_pipeline(device, fsm_model, fsm_opt, paths):
+    """What needs no image decode, at DDAD's native size: the native
+    resize of ``RESIZE_FRAMES`` frames 1216x1936 -> the model's 384x640
+    (uint8, and
+    f32 as the readers hand it) against the numpy rule, the LiDAR
+    projection of a synthetic sweep into 6 cameras, ``assemble_sample``
+    with the train-mode colour jitter; each timed (host clock, median of
+    5; ``assemble_sample`` of 3). Then one batch of two assembled samples through a training step of
+    the fsm model on the card."""
+    import numpy as np
+    from vfdepth_tpu_torch.data.contract import required_keys
+    from vfdepth_tpu_torch.data.depth_projection import lidar_to_camera_depth
+    from vfdepth_tpu_torch.data.transforms import assemble_sample
+    from vfdepth_tpu_torch.native import resize_batch
+    from vfdepth_tpu_torch.training import train_step
+
+    rng = np.random.RandomState(7)
+    hw, raw = (fsm_model.height, fsm_model.width), DDAD_RAW_HW
+    gen = _Frames(rng, raw)
+    frames = np.stack([gen() for _ in range(RESIZE_FRAMES)])
+    frames_f32 = frames.astype(np.float32) / 255.0
+    for name, src in (("uint8", frames), ("f32", frames_f32)):
+        got = resize_batch(src, hw)
+        err = float(np.abs(got[:2] - _bilinear_plain(src[:2], hw)).max())
+        check(err <= RESIZE_ATOL, f"native resize ({name}) differs from the "
+                                  f"numpy rule by {err}")
+        ms = _median_ms(lambda: resize_batch(src, hw))
+        print(f"host: native resize of {RESIZE_FRAMES} {name} frames "
+              f"{raw[0]}x{raw[1]} -> {hw[0]}x{hw[1]} (4 threads): {ms:.2f} "
+              f"ms ({ms / RESIZE_FRAMES:.2f} ms a frame); frames 0-1 against "
+              f"the numpy rule max_abs_err {err:.2e} (tol {RESIZE_ATOL:g})",
+              flush=True)
+
+    cams = 6
+    k_full = np.tile(np.eye(4), (cams, 1, 1))
+    k_full[:, 0, 0] = k_full[:, 1, 1] = 2000.0
+    k_full[:, 0, 2], k_full[:, 1, 2] = raw[1] / 2, raw[0] / 2
+    ext = fixture_rig(cams)[1]
+    lidar_to_ref = np.eye(4)
+    lidar_to_ref[2, 3] = 1.8
+    points = _lidar_points(rng, LIDAR_POINTS)
+
+    def project():
+        return np.stack([lidar_to_camera_depth(points, lidar_to_ref, ext[c],
+                                               k_full[c], *raw)
+                         for c in range(cams)])
+    depth = project()
+    hits = int((depth > 0).sum())
+    check(hits > 1000 and float(depth.max()) < 60.0,
+          f"LiDAR projection: {hits} returns, max {depth.max()}")
+    ms = _median_ms(project)
+    print(f"host: LiDAR projection of {LIDAR_POINTS} points into {cams} "
+          f"cameras at {raw[0]}x{raw[1]}: {ms:.2f} ms, {hits} returns",
+          flush=True)
+
+    images = {f: frames_f32[i * cams:(i + 1) * cams]
+              for i, f in enumerate((0, -1, 1))}
+    mask = np.ones((cams, hw[0], hw[1], 1), np.float32)
+    jitter = (0.2, 0.2, 0.2, 0.05)
+
+    def assemble(seed):
+        return assemble_sample(np.random.RandomState(seed), images, k_full,
+                               ext, mask, hw, 2, jitter=jitter, depth=depth)
+    samples = [assemble(0), assemble(1)]
+    for s in samples:
+        check(set(required_keys((0, -1, 1), 2)) <= set(s) and "depth" in s,
+              "assemble_sample: keys")
+        check(all(np.isfinite(v).all() for v in s.values()),
+              "assemble_sample: not finite")
+    check(not np.array_equal(samples[0]["color_aug/0/0"],
+                             samples[0]["color/0/0"]), "no jitter applied")
+    ms = _median_ms(lambda: assemble(2), reps=3)
+    print(f"host: assemble_sample (3 frames x {cams} cameras from "
+          f"{raw[0]}x{raw[1]}, jitter {jitter}, the resizes and the depth "
+          f"map): {ms:.2f} ms a sample", flush=True)
+
+    batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    reset_counts()
+    logs = train_step(fsm_model, fsm_opt, batch, 0,
+                      torch.Generator(device).manual_seed(3))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(math.isfinite(logs["total_loss"].item()), "assembled batch: loss")
+    check(counts == launches(K5=4), f"assembled batch step: {counts}")
+    paths["assembled batch fsm step"] = dict(launches=counts, ms=[])
+    print(f"assembled batch (2 samples) through a fsm training step: loss "
+          f"{logs['total_loss'].item():.6f}, pose "
+          f"{logs['pose'].item():.6f}", flush=True)
+
+
+def _quaternion(rot):
+    """A rotation matrix's unit quaternion (w, x, y, z)."""
+    r = rot
+    w = math.sqrt(max(0.0, 1 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    x = math.copysign(math.sqrt(max(0.0, 1 + r[0, 0] - r[1, 1] - r[2, 2]))
+                      / 2, r[2, 1] - r[1, 2])
+    y = math.copysign(math.sqrt(max(0.0, 1 - r[0, 0] + r[1, 1] - r[2, 2]))
+                      / 2, r[0, 2] - r[2, 0])
+    z = math.copysign(math.sqrt(max(0.0, 1 - r[0, 0] - r[1, 1] + r[2, 2]))
+                      / 2, r[1, 0] - r[0, 1])
+    return [float(w), float(x), float(y), float(z)]
+
+
+def fixture_rig(cams: int):
+    """The fixtures' rig: ``FakeDataset``'s even one (the cameras at equal
+    yaw steps around the vehicle, 1.5 m out), as (quaternion, translation)
+    per camera and the matrices."""
+    from vfdepth_tpu_torch.data.fake import make_rig_extrinsics
+    ext = make_rig_extrinsics(cams).astype("float64")
+    return [(_quaternion(e[:3, :3]), [float(v) for v in e[:3, 3]])
+            for e in ext], ext
+
+
+def write_ddad_fixture(root: Path, cameras, samples: int = 4):
+    """A DGP scene dataset at DDAD's native size: scene 0 (the train split)
+    of ``samples`` synchronised samples, scene 1 (val) of 3, each camera a
+    PNG, a LiDAR sweep per sample, one calibration."""
+    import numpy as np
+    import PIL.Image as pil
+    rng = np.random.RandomState(11)
+    h, w = DDAD_RAW_HW
+    frames = _Frames(rng, (h, w))
+    rig, _ = fixture_rig(len(cameras))
+    scene_files = []
+    for si, count in enumerate((samples, 3)):     # val: 1 interior sample
+        sdir = root / f"scene_{si:06d}"
+        (sdir / "calibration").mkdir(parents=True)
+        extr = [{"translation": dict(zip("xyz", t)),
+                 "rotation": dict(zip(("qw", "qx", "qy", "qz"), q))}
+                for q, t in rig]
+        calib = {"names": list(cameras) + ["LIDAR"],
+                 "intrinsics": [{"fx": 2000.0, "fy": 2000.0, "cx": w / 2,
+                                 "cy": h / 2, "skew": 0.0}] * len(cameras)
+                 + [{}],
+                 "extrinsics": extr + [{"translation": {"z": 1.8},
+                                        "rotation": {"qw": 1.0}}]}
+        (sdir / "calibration" / "cal0.json").write_text(json.dumps(calib))
+        data, sample_list = [], []
+        for t in range(count):
+            keys = []
+            for cam in cameras:
+                fn = f"rgb/{cam}/{t:03d}.png"
+                (sdir / fn).parent.mkdir(parents=True, exist_ok=True)
+                pil.fromarray(frames()).save(sdir / fn, compress_level=1)
+                keys.append(f"{cam}_{t}")
+                data.append({"key": keys[-1], "id": {"name": cam},
+                             "datum": {"image": {"filename": fn}}})
+            pcf = f"point_cloud/LIDAR/{t:03d}.npz"
+            (sdir / pcf).parent.mkdir(parents=True, exist_ok=True)
+            np.savez(sdir / pcf, data=_lidar_points(rng, LIDAR_POINTS))
+            keys.append(f"lidar_{t}")
+            data.append({"key": keys[-1], "id": {"name": "LIDAR"},
+                         "datum": {"point_cloud": {"filename": pcf}}})
+            sample_list.append({"datum_keys": keys,
+                                "calibration_key": "cal0"})
+        (sdir / "scene.json").write_text(json.dumps(
+            {"samples": sample_list, "data": data}))
+        scene_files.append(f"scene_{si:06d}/scene.json")
+    ds_json = root / "ddad.json"
+    ds_json.write_text(json.dumps({"scene_splits": {
+        "0": {"filenames": [scene_files[0]]},
+        "1": {"filenames": [scene_files[1]]}}}))
+    return ds_json
+
+
+def write_nuscenes_fixture(root: Path, cameras, samples: int = 3):
+    """nuScenes tables at its native 900x1600: ``samples`` keyframes with a
+    sweep before and after each, per camera a JPEG, a LiDAR keyframe."""
+    import numpy as np
+    import PIL.Image as pil
+    rng = np.random.RandomState(12)
+    h, w = NUSC_RAW_HW
+    frames = _Frames(rng, (h, w))
+    vdir = root / "v1.0-trainval"
+    vdir.mkdir(parents=True)
+    rig, _ = fixture_rig(len(cameras))
+    sensors = [{"token": f"s_{c}", "channel": c} for c in cameras] + [
+        {"token": "s_LIDAR_TOP", "channel": "LIDAR_TOP"}]
+    calibrated = [{"token": f"cs_{c}", "sensor_token": f"s_{c}",
+                   "translation": t, "rotation": q,
+                   "camera_intrinsic": [[1260.0, 0, w / 2],
+                                        [0, 1260.0, h / 2], [0, 0, 1]]}
+                  for c, (q, t) in zip(cameras, rig)]
+    calibrated.append({"token": "cs_LIDAR_TOP", "sensor_token": "s_LIDAR_TOP",
+                       "translation": [0.0, 0.0, 1.8],
+                       "rotation": [1.0, 0.0, 0.0, 0.0]})
+    ego = [{"token": f"ep_{i}", "translation": [0.4 * i, 0.0, 0.0],
+            "rotation": [1.0, 0.0, 0.0, 0.0]} for i in range(3 * samples)]
+    sample_rows, sample_data = [], []
+    for t in range(samples):
+        tok = f"sample_{t}"
+        sample_rows.append({"token": tok})
+        for c in cameras:
+            for j in range(3):
+                fn = f"samples/{c}/{t}_{j}.jpg"
+                (root / fn).parent.mkdir(parents=True, exist_ok=True)
+                pil.fromarray(frames()).save(root / fn, quality=90)
+                sample_data.append({
+                    "token": f"sd_{c}_{t}_{j}", "sample_token": tok,
+                    "calibrated_sensor_token": f"cs_{c}",
+                    "ego_pose_token": f"ep_{3 * t + j}", "filename": fn,
+                    "is_key_frame": j == 1, "height": h, "width": w,
+                    "prev": f"sd_{c}_{t}_{j - 1}" if j > 0 else "",
+                    "next": f"sd_{c}_{t}_{j + 1}" if j < 2 else ""})
+        pts = np.zeros((LIDAR_POINTS, 5), np.float32)
+        pts[:, :3] = _lidar_points(rng, LIDAR_POINTS)
+        fn = f"samples/LIDAR_TOP/{t}.pcd.bin"
+        (root / fn).parent.mkdir(parents=True, exist_ok=True)
+        pts.tofile(root / fn)
+        sample_data.append({"token": f"sd_lidar_{t}", "sample_token": tok,
+                            "calibrated_sensor_token": "cs_LIDAR_TOP",
+                            "ego_pose_token": f"ep_{3 * t + 1}",
+                            "filename": fn, "is_key_frame": True,
+                            "prev": "", "next": ""})
+    for name, table in (("sensor", sensors), ("calibrated_sensor",
+                                              calibrated),
+                        ("ego_pose", ego), ("sample", sample_rows),
+                        ("sample_data", sample_data)):
+        (vdir / f"{name}.json").write_text(json.dumps(table))
+    return root
+
+
+def per_step_launches(cfg):
+    """A training step's launches for ``cfg``'s nets: K5 4 for the fsm
+    baseline; K1 (or K1b on unequal overlap groups), K2 (K2b), K3, K4 once
+    and K5 4 for the fusion model."""
+    from vfdepth_tpu_torch.models import grouped_backprojection_ok
+    if cfg.depth_model == "fsm" and cfg.pose_model == "fsm":
+        return launches(K5=4)
+    if grouped_backprojection_ok(tuple(map(tuple, cfg.overlap_groups)),
+                                 cfg.num_cams):
+        return launches(K1=1, K2=1, K3=1, K4=1, K5=4)
+    return launches(K1b=1, K2b=1, K3=1, K4=1, K5=4)
+
+
+def run_reader_paths(cfgs, device, dataset, paths):
+    """``READER_STEPS`` batches of ``cfgs[0]``'s dataset through
+    ``construct_dataset`` -> ``BatchLoader`` -> ``device_prefetch`` (one
+    batch an epoch where the split holds one), each batch a training step
+    of every config's model (the published fusion config and the fsm
+    baseline, which read the dataset alike); launches and losses checked,
+    the rig read back."""
+    from vfdepth_tpu_torch.data import BatchLoader, device_prefetch
+    from vfdepth_tpu_torch.data.factory import construct_dataset
+    from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
+                                            train_step)
+    ds = construct_dataset(cfgs[0], "train")
+    b = cfgs[0].batch_size
+    check(len(ds) >= b, f"{dataset}: {len(ds)} samples")
+    ext = ds[0]["extrinsics"]
+    rig_err = float(abs(ext - fixture_rig(cfgs[0].num_cams)[1]).max())
+    check(rig_err < 1e-5, f"{dataset}: the read rig differs by {rig_err}")
+    loader = BatchLoader(ds, b, shuffle=True, num_workers=2)
+    runs = []
+    for cfg in cfgs:
+        check(cfg.batch_size == b and cfg.height == cfgs[0].height,
+              f"{dataset}: the configs read the dataset alike")
+        model = VFDepthModel(cfg, device=device, seed=0)
+        runs.append(dict(
+            label=f"{dataset} reader {cfg.depth_model} training",
+            model=model, per_step=per_step_launches(cfg),
+            opt=create_train_state(model,
+                                   steps_per_epoch=loader.steps_per_epoch),
+            gen=torch.Generator(device).manual_seed(0), losses=[],
+            counts=[], total=launches()))
+    step, t0 = 0, time.perf_counter()
+    while step < READER_STEPS:
+        loader.set_epoch(step)
+        for batch in device_prefetch(loader, size=2, device=device):
+            for run in runs:
+                reset_counts()
+                logs = train_step(run["model"], run["opt"], batch, step,
+                                  run["gen"])
+                run["losses"].append(logs["total_loss"].item())
+                counts = read_counts()
+                run["counts"].append(counts)
+                run["total"] = {k: run["total"][k] + n
+                                for k, n in counts.items()}
+            step += 1
+            if step == READER_STEPS:
+                break
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for run in runs:
+        label = run["label"]
+        check(all(math.isfinite(v) for v in run["losses"]),
+              f"{label}: loss {run['losses']}")
+        check(all(c == run["per_step"] for c in run["counts"]),
+              f"{label}: launches a step {run['counts']}, expected "
+              f"{run['per_step']}")
+        paths[label] = dict(launches=run["total"], ms=[])
+        print(f"{label}: {READER_STEPS} steps at batch {b} from {len(ds)} "
+              f"samples, losses {[round(v, 6) for v in run['losses']]}",
+              flush=True)
+    print(f"{dataset} readers: {READER_STEPS} batches read and trained on "
+          f"by {len(runs)} models in {wall:.1f} ms wall (the reads "
+          f"included)", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+
+def time_reader(cfg, label, load_image, image):
+    """One sample's host work through ``cfg``'s reader, once in train mode
+    (decode, resize, jitter, masks) and once in val mode (decode, resize,
+    the LiDAR depth uncached), after one warm read; and the decode of
+    ``image`` alone (``load_image``, the reader's own), median of 3."""
+    from vfdepth_tpu_torch.data.factory import construct_dataset
+    train = construct_dataset(cfg, "train")
+    val = construct_dataset(cfg, "val")
+    val.cache_depth = False
+    check("depth" in val[0] and "depth" not in train[0],
+          f"{label}: depth in val mode only")
+    train_ms = _median_ms(lambda: train[0], reps=1)
+    val_ms = _median_ms(lambda: val[0], reps=1)
+    decode_ms = _median_ms(lambda: load_image(str(image)), reps=3)
+    print(f"{label}: one sample's host work (3 frames x {cfg.num_cams} "
+          f"cameras): train mode {train_ms:.1f} ms, val mode (LiDAR depth "
+          f"uncached) {val_ms:.1f} ms; one {image.suffix[1:].upper()} "
+          f"decoded to f32 alone {decode_ms:.1f} ms", flush=True)
+
+
+def run_readers(device, tmp, paths):
+    """The DDAD and nuScenes readers at their native sizes on written
+    fixtures, each feeding the surround-fusion model and the fsm baseline
+    (the published configs with the fixture's path); needs PIL."""
+    from vfdepth_tpu_torch.config import get_config
+    from vfdepth_tpu_torch.data import ddad, nuscenes
+    t = time.perf_counter()
+    ddad_root, nusc_root = tmp / "ddad", tmp / "nuscenes"
+    ddad_root.mkdir()
+    base = get_config(str(CONFIG))
+    ds_json = write_ddad_fixture(ddad_root, list(base.cameras))
+    nusc_cfg = get_config(str(ROOT / "configs" / "nuscenes" /
+                              "nusc_surround_fusion.yaml"))
+    write_nuscenes_fixture(nusc_root, list(nusc_cfg.cameras))
+    print(f"reader fixtures written (DDAD 4 + 3 samples x 6 cameras at "
+          f"{DDAD_RAW_HW[0]}x{DDAD_RAW_HW[1]} PNG; nuScenes 3 samples x 3 "
+          f"sweeps x 6 cameras at {NUSC_RAW_HW[0]}x{NUSC_RAW_HW[1]} JPEG): "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for dataset, names, data_path, mask_dir, reader, image in (
+            ("DDAD", ("ddad/ddad_surround_fusion", "ddad/ddad_baseline"),
+             str(ds_json), ROOT / "assets" / "ddad_mask", ddad,
+             next(ddad_root.rglob("*.png"))),
+            ("nuScenes", ("nuscenes/nusc_surround_fusion",
+                          "nuscenes/nusc_baseline"),
+             str(nusc_root), ROOT / "assets" / "nuscenes_mask", nuscenes,
+             next(nusc_root.rglob("*.jpg")))):
+        cfgs = []
+        for name in names:
+            cfg = get_config(str(ROOT / "configs" / f"{name}.yaml"))
+            cfg.set("data_path", data_path)
+            cfg.set("mask_dir", str(mask_dir))
+            cfg.set("split_dir", "")      # the fixture's tokens, not the list
+            cfgs.append(cfg)
+        time_reader(cfgs[0], f"{dataset} reader", reader._load_image, image)
+        run_reader_paths(cfgs, device, dataset, paths)
+
+
 def profile(label, fn, top: int = 14):
     """``fn`` once more under ``torch.profiler``: device time by kernel
     (self time, summed over launches), and the device's busy time as the
@@ -2574,6 +3206,47 @@ def main() -> int:
         paths["6-camera trainer"] = dict(launches=counts, ms=[ms])
         torch.cuda.empty_cache()
         run_clis(tmp)
+
+        # the fsm (Monodepth2) baseline at full width: a request runs no
+        # kernel (no voxel volume), a step K5 4 times (render_views)
+        for mp, tag, k5 in ((False, "", "K5"), (True, " bf16", "K5-bf16")):
+            cfg_fsm = fsm_config(mixed_precision=mp)
+            label = f"6-camera fsm{tag}"
+            tols = dict(tols=(BF16_FWD_RTOL, BF16_POSE_ATOL)) if mp else {}
+            serve(cfg_fsm, label, "even", launches(), **tols)
+            step_tols = (dict(tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+                         if mp else {})
+            train(fsm_config(mixed_precision=mp), label, "even",
+                  launches(**{k5: 4}), k5_calls=k5_calls, **step_tols)
+            check_k5_calls(k5, rows[k5], k5_calls, "fsm")
+            del k5_calls[:]
+            learn, evaluated, loop_ms, eval_ms = run_fsm_learn_evaluate(
+                fsm_config(mixed_precision=mp), device, f"{label} trainer",
+                launches(**{k5: 4}), launches(**{k5: 4}),
+                tmp / f"fsm{mp}")
+            paths[f"{label} trainer"] = dict(launches=learn, ms=[loop_ms])
+            paths[f"{label} evaluation"] = dict(launches=evaluated,
+                                                ms=eval_ms)
+            torch.cuda.empty_cache()
+
+        # the host pipeline at DDAD's native size, then the readers
+        from vfdepth_tpu_torch.training import (VFDepthModel,
+                                                create_train_state)
+        fsm_model = VFDepthModel(fsm_config(), device=device, seed=0)
+        run_host_pipeline(device, fsm_model, create_train_state(fsm_model),
+                          paths)
+        del fsm_model
+        torch.cuda.empty_cache()
+        try:
+            import PIL  # noqa: F401  (the readers decode with it)
+            have_pil = True
+        except ImportError:
+            have_pil = False
+            print("readers: PIL is not installed on this machine; the "
+                  "DDAD / nuScenes readers cannot decode images, so only "
+                  "the host pipeline above ran", flush=True)
+        if have_pil:
+            run_readers(device, tmp, paths)
     for key, row in rows.items():
         by_path = {p: v["launches"][key] for p, v in paths.items()}
         check(sum(by_path.values()) > 0, f"{key} launched on no path")

@@ -24,7 +24,8 @@ TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
                     "training.step", "utils.metrics", "utils.visualize",
                     "utils.logger", "data.synthetic_scene", "data.factory",
                     "data.loader", "training.checkpoint", "training.trainer",
-                    "eval", "train")
+                    "eval", "train", "data.depth_projection", "native",
+                    "data.transforms", "data.ddad", "data.nuscenes")
 # files outside both packages that import JAX: the JAX package's own entry
 # points and scripts, and the one converter that carries its checkpoints
 # into the port
@@ -128,34 +129,34 @@ def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
     assert VFDepthModel(cfg, device="cpu").device.type == "cpu"
 
 
+def _cfg_with(**over):
+    cfg = get_config("configs/tiny_fake.yaml")
+    for key, value in over.items():
+        cfg.set(key, value)
+    return cfg
+
+
 def test_unported_configs_raise():
-    """What is not ported raises: the fsm nets, ``sampler_3d: gather``
-    under mixed precision and the depth-synthesis branch (in ``forward``
-    and in ``predict``). Unbatched pose
+    """What is not ported raises: ``sampler_3d: gather`` under mixed
+    precision with the fusion depth net, and the depth-synthesis branch (in
+    ``forward`` and in ``predict``). Unbatched pose
     frames and mixed precision on the 3-camera rig (the bf16 forms of K1b
     and K2b) build, as do ``merge_backprojection: false`` and mixed
     precision on the 6-camera rig."""
-    def cfg_with(**over):
-        cfg = get_config("configs/tiny_fake.yaml")
-        for key, value in over.items():
-            cfg.set(key, value)
-        return cfg
-
-    for over in ({"depth_model": "fsm"}, {"pose_model": "fsm"},
-                 {"mixed_precision": True, "sampler_3d": "gather"}):
-        with pytest.raises(NotImplementedError):
-            VFDepthModel(cfg_with(**over), device="cpu")
-    model = VFDepthModel(cfg_with(batch_pose_frames=False), device="cpu")
+    with pytest.raises(NotImplementedError):
+        VFDepthModel(_cfg_with(mixed_precision=True, sampler_3d="gather"),
+                     device="cpu")
+    model = VFDepthModel(_cfg_with(batch_pose_frames=False), device="cpu")
     assert len(model.frame_ids) == 3 and not model.batch_pose_frames
     assert not model._can_merge_backproject()
-    assert VFDepthModel(cfg_with(mixed_precision=True),
+    assert VFDepthModel(_cfg_with(mixed_precision=True),
                         device="cpu").compute_dtype == torch.bfloat16
     three = VFDepthModel(presets.micro_config(mixed_precision=True),
                          device="cpu")
     assert three.compute_dtype == torch.bfloat16 and not three.grouped
-    assert VFDepthModel(cfg_with(batch_pose_frames=False, frame_ids=[0, 1]),
+    assert VFDepthModel(_cfg_with(batch_pose_frames=False, frame_ids=[0, 1]),
                         device="cpu")._can_merge_backproject()
-    cfg = cfg_with(aug_depth=True)
+    cfg = _cfg_with(aug_depth=True)
     model = VFDepthModel(cfg, device="cpu")
     batch = FakeDataset(num_samples=1, num_cams=cfg.num_cams,
                         height=cfg.height, width=cfg.width,
@@ -166,6 +167,30 @@ def test_unported_configs_raise():
     # outputs, which the port cannot give
     with pytest.raises(NotImplementedError, match="depth-synthesis"):
         model.predict(batch)
+
+
+@pytest.mark.parametrize("depth_model,pose_model", [
+    ("fsm", "fsm"), ("fusion", "fsm"), ("fsm", "fusion")])
+def test_fsm_pairs_build_and_never_merge(depth_model, pose_model):
+    """Every pair with an fsm net builds (in f32 and bf16, where
+    ``sampler_3d: gather`` only concerns a fusion depth net) and never
+    takes the merged back-projection, even with it on."""
+    from vfdepth_tpu_torch.models import (FusedDepthNet, FusedPoseNet,
+                                          MonoDepthNet, MonoPoseNet)
+    for over in ({}, {"mixed_precision": True, "sampler_3d": "gather"}):
+        if over and depth_model == "fusion":
+            continue
+        model = VFDepthModel(_cfg_with(depth_model=depth_model,
+                                       pose_model=pose_model,
+                                       merge_backprojection=True, **over),
+                             device="cpu")
+        assert isinstance(model.depth_net, MonoDepthNet if depth_model ==
+                          "fsm" else FusedDepthNet)
+        assert isinstance(model.pose_net, MonoPoseNet if pose_model ==
+                          "fsm" else FusedPoseNet)
+        assert model.merge_backproject and not model._can_merge_backproject()
+    with pytest.raises(ValueError, match="depth_model"):
+        VFDepthModel(_cfg_with(depth_model="mono"), device="cpu")
 
 
 def _run_smoke(cwd):

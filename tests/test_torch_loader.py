@@ -119,11 +119,23 @@ def test_construct_dataset_matches_jax(dataset, mode):
 
 
 @pytest.mark.parametrize("dataset", ["ddad", "nuscenes"])
-def test_unported_readers_raise(dataset):
+def test_construct_dataset_builds_the_readers(tmp_path, dataset):
+    """The factory builds the port's DDAD and nuScenes readers (held
+    against JAX's in tests/test_torch_readers.py)."""
+    from test_dataset_readers import CAMS, _make_ddad, _make_nuscenes
+    from vfdepth_tpu_torch.data import DDADDataset, NuScenesDataset
     cfg = presets.micro_config()
     cfg.set("dataset", dataset)
-    with pytest.raises(NotImplementedError, match="A3"):
-        construct_dataset(cfg, "train")
+    if dataset == "ddad":
+        cfg.set("data_path", _make_ddad(str(tmp_path)))
+        cfg.set("cameras", CAMS)
+    else:
+        root, cams = _make_nuscenes(str(tmp_path))
+        cfg.set("data_path", root)
+        cfg.set("cameras", cams)
+    ds = construct_dataset(cfg, "train")
+    assert type(ds) is (DDADDataset if dataset == "ddad" else NuScenesDataset)
+    assert len(ds) > 0 and ds[0]["color/0/0"].shape[0] == len(cfg.cameras)
 
 
 def test_device_prefetch_on_cpu_is_to_device():

@@ -1,13 +1,20 @@
 """Dataset factory (port of ``vfdepth_tpu/data/factory.py``, the reference's
 ``dataset/base_dataset.py:5-50``).
 
-Dispatches on ``cfg.dataset``: 'fake' (in-memory random frames) and
-'synthetic' (the analytic ground-plane scene), with the JAX package's
-rules: ground-truth depth everywhere but in train mode ('synthetic' always
-has it). The DDAD and nuScenes readers, with train mode's colour jitter
-(0.2, 0.2, 0.2, 0.05), are not ported yet (ROADMAP A3) and raise.
+Dispatches on ``cfg.dataset`` with the JAX package's arguments: 'ddad'
+(the DGP scene-dataset reader, ``cfg.data_path`` its dataset JSON, split
+'train' in train mode and 'val' otherwise, ``mask_dir``, ``depth_type``),
+'nuscenes' (the devkit-free table reader; its split file is
+``<split_dir>/<split>.txt`` where that exists, else the data root's
+``splits/``), 'fake' (in-memory random frames) and 'synthetic' (the
+analytic ground-plane scene). Ground-truth depth everywhere but in train
+mode ('synthetic' always has it); train mode's readers colour-jitter by
+(0.2, 0.2, 0.2, 0.05), the others not at all (reference
+``models/vfdepth.py:99-138``).
 """
 from __future__ import annotations
+
+import os
 
 from .fake import FakeDataset
 from .synthetic_scene import SyntheticSceneDataset
@@ -15,6 +22,7 @@ from .synthetic_scene import SyntheticSceneDataset
 
 def construct_dataset(cfg, mode: str):
     name = cfg.dataset
+    jitter = (0.2, 0.2, 0.2, 0.05) if mode == "train" else (0.0, 0.0, 0.0, 0.0)
     common = dict(
         height=cfg.height,
         width=cfg.width,
@@ -32,8 +40,21 @@ def construct_dataset(cfg, mode: str):
             speed=cfg.get("synthetic_speed", 0.5),
             max_depth=min(cfg.max_depth, 80.0),
             **{**common, "with_depth": True})
-    if name in ("ddad", "nuscenes"):
-        raise NotImplementedError(
-            f"the {name} reader is not ported yet (ROADMAP A3); the port "
-            "reads the 'fake' and 'synthetic' datasets")
+    if name == "ddad":
+        from .ddad import DDADDataset
+        return DDADDataset(cfg.data_path, cameras=tuple(cfg.cameras),
+                           split=("train" if mode == "train" else "val"),
+                           jitter=jitter, mask_dir=cfg.get("mask_dir"),
+                           depth_type=cfg.get("depth_type", "lidar"), **common)
+    if name == "nuscenes":
+        from .nuscenes import NuScenesDataset
+        split = "train" if mode == "train" else "val"
+        split_file = None
+        if cfg.get("split_dir"):
+            cand = os.path.join(cfg.split_dir, f"{split}.txt")
+            split_file = cand if os.path.isfile(cand) else None
+        return NuScenesDataset(cfg.data_path, cameras=tuple(cfg.cameras),
+                               split=split, jitter=jitter,
+                               mask_dir=cfg.get("mask_dir"),
+                               split_file=split_file, **common)
     raise ValueError(f"unknown dataset {name!r}")

@@ -1,11 +1,14 @@
 """SE(3) / SO(3) primitives on tensors, batched over leading dims.
 
-Port of ``vfdepth_tpu/geometry/se3.py`` (the serving path needs
-axis-angle -> matrix, ``vec_to_matrix`` and ``invert_pose``).
+Port of ``vfdepth_tpu/geometry/se3.py``: axis-angle -> matrix,
+``vec_to_matrix`` and ``invert_pose`` (every path), and the "XYZ" Euler
+angles of the fsm baseline's pose-consistency loss.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops import ties
 
 
 def hat(v: torch.Tensor) -> torch.Tensor:
@@ -34,6 +37,16 @@ def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     k = hat(axis_angle)
     eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
     return eye.expand(k.shape) + a_coef * k + b_coef * (k @ k)
+
+
+def matrix_to_euler_angles_xyz(rot: torch.Tensor) -> torch.Tensor:
+    """Inverse of R = Rx(ax) @ Ry(ay) @ Rz(az): [..., 3, 3] -> [..., 3] =
+    (ax, ay, az). The clip of R02 into [-1, 1] is ``ties.clip``, so its
+    derivative at +-1 is JAX's."""
+    ay = torch.asin(ties.clip(rot[..., 0, 2], -1.0, 1.0))
+    az = torch.atan2(-rot[..., 0, 1], rot[..., 0, 0])
+    ax = torch.atan2(-rot[..., 1, 2], rot[..., 2, 2])
+    return torch.stack([ax, ay, az], dim=-1)
 
 
 def _append_bottom_row(top: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,8 @@ test can hand in the JAX package's draws; the port's training step draws it
 from a ``torch.Generator``. Minima over context frames are ``torch.amin``,
 which splits a tied gradient as ``jnp.min`` does.
 
-Not ported (raise ``NotImplementedError``): the FSM pose-consistency loss
-and the depth-synthesis loss, whose paths the port does not run yet.
+Not ported (raises ``NotImplementedError``): the depth-synthesis loss,
+whose path the port does not run yet.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from .primitives import (_smoothness_maps, auto_mask, mean_normalized_disp,
                          photometric_loss)
+from ..geometry.se3 import matrix_to_euler_angles_xyz
 
 _EPSILON = 1e-5  # identity-loss tie-break noise scale
 
@@ -123,8 +124,27 @@ def spatio_tempo_loss_fn(target: torch.Tensor, overlap_img: torch.Tensor,
                                torch.amax(masks, dim=2))
 
 
-def pose_consistency_loss(*args, **kwargs):
-    raise NotImplementedError("the FSM pose-consistency loss is not ported")
+def pose_consistency_loss(cam_t_cam: torch.Tensor, extrinsics: torch.Tensor,
+                          extrinsics_inv: torch.Tensor) -> torch.Tensor:
+    """The fsm baseline's pose consistency, per camera -> [cams]: each
+    camera's pose [b, cams, n_ctx, 4, 4] is aligned into camera 0's frame
+    (E0^-1 Ec Tc Ec^-1 E0) and held against camera 0's own by translation
+    L2 + 10 x "XYZ" Euler-angle L2, averaged over batch and context frames.
+    Camera 0 gives 0."""
+    ref_t = cam_t_cam[:, 0]                                # [b, n_ctx, 4, 4]
+    inner = torch.einsum("bcij,bcfjk,bckl->bcfil", extrinsics, cam_t_cam,
+                         extrinsics_inv)
+    aligned = torch.einsum("bij,bcfjk,bkl->bcfil", extrinsics_inv[:, 0],
+                           inner, extrinsics[:, 0])
+    ref_ang = matrix_to_euler_angles_xyz(ref_t[..., :3, :3])
+    cur_ang = matrix_to_euler_angles_xyz(aligned[..., :3, :3])
+    ang_diff = torch.linalg.vector_norm(ref_ang[:, None] - cur_ang,
+                                        dim=-1).mean(dim=(0, 2))
+    t_diff = torch.linalg.vector_norm(
+        ref_t[:, None, ..., :3, 3] - aligned[..., :3, 3], dim=-1
+    ).mean(dim=(0, 2))
+    percam = t_diff + 10.0 * ang_diff
+    return torch.cat([percam.new_zeros(1), percam[1:]])
 
 
 def depth_synthesis_loss(*args, **kwargs):
@@ -146,8 +166,6 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
     """
     if cfg.aug_depth:
         depth_synthesis_loss()
-    if cfg.pose_model == "fsm" and cfg.pose_loss_coeff > 0:
-        pose_consistency_loss()
     ctx_ids = list(cfg.frame_ids[1:])
     target = batch["color/0/0"]
     ref_mask = batch["mask"]
@@ -181,6 +199,12 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
                 if ramp is not None:
                     logs["overlap_ramp"] = ramp
                     logs["st_ramp"] = st_ramp
+        if cfg.pose_model == "fsm" and cfg.pose_loss_coeff > 0:
+            pose_l = pose_consistency_loss(cam_t_cam, batch["extrinsics"],
+                                           batch["extrinsics_inv"])
+            scale_loss = scale_loss + cfg.pose_loss_coeff * pose_l
+            if scale == 0:
+                logs["pose"] = pose_l.mean()
         cam_loss = cam_loss + scale_loss
 
         if scale == 0:

@@ -1,8 +1,10 @@
 """Depth / pose decoders (port of ``vfdepth_tpu/models/decoders.py``), NCHW.
 
-``FusionDepthDecoder`` is ported with ``phase_final=False`` only (the JAX
-package's default; its sub-pixel variant, ``ops/subpixel.py``, is an
-ablation left for later). ``dtype`` is the compute dtype
+``MonoDepthDecoder`` is the Monodepth2 decoder of the 'fsm' baseline,
+``FusionDepthDecoder`` the fusion net's (ported with ``phase_final=False``
+only, the JAX package's default; its sub-pixel variant,
+``ops/subpixel.py``, is an ablation left for later), ``PoseDecoder`` the
+pose head of both families. ``dtype`` is the compute dtype
 (``models/blocks.py``); the disparity sigmoid and the pose head's mean run
 in f32 whatever it is, as in the JAX package.
 """
@@ -64,6 +66,21 @@ class FusionDepthDecoder(nn.Module):
                 outputs[f"disp/{i}"] = torch.sigmoid(
                     getattr(self, f"dispconv_{i}")(x).float())
         return outputs
+
+
+class MonoDepthDecoder(FusionDepthDecoder):
+    """Monodepth2 DepthDecoder (packnet-sfm's, the 'fsm' baseline's): the
+    fusion decoder's levels run from the deepest encoder level (4) down to
+    full scale, with the encoder's skips, and a sigmoid disparity head at
+    each of ``scales``. The JAX package writes the two loops apart; they
+    are one loop with another start."""
+
+    def __init__(self, num_ch_enc: Sequence[int],
+                 num_ch_dec: Sequence[int] = (16, 32, 64, 128, 256),
+                 scales: Sequence[int] = (0, 1, 2, 3), use_skips: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(4, num_ch_enc, num_ch_dec, scales=scales,
+                         use_skips=use_skips, dtype=dtype)
 
 
 class PoseDecoder(nn.Module):

@@ -1,8 +1,10 @@
-"""Fusion depth / pose networks (port of ``vfdepth_tpu/models/nets.py``).
+"""Depth / pose networks (port of ``vfdepth_tpu/models/nets.py``): the
+surround-fusion nets and the Monodepth2 baselines ('fsm').
 
-Inputs and outputs at the nets' boundaries are NHWC with an explicit camera
-axis, as in the JAX package; the convolutions inside run NCHW on the
-camera-packed batch. The Monodepth2 baselines ('fsm') are not ported yet.
+Inputs and outputs at the nets' boundaries are NHWC, as in the JAX package:
+the fusion nets' with an explicit camera axis, the fsm nets' on a
+camera-packed batch [b*cams, H, W, 3] (each camera alone); the convolutions
+inside run NCHW.
 
 Each net's ``forward`` is the JAX ``__call__``: its own back-projection,
 group-reduced (kernel K1) where the rig's two overlap groups are equal,
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from .blocks import ConvBlock, pack_cam_feat, unpack_cam_feat
-from .decoders import FusionDepthDecoder, PoseDecoder
+from .decoders import FusionDepthDecoder, MonoDepthDecoder, PoseDecoder
 from .resnet import ResnetEncoder, num_ch_enc
 from .vfnet import VFNet
 from ..ops import ties
@@ -188,4 +190,43 @@ class FusedPoseNet(nn.Module):
                                                 frame_groups=n_ctx,
                                                 grouped=grouped)
         axisangle, translation = self.pose_decoder(bev)
+        return axisangle, ties.clip(translation, -4.0, 4.0)
+
+
+class MonoDepthNet(nn.Module):
+    """Monodepth2-style per-camera depth (the 'fsm' baseline; reference
+    ``mono_depthnet.py``): ResNet encoder + Monodepth2 decoder on a packed
+    image batch [n, H, W, 3] -> {'disp/{s}': [n, H/2^s, W/2^s, 1]}."""
+
+    def __init__(self, num_layers: int = 18,
+                 scales: Sequence[int] = (0, 1, 2, 3),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.encoder = ResnetEncoder(num_layers, 1, dtype=dtype)
+        self.decoder = MonoDepthDecoder(num_ch_enc(num_layers),
+                                        scales=tuple(scales), dtype=dtype)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        dec = self.decoder(self.encoder(_to_nchw(images)))
+        return {k: _to_nhwc(v) for k, v in dec.items()}
+
+
+class MonoPoseNet(nn.Module):
+    """Monodepth2-style per-camera pose (reference ``mono_posenet.py``): two
+    frames stacked on channels -> ResNet encoder -> pose decoder (stride 1)
+    -> (axisangle, translation), each [n, 1, 1, 3], translation clipped to
+    +-4 m."""
+
+    def __init__(self, num_layers: int = 18,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.encoder = ResnetEncoder(num_layers, 2, dtype=dtype)
+        self.pose_decoder = PoseDecoder(num_ch_enc(num_layers)[-1], 1,
+                                        stride=1, dtype=dtype)
+
+    def forward(self, cur_images: torch.Tensor, next_images: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pair = torch.cat([cur_images, next_images], dim=-1)
+        axisangle, translation = self.pose_decoder(
+            self.encoder(_to_nchw(pair))[-1])
         return axisangle, ties.clip(translation, -4.0, 4.0)

@@ -1,18 +1,26 @@
-"""The surround-fusion model (port of ``vfdepth_tpu/training/model.py``).
+"""The depth + pose model (port of ``vfdepth_tpu/training/model.py``).
 
-Both entry points compute the prediction as the JAX ``predict_pose_depth``
-does: both nets' aggregated feature maps go through ONE merged
-back-projection, the pose branch takes its channels plus the shared
-rel-depth channel, the depth branch the rest, then the frustum sample
-(kernel K3), the decoder and ``to_depth``'s fx/300 metric scale. The
+``model.depth_model`` and ``model.pose_model`` each pick the surround-fusion
+net ('fusion') or the Monodepth2 baseline ('fsm', the paper's Full Surround
+Monodepth: every camera alone, a pose per camera, and the pose-consistency
+loss); every pair of the two builds, as in the JAX package.
+
+With both nets 'fusion', both entry points compute the prediction as the
+JAX ``predict_pose_depth`` does: both nets' aggregated feature maps go
+through ONE merged back-projection, the pose branch takes its channels plus
+the shared rel-depth channel, the depth branch the rest, then the frustum
+sample (kernel K3), the decoder and ``to_depth``'s fx/300 metric scale. The
 back-projection is group-reduced (kernel K1) where the rig's two overlap
 groups are equal (the 6-camera rig) and per camera (kernel K1b) otherwise
 (the 3-camera rig). ``tpu.merge_backprojection: false`` runs the JAX
 ``predict_pose`` / ``predict_depth`` instead: each net back-projects its
 own features (``FusedPoseNet.forward``, ``FusedDepthNet.forward``). So does
-``tpu.batch_pose_frames: false`` with more than one context frame: the
-pose net then runs once per context frame, as the reference VFDepth
-predicts pose.
+``tpu.batch_pose_frames: false`` with more than one context frame: the pose
+net then runs once per context frame, as the reference VFDepth predicts
+pose; and so does every pair with an fsm net, whose ``MonoPoseNet`` /
+``MonoDepthNet`` run on the camera-packed batch and back-project nothing
+(an fsm net runs no TPU kernel; its training step runs K5 in
+``render_views``).
 
 * ``predict(batch)`` serves: BatchNorm in eval mode, under
   ``torch.inference_mode``; returns ``cam_T_cam`` and ``disp/{s}``,
@@ -41,8 +49,8 @@ mixed precision), 'gather' f32 ones in an f32 config (the same function up
 to summation order), and None means 'packed' under mixed precision and
 'packed_f32grad' otherwise.
 
-Not ported yet (raise ``NotImplementedError``): the 'fsm' nets,
-``sampler_3d: gather`` under mixed precision (JAX's backward is an XLA
+Not ported yet (raise ``NotImplementedError``): ``sampler_3d: gather``
+under mixed precision with the fusion depth net (JAX's backward is an XLA
 scatter of bf16 updates into a bf16 volume, not a TPU kernel), the
 depth-synthesis branch (``predict`` skips it, ``forward`` raises). Config
 keys that name TPU alternates of one
@@ -65,14 +73,17 @@ from ..geometry import (distribute_pose, invert_pose, relative_cam_poses,
                         vec_to_matrix)
 from ..geometry.view_rendering import render_views
 from ..losses import LossConfig, total_loss
-from ..models import (FusedDepthNet, FusedPoseNet, backproject_features,
-                      backproject_features_grouped, grouped_backprojection_ok)
+from ..models import (FusedDepthNet, FusedPoseNet, MonoDepthNet, MonoPoseNet,
+                      backproject_features, backproject_features_grouped,
+                      grouped_backprojection_ok, pack_cam_feat,
+                      unpack_cam_feat)
 from ..ops.resize import resize_bilinear
 from ..weights import init_random
 
 _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
 _SAMPLERS_3D = (None, "packed", "packed_f32grad", "gather")
 _WARP_OPS = (None, "auto", "mxu", "quad")
+_NETS = ("fusion", "fsm")
 
 
 def loss_config_from(cfg: Config) -> LossConfig:
@@ -116,15 +127,16 @@ class VFDepthModel(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
-        if cfg.depth_model != "fusion" or cfg.pose_model != "fusion":
-            raise NotImplementedError("only the fusion nets are ported")
+        for key in ("depth_model", "pose_model"):
+            if cfg.get(key) not in _NETS:
+                raise ValueError(f"unknown {key} {cfg.get(key)!r}")
         self.compute_dtype = (torch.bfloat16
                               if cfg.get("mixed_precision", False) else None)
         self.frame_ids = tuple(cfg.frame_ids)
         # one pose-net pass for all context frames, or one per frame
         self.batch_pose_frames = bool(cfg.get("batch_pose_frames", True))
-        # one back-projection for both nets (JAX _can_merge_backproject,
-        # whose net-type conditions the port meets whenever it builds)
+        # one back-projection for both nets where both are fusion nets
+        # (_can_merge_backproject)
         self.merge_backproject = bool(cfg.get("merge_backprojection", True))
         if cfg.get("sampler_2d") not in _SAMPLERS_2D:
             raise ValueError(f"unknown sampler_2d {cfg.get('sampler_2d')!r}")
@@ -139,7 +151,8 @@ class VFDepthModel(nn.Module):
         self.groups = tuple(map(tuple, cfg.overlap_groups))
         # K1 where the two overlap groups split the rig equally, else K1b
         self.grouped = grouped_backprojection_ok(self.groups, cfg.num_cams)
-        if self.compute_dtype is not None and self.sampler_3d == "gather":
+        if (self.compute_dtype is not None and self.sampler_3d == "gather"
+                and cfg.depth_model == "fusion"):
             raise NotImplementedError(
                 "mixed precision with sampler_3d 'gather' (an XLA scatter of "
                 "bf16 updates into the bf16 volume) is not ported; 'packed' "
@@ -153,22 +166,35 @@ class VFDepthModel(nn.Module):
         self.loss_cfg = loss_config_from(cfg)
         self.intensity_align = bool(cfg.intensity_align)
         self.plain_samplers = False
-        self.voxel = dict(voxel_str_p=tuple(cfg.voxel_str_p),
-                          voxel_unit_size=tuple(cfg.voxel_unit_size),
-                          voxel_size=tuple(cfg.voxel_size))
-        vfnet_kwargs = dict(
-            **self.voxel, proj_d_bins=cfg.proj_d_bins,
-            proj_d_str=cfg.proj_d_str, proj_d_end=cfg.proj_d_end,
-            num_cams=cfg.num_cams, height=cfg.height, width=cfg.width,
-            dtype=self.compute_dtype)
-        self.depth_net = FusedDepthNet(
-            cfg.num_layers, cfg.fusion_level, cfg.fusion_feat_in_dim,
-            use_skips=cfg.use_skips, scales=self.scales,
-            voxel_pre_dim=tuple(cfg.voxel_pre_dim),
-            overlap_groups=self.groups, sampler_3d=self.sampler_3d,
-            **vfnet_kwargs)
-        self.pose_net = FusedPoseNet(cfg.num_layers, cfg.fusion_level,
-                                     cfg.fusion_feat_in_dim, **vfnet_kwargs)
+        # the voxel keys only where a fusion net is built: the published fsm
+        # configs (configs/*/*_baseline.yaml) have none, and the JAX
+        # package, which reads them for every pair, cannot build those
+        if "fusion" in (cfg.depth_model, cfg.pose_model):
+            self.voxel = dict(voxel_str_p=tuple(cfg.voxel_str_p),
+                              voxel_unit_size=tuple(cfg.voxel_unit_size),
+                              voxel_size=tuple(cfg.voxel_size))
+            vfnet_kwargs = dict(
+                **self.voxel, proj_d_bins=cfg.proj_d_bins,
+                proj_d_str=cfg.proj_d_str, proj_d_end=cfg.proj_d_end,
+                num_cams=cfg.num_cams, height=cfg.height, width=cfg.width,
+                dtype=self.compute_dtype)
+        if cfg.depth_model == "fusion":
+            self.depth_net = FusedDepthNet(
+                cfg.num_layers, cfg.fusion_level, cfg.fusion_feat_in_dim,
+                use_skips=cfg.use_skips, scales=self.scales,
+                voxel_pre_dim=tuple(cfg.voxel_pre_dim),
+                overlap_groups=self.groups, sampler_3d=self.sampler_3d,
+                **vfnet_kwargs)
+        else:
+            self.depth_net = MonoDepthNet(cfg.num_layers, scales=self.scales,
+                                          dtype=self.compute_dtype)
+        if cfg.pose_model == "fusion":
+            self.pose_net = FusedPoseNet(cfg.num_layers, cfg.fusion_level,
+                                         cfg.fusion_feat_in_dim,
+                                         **vfnet_kwargs)
+        else:
+            self.pose_net = MonoPoseNet(cfg.num_layers,
+                                        dtype=self.compute_dtype)
         # weights_init (ImageNet encoders) needs a weight file the repository
         # does not hold; the JAX package skips it in that case too
         init_random(self, torch.Generator().manual_seed(seed))
@@ -259,21 +285,30 @@ class VFDepthModel(nn.Module):
 
     def _cam_t_cam(self, axisangle: torch.Tensor, translation: torch.Tensor,
                    x: Mapping[str, torch.Tensor], bsz: int) -> torch.Tensor:
-        """The pose net's canonical motions [n_ctx*b, 1, 1, 3] (context
-        frames group-major) -> cam_T_cam [b, cams, n_ctx, 4, 4]; a past
-        frame's motion is inverted."""
+        """The pose net's motions (context frames group-major) -> cam_T_cam
+        [b, cams, n_ctx, 4, 4]; a past frame's motion is inverted. A fusion
+        pose net gives one canonical motion per frameset ([n_ctx*b, 1, 1,
+        3]), distributed to the cameras through the extrinsics; an fsm pose
+        net one motion per camera ([n_ctx*b*cams, 1, 1, 3])."""
         ctx = self.frame_ids[1:]
-        aa = axisangle[:, 0, 0].reshape(len(ctx), bsz, 3)
-        tr = translation[:, 0, 0].reshape(len(ctx), bsz, 3)
-        return torch.stack(
-            [distribute_pose(vec_to_matrix(aa[i], tr[i], invert=(f < 0)),
-                             x["extrinsics"], x["extrinsics_inv"])
-             for i, f in enumerate(ctx)], dim=2)
+        cams = x["extrinsics"].shape[1]
+        aa = axisangle[:, 0, 0].reshape(len(ctx), -1, 3)
+        tr = translation[:, 0, 0].reshape(len(ctx), -1, 3)
+        mats = []
+        for i, f in enumerate(ctx):
+            mat = vec_to_matrix(aa[i], tr[i], invert=(f < 0))
+            if isinstance(self.pose_net, MonoPoseNet):
+                mats.append(unpack_cam_feat(mat, bsz, cams))
+            else:
+                mats.append(distribute_pose(mat, x["extrinsics"],
+                                            x["extrinsics_inv"]))
+        return torch.stack(mats, dim=2)
 
     def predict_pose(self, x: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The pose net alone, on its own back-projection (JAX
-        ``predict_pose``): cam_T_cam [b, cams, n_ctx, 4, 4] from a batch
-        already on the device. With batched pose frames the context pairs
+        """The pose net alone (JAX ``predict_pose``; a fusion net on its own
+        back-projection, an fsm net on each camera alone): cam_T_cam [b,
+        cams, n_ctx, 4, 4] from a batch already on the device. With
+        batched pose frames the context pairs
         go through one pass; otherwise through one pass each, in the order
         of ``frame_ids[1:]`` (pairs in time order, a past frame's motion
         inverted), and in train mode each pass normalises with its own
@@ -284,13 +319,19 @@ class VFDepthModel(nn.Module):
                  x["extrinsics_inv"])
         pairs = [(x[f"color_aug/{f if f < 0 else 0}/0"],
                   x[f"color_aug/{0 if f < 0 else f}/0"]) for f in ctx]
+        # (cur, next, the number of context frames stacked in them)
+        passes = [(c, n, 1) for c, n in pairs]
         if self.batch_pose_frames or len(ctx) < 2:
-            outs = [self.pose_net(torch.cat([c for c, _ in pairs]),
-                                  torch.cat([n for _, n in pairs]), *calib,
-                                  n_ctx=len(ctx), plain=self.plain_samplers)]
+            passes = [(torch.cat([c for c, _ in pairs]),
+                       torch.cat([n for _, n in pairs]), len(ctx))]
+        if isinstance(self.pose_net, MonoPoseNet):
+            # every camera alone: the cameras packed into the batch
+            outs = [self.pose_net(pack_cam_feat(c), pack_cam_feat(n))
+                    for c, n, _ in passes]
         else:
-            outs = [self.pose_net(c, n, *calib, plain=self.plain_samplers)
-                    for c, n in pairs]
+            outs = [self.pose_net(c, n, *calib, n_ctx=k,
+                                  plain=self.plain_samplers)
+                    for c, n, k in passes]
         # per-frame passes stack group-major, as one batched pass returns
         return self._cam_t_cam(torch.cat([o[0] for o in outs]),
                                torch.cat([o[1] for o in outs]), x,
@@ -298,10 +339,17 @@ class VFDepthModel(nn.Module):
 
     def predict_depth(self, x: Mapping[str, torch.Tensor]
                       ) -> Dict[int, torch.Tensor]:
-        """The depth net alone, on its own back-projection (JAX
-        ``predict_depth``): {scale: disp [b, cams, h, w, 1]}."""
+        """The depth net alone (JAX ``predict_depth``; a fusion net on its
+        own back-projection, an fsm net on each camera alone): {scale: disp
+        [b, cams, h, w, 1]}."""
+        images = x["color_aug/0/0"]
+        if isinstance(self.depth_net, MonoDepthNet):
+            b, cams = images.shape[:2]
+            out = self.depth_net(pack_cam_feat(images))
+            return {s: unpack_cam_feat(out[f"disp/{s}"], b, cams)
+                    for s in self.scales}
         lev = self.fusion_level + 1
-        out = self.depth_net(x["color_aug/0/0"], x["mask"], x[f"K/{lev}"],
+        out = self.depth_net(images, x["mask"], x[f"K/{lev}"],
                              x[f"inv_K/{lev}"], x["extrinsics"],
                              x["extrinsics_inv"], plain=self.plain_samplers)
         return {s: out[f"disp/{s}"] for s in self.scales}
@@ -310,6 +358,8 @@ class VFDepthModel(nn.Module):
         # an instance-level predict_pose override must keep routing through
         # predict_pose: the merged path would silently bypass it
         return (self.merge_backproject and "predict_pose" not in self.__dict__
+                and isinstance(self.pose_net, FusedPoseNet)
+                and isinstance(self.depth_net, FusedDepthNet)
                 and (self.batch_pose_frames or len(self.frame_ids) <= 2))
 
     def _predict(self, x: Mapping[str, torch.Tensor]

@@ -142,7 +142,32 @@ Phases (any failure exits non-zero):
     ``BatchLoader`` -> ``device_prefetch`` by the published fusion and fsm
     configs (``configs/{ddad,nuscenes}/*_surround_fusion.yaml``,
     ``*_baseline.yaml``, the fixture's path and the repository's masks) for
-    2 training steps each (launches checked, the rig read back).
+    2 training steps each (launches checked, the rig read back);
+13. depth synthesis (``configs/ddad/ddad_surround_fusion_augdepth.yaml``:
+    the production fusion model with ``aug_depth``, ``aug_angle`` (15, 15,
+    40) acting as radians, so each camera's rotated view looks in a
+    near-random direction), run after the unbatched pose frames of 6: 3
+    f32 requests (each with its seeded rotated-view draw; K1 1, K3 2 a
+    request: the volume decoded along the main and the rotated frusta;
+    ``disp/0/aug`` and ``depth/0/aug`` checked and held against the plain
+    versions with the rest) and one unmerged request (K1 2, K3 2); 3 f32
+    steps at batch 2 (K1 1, K2 1, K3 2, K4 2, K5 4; step 1 against the
+    plain versions, the depth-synthesis logs too); K3 and K4 on the
+    coordinates that the warm-up step handed them, the main and the
+    rotated frusta apart (``check_rotated_frusta``: the share of points
+    inside the volume, K4's plan against the plain plan with its live
+    points and hottest tile, each kernel against its plain version and
+    timed alone and 20 back to back; the ``rotated`` and ``step_main``
+    entries of the K3 and K4 rows); the same request and step in bf16
+    (K1-, K3-bf16 2, K2-bf16, K4's bf16-update form 2, K5-bf16 4) and a
+    bf16 step with ``packed_f32grad`` (K4's f32-update form 2); after
+    the trainer of 9, ``Trainer.evaluate`` with ``syn_visualize`` at the
+    eval batch 4 (batch ``SYN_IDX`` swept: ``fuse_voxel`` then all 767
+    views, one K3 launch a view, every view written as a syn image; the
+    first view and one of each later segment of the sweep against the
+    plain versions); and, after the command lines of 10,
+    both command lines again on tiny_fake.yaml with ``aug_depth`` and the
+    sweep on (767 syn images written).
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -167,6 +192,14 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "ddad" / "ddad_surround_fusion.yaml"
+AUG_CONFIG = ROOT / "configs" / "ddad" / "ddad_surround_fusion_augdepth.yaml"
+AUG_LOGS = ("depth_con_loss", "depth_sm_loss", "depth_loss")
+SYN_IDX = 1            # the swept eval batch (the yaml's 102 is a DDAD index)
+SWEEP_VIEWS = 767      # aug_depth_params' scripted views
+# the views held against the plain versions: the first, then one of each
+# segment (roll 10 deg, pitch 5 deg, the focal morph's end, yaw 90 and
+# 180 deg, where camera 0's decode turns furthest from its own frustum)
+SWEEP_CHECK_VIEWS = (0, 38, 177, 355, 497, 587)
 N_REQUESTS = 3
 N_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -1653,15 +1686,17 @@ def run_serving_path(cfg, device, label: str, per_request, rig: str,
                      tols=(FWD_RTOL, POSE_ATOL)):
     """3 full-width requests through ``VFDepthModel.predict``; returns
     (launches per kernel over the 3 requests, per-request ms, the model,
-    the requests, their outputs). ``tols``: request 1 against the plain
-    versions (``compare_outputs``)."""
+    the requests, their outputs, the requests' rotated-view draws). Under
+    ``aug_depth`` each request draws its rotated views (``aug_draws``).
+    ``tols``: request 1 against the plain versions (``compare_outputs``)."""
     from vfdepth_tpu_torch.training.model import VFDepthModel
 
     t0 = time.perf_counter()
     model = VFDepthModel(cfg, device=device, seed=0)
     ds = _dataset(cfg, N_REQUESTS, rig)
     requests = [ds.batch([i]) for i in range(N_REQUESTS)]
-    model.predict(requests[0])                  # warm-up (not counted)
+    draws = aug_draws(model, requests)
+    model.predict(requests[0], aug_u=draws[0])  # warm-up (not counted)
     torch.cuda.synchronize()
     print(f"{label} serving path set-up (model, data, warm-up): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1672,7 +1707,7 @@ def run_serving_path(cfg, device, label: str, per_request, rig: str,
         before = read_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = model.predict(req)
+        out = model.predict(req, aug_u=draws[i])
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
         delta = {k: n - before[k] for k, n in read_counts().items()}
@@ -1697,31 +1732,51 @@ def run_serving_path(cfg, device, label: str, per_request, rig: str,
                                                                  None, None]
         lo = cfg.min_depth * fx / cfg.focal_length_scale
         hi = cfg.max_depth * fx / cfg.focal_length_scale
+        tags = ("", "/aug") if model.aug_depth else ("",)
+        check(set(out) == {"cam_T_cam"} | {f"{k}/{s}{t}" for k in (
+            "disp", "depth") for s in cfg.scales for t in tags},
+            f"{label}: outputs {sorted(out)}")
         for s in cfg.scales:
-            disp, depth = out[f"disp/{s}"], out[f"depth/{s}"]
-            check(tuple(depth.shape) == (b, cams, h, w, 1),
-                  f"depth shape {tuple(depth.shape)}")
-            check(bool(torch.isfinite(depth).all()), "depth not finite")
-            check(bool(((disp >= 0) & (disp <= 1)).all()), "disp not in [0,1]")
-            check(bool(((depth >= lo * (1 - 1e-5))
-                        & (depth <= hi * (1 + 1e-5))).all()),
-                  "depth outside the metric range")
+            for tag in tags:
+                disp, depth = out[f"disp/{s}{tag}"], out[f"depth/{s}{tag}"]
+                check(tuple(depth.shape) == (b, cams, h, w, 1),
+                      f"depth shape {tuple(depth.shape)}")
+                check(bool(torch.isfinite(depth).all()), "depth not finite")
+                check(bool(((disp >= 0) & (disp <= 1)).all()),
+                      "disp not in [0,1]")
+                check(bool(((depth >= lo * (1 - 1e-5))
+                            & (depth <= hi * (1 + 1e-5))).all()),
+                      "depth outside the metric range")
+        aug = (f"; depth/0/aug in [{out['depth/0/aug'].min().item():.3f}, "
+               f"{out['depth/0/aug'].max().item():.3f}] m"
+               if model.aug_depth else "")
         print(f"{label} request {i}: depth/0 in "
               f"[{outputs[i]['depth/0'].min().item():.3f}, "
-              f"{outputs[i]['depth/0'].max().item():.3f}] m; |t| max "
+              f"{outputs[i]['depth/0'].max().item():.3f}] m{aug}; |t| max "
               f"{cam[..., :3, 3].abs().max().item():.4f}", flush=True)
 
     # request 1 again with the plain versions of the kernels (same weights)
     model.plain_samplers = True
-    ref = model.predict(requests[1])
+    ref = model.predict(requests[1], aug_u=draws[1])
     torch.cuda.synchronize()
     model.plain_samplers = False
     check(read_counts() == counts,
           "the plain reference run launched a kernel")
     compare_outputs(f"{label} request 1 kernels vs plain", outputs[1], ref,
                     *tols)
-    profile(f"{label} request", lambda: model.predict(requests[2]))
-    return counts, ms, model, requests, outputs
+    profile(f"{label} request", lambda: model.predict(requests[2],
+                                                      aug_u=draws[2]))
+    return counts, ms, model, requests, outputs, draws
+
+
+def aug_draws(model, requests):
+    """Each request's seeded draw of the rotated views (uniform [b, cams,
+    3]) where the model runs the depth-synthesis branch, else None."""
+    if not model.aug_depth:
+        return [None] * len(requests)
+    return [torch.rand(model.aug_shape(req),
+                       generator=torch.Generator().manual_seed(100 + i))
+            for i, req in enumerate(requests)]
 
 
 def compare_outputs(what, got, ref, fwd_rtol=FWD_RTOL, pose_atol=POSE_ATOL):
@@ -1739,18 +1794,18 @@ def compare_outputs(what, got, ref, fwd_rtol=FWD_RTOL, pose_atol=POSE_ATOL):
 
 
 def run_unmerged(model, request, merged_out, label: str, per_request,
-                 tols=(FWD_RTOL, POSE_ATOL)):
+                 tols=(FWD_RTOL, POSE_ATOL), aug_u=None):
     """One request with ``merge_backprojection: false`` (each net
     back-projects its own features) from the serving model's weights, held
     against that model's merged output for the same request, after one
     uncounted warm-up request (the separate nets' shapes are new to cuDNN);
     returns (the launches, ms)."""
     model.merge_backproject = False
-    model.predict(request)
+    model.predict(request, aug_u=aug_u)
     reset_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out = model.predict(request)
+    out = model.predict(request, aug_u=aug_u)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
     counts = read_counts()
@@ -1783,6 +1838,161 @@ def capture_k5(fn):
     finally:
         view_rendering.warp_image_mask = original
     return calls
+
+
+def capture_k3k4(fn):
+    """Runs ``fn()`` with the depth net's frustum sampler
+    (``Sample3dTrilinear`` as ``models/vfnet.py`` calls it) recording
+    copies of what it hands K3 and K4: {"fwd": [(vol, coords)] in call
+    order, "bwd": [(g, coords, vol_shape)] (each sample's cotangent, as K4
+    receives it) in the order the backward reaches them}."""
+    import types
+    from vfdepth_tpu_torch.models import vfnet
+    original = vfnet.Sample3dTrilinear
+    calls = {"fwd": [], "bwd": []}
+
+    def apply(vol, coords, *args):
+        calls["fwd"].append((vol.detach().clone(), coords.clone()))
+        out = original.apply(vol, coords, *args)
+        if out.requires_grad:
+            shape = tuple(vol.shape)
+            out.register_hook(lambda g: calls["bwd"].append(
+                (g.detach().contiguous().clone(), coords, shape)))
+        return out
+    vfnet.Sample3dTrilinear = types.SimpleNamespace(apply=apply)
+    try:
+        fn()
+    finally:
+        vfnet.Sample3dTrilinear = original
+    return calls
+
+
+def touched_voxels(coords, vol_shape):
+    """(voxel rows that some live tap of coords [B, N, 3] reads, points
+    with a live tap) in a [B, H, W, D, C] volume."""
+    from vfdepth_tpu_torch.ops import sample3d as s3
+    nb, h, w, d, _ = vol_shape
+    rows, live = 0, 0
+    for b in range(nb):
+        base, wts = s3._point_taps(coords[b], h, w, d)
+        taps = torch.stack([base + off for off in s3._tap_offsets(w, d)])
+        on = torch.stack(wts).ne(0)
+        rows += int(torch.unique(taps[on]).numel())
+        live += int(on.any(0).sum())
+    return rows, live
+
+
+def check_rotated_frusta(rows, calls):
+    """K3 and K4 (f32 updates) on the coordinates the 6-camera
+    depth-synthesis step handed them (``capture_k3k4``): the main frusta and
+    the rotated ones (``augment_extrinsics``: the config's angles act as
+    radians, so most rotated points fall outside the volume). For each: the
+    share of points inside the volume, K3 against its plain version and
+    timed (a call alone and 20 back to back), K4's plan on the card against
+    the plain plan (live points, tiles, the hottest tile's contributions,
+    tiles cut in chunks), K4 against its plain version, two launches
+    bit-identical, and timed (whole call, plan, reduce; 20 back to back).
+    The rotated results join the K3 and K4 rows as ``rotated``, the step's
+    main frusta as ``step_main``."""
+    from vfdepth_tpu_torch.ops import sample3d as s3
+    check(len(calls["fwd"]) == 2 and len(calls["bwd"]) == 2,
+          f"the depth-synthesis step called K3 {len(calls['fwd'])} and K4 "
+          f"{len(calls['bwd'])} times, expected 2 and 2")
+    (vol, main), (vol_aug, rotated) = calls["fwd"]
+    check(torch.equal(vol, vol_aug), "the two decodes sampled two volumes")
+    out = {}
+    for name, coords in (("step_main", main), ("rotated", rotated)):
+        bwd = [c for c in calls["bwd"] if torch.equal(c[1], coords)]
+        check(len(bwd) == 1, f"K4 {name}: {len(bwd)} matching calls")
+        g, _, vol_shape = bwd[0]
+        inside = ((coords.abs() <= 1.0).all(-1)).float().mean().item()
+        got = s3.sample3d_trilinear(vol, coords)
+        ref = s3.sample3d_trilinear_plain(vol, coords)
+        torch.cuda.synchronize()
+        err3 = (got - ref).abs().max().item()
+        tol3 = K3_TOL * vol.abs().max().item()
+        check(err3 <= tol3, f"K3 on the {name} frusta differs from its plain "
+                            f"version: {err3} > {tol3}")
+        # the work this data needs: the voxel rows some live tap reads, the
+        # points, the output; 8 multiply-adds a live point and channel
+        rows_read, live_pts = touched_voxels(coords, vol.shape)
+        k3 = dict(ms=time_ms(lambda: s3.sample3d_trilinear(vol, coords)),
+                  stream_ms=stream_ms(lambda: s3.sample3d_trilinear(
+                      vol, coords)),
+                  bound_ms=bound(rows_read * vol.shape[-1]
+                                 * vol.element_size() + nbytes(coords, got),
+                                 live_pts * vol.shape[-1] * 16)[0],
+                  inside_share=inside, live_share=live_pts / (
+                      coords.shape[0] * coords.shape[1]),
+                  voxel_rows_read=rows_read, max_abs_err=err3)
+        del got, ref
+        plan = s3.sample3d_bwd_plan(coords, vol_shape)
+        plain = s3.sample3d_bwd_plan_plain(coords, vol_shape)
+        for field, val in plan.fields().items():
+            check(torch.equal(val, plain.fields()[field].to(val.device)),
+                  f"K4 {name}: the card's plan differs from the plain plan "
+                  f"in {field}")
+        grid = s3._grid(vol_shape, False)
+        _, lens = grid.runs(plain.start)
+        totals = lens.sum(1)
+        chunks = (plan.chunk_off[1:] - plan.chunk_off[:-1]).cpu()
+        live, n = int(plan.start[-1]), plan.order.numel()
+        dvol = s3.sample3d_trilinear_bwd(g, coords, vol_shape)
+        again = s3.sample3d_trilinear_bwd(g, coords, vol_shape)
+        ref = s3.sample3d_trilinear_bwd_plain(g, coords, vol_shape)
+        torch.cuda.synchronize()
+        check(torch.equal(dvol, again), f"K4 {name}: two launches differ")
+        err4 = (dvol - ref).abs().max().item()
+        tol4 = K4_TOL * ref.abs().max().item()
+        check(err4 <= tol4, f"K4 on the {name} frusta differs from its plain "
+                            f"version: {err4} > {tol4}")
+        k4 = dict(ms=time_ms(lambda: s3.sample3d_trilinear_bwd(g, coords,
+                                                               vol_shape)),
+                  stream_ms=stream_ms(lambda: s3.sample3d_trilinear_bwd(
+                      g, coords, vol_shape)),
+                  bound_ms=bound(live * vol_shape[-1] * g.element_size()
+                                 + nbytes(coords, dvol),
+                                 live * vol_shape[-1] * 16)[0],
+                  live_share=live / n, tiles=len(chunks),
+                  hottest_tile=int(totals.max()),
+                  mean_tile=float(totals.float().mean()),
+                  cut_tiles=int((chunks > 1).sum()),
+                  max_chunks=int(chunks.max()), chunk=int(plan.params[0]),
+                  max_abs_err=err4,
+                  **stage_split(lambda: s3.sample3d_bwd_plan(coords,
+                                                             vol_shape),
+                                lambda p: s3._bwd_launch(g, coords,
+                                                         vol_shape, False,
+                                                         p)))
+        del dvol, again, ref, plan, plain
+        out[name] = (k3, k4)
+        print(f"K3 on the {name} frusta of the depth-synthesis step "
+              f"({coords.shape[1]} points a frameset, batch "
+              f"{coords.shape[0]}): {100 * inside:.1f}% inside the volume, "
+              f"{100 * k3['live_share']:.1f}% with a tap in it, "
+              f"{rows_read} voxel rows read; "
+              f"max_abs_err {err3:.3e} (tol {tol3:.3e}); {k3['ms']:.4f} ms "
+              f"a call, {k3['stream_ms']:.4f} back to back, bound "
+              f"{k3['bound_ms']:.4f}", flush=True)
+        print(f"K4 on the {name} frusta: plan {live} live of {n} points "
+              f"({100 * live / n:.1f}%), {len(chunks)} tiles, hottest tile "
+              f"{int(totals.max())} contributions (mean "
+              f"{float(totals.float().mean()):.1f}), chunk "
+              f"{k4['chunk']}, {k4['cut_tiles']} tiles cut (up to "
+              f"{k4['max_chunks']} chunks); equal to the plain plan; two "
+              f"launches bit-identical; max_abs_err {err4:.3e} (tol "
+              f"{tol4:.3e}); {k4['ms']:.4f} ms a call (plan "
+              f"{k4['plan_ms']:.4f} + reduce {k4['reduce_ms']:.4f}), "
+              f"{k4['stream_ms']:.4f} back to back, bound "
+              f"{k4['bound_ms']:.4f}", flush=True)
+    for key, i in (("K3", 0), ("K4", 1)):
+        for name, res in out.items():
+            rows[key][name] = res[i]
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"],
+                                       *(r[i]["max_abs_err"]
+                                         for r in out.values()))
+    del calls["fwd"][:], calls["bwd"][:]
+    torch.cuda.empty_cache()
 
 
 def time_k5_on_step(key, row, calls):
@@ -1835,13 +2045,15 @@ def time_k5_on_step(key, row, calls):
 
 
 def run_training_path(cfg, device, label: str, per_step, rig: str,
-                      tols=(STEP_LOSS_RTOL, STEP_GRAD_RTOL), k5_calls=None):
+                      tols=(STEP_LOSS_RTOL, STEP_GRAD_RTOL), k5_calls=None,
+                      k3k4_calls=None):
     """Full-width training steps at the config's batch through
     ``train_step``; returns (launches per kernel over the timed steps,
     per-step ms). ``tols``: step 1 against the plain versions, the loss's
-    relative difference and each gradient's relative L2 difference.
-    ``k5_calls``: a list that receives K5's inputs of the (uncounted)
-    warm-up step."""
+    (and the depth-synthesis logs') relative difference and each
+    gradient's relative L2 difference. ``k5_calls``: a list that receives
+    K5's inputs of the (uncounted) warm-up step; ``k3k4_calls`` a dict that
+    receives K3's and K4's (``capture_k3k4``)."""
     loss_rtol, grad_rtol = tols
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
@@ -1861,10 +2073,16 @@ def run_training_path(cfg, device, label: str, per_step, rig: str,
 
     def warm_up():
         warm["logs"] = train_step(model, opt, batches[0], 0, noise_gen(0))
-    if k5_calls is None:
-        warm_up()
+
+    def run_k5():
+        if k5_calls is None:
+            warm_up()
+        else:
+            k5_calls.extend(capture_k5(warm_up))
+    if k3k4_calls is None:
+        run_k5()
     else:
-        k5_calls.extend(capture_k5(warm_up))
+        k3k4_calls.update(capture_k3k4(run_k5))
     logs0 = warm["logs"]
     torch.cuda.synchronize()
     print(f"{label} training path set-up (model, data, warm-up step): "
@@ -1889,11 +2107,13 @@ def run_training_path(cfg, device, label: str, per_step, rig: str,
         losses.append(logs["total_loss"].item())
         if step == 1:
             grads1, logs1 = _grads(model), logs
+        aug = "".join(f", {k} {logs[k].item():.6f}" for k in AUG_LOGS
+                      if k in logs)
         print(f"{label} step {step}: {ms[-1]:.2f} ms, loss {losses[-1]:.6f}, "
               f"reproj {logs['reproj_loss'].item():.6f}, spatio "
               f"{logs['spatio_loss'].item():.6f}, spatio-temporal "
               f"{logs['spatio_tempo_loss'].item():.6f}, auto-mask cover "
-              f"{logs['amask_cover'].item():.4f}", flush=True)
+              f"{logs['amask_cover'].item():.4f}{aug}", flush=True)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} training path: peak device memory {peak:.2f} GiB",
@@ -1931,6 +2151,13 @@ def run_training_path(cfg, device, label: str, per_step, rig: str,
           f"{flips:.0f} of {n_pix} pixels (net flips)", flush=True)
     check(abs(lk - lp) <= loss_rtol * abs(lp),
           f"step 1 loss: kernels {lk} vs plain {lp}")
+    for key in AUG_LOGS:
+        if key in logs1:
+            vk, vp = logs1[key].item(), logs_p[key].item()
+            print(f"{label} step 1 kernels vs plain: {key} {vk:.7f} vs "
+                  f"{vp:.7f}", flush=True)
+            check(math.isfinite(vk) and abs(vk - vp) <= loss_rtol * abs(vp),
+                  f"step 1 {key}: kernels {vk} vs plain {vp}")
     worst, worst_name = 0.0, ""
     for name, p in model.named_parameters():
         ref = p.grad
@@ -2079,11 +2306,11 @@ def run_evaluation_path(cfg, device, label, per_batch, tmp,
     record = []
     real_predict = model.predict
 
-    def counted(batch):
+    def counted(batch, aug_u=None):
         before = read_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = real_predict(batch)
+        out = real_predict(batch, aug_u=aug_u)
         torch.cuda.synchronize()
         record.append(((time.perf_counter() - t) * 1e3, _delta(before)))
         return out
@@ -2345,16 +2572,25 @@ def upload_times(batch, device, label, reps: int = 5):
     return med
 
 
-def run_clis(tmp):
+def run_clis(tmp, aug: bool = False):
     """The port's command lines on the card, as a user runs them: train 2
     steps of ``configs/tiny_fake.yaml`` (its ``log_dir`` moved into
-    ``tmp``), then evaluate the checkpoint it wrote."""
+    ``tmp``), then evaluate the checkpoint it wrote. ``aug``: the same with
+    ``aug_depth`` on and the eval's depth-synthesis sweep (``syn_visualize``
+    at batch ``SYN_IDX``, all its views written)."""
     src = (ROOT / "configs" / "tiny_fake.yaml").read_text()
     check("log_dir: ./results/" in src, "tiny_fake.yaml has no log_dir")
-    cfg_file = tmp / "tiny_fake.yaml"
-    cfg_file.write_text(src.replace("log_dir: ./results/",
-                                    f"log_dir: {tmp}/"))
-    weights = tmp / "tiny_fake" / "models" / "weights_0"
+    src = src.replace("log_dir: ./results/", f"log_dir: {tmp}/")
+    cfg_name = "tiny_fake_aug" if aug else "tiny_fake"
+    if aug:
+        for old, new in (("aug_depth: false", "aug_depth: true"),
+                         ("syn_visualize: false, syn_idx: 245",
+                          f"syn_visualize: true, syn_idx: {SYN_IDX}")):
+            check(old in src, f"tiny_fake.yaml has no {old!r}")
+            src = src.replace(old, new)
+    cfg_file = tmp / f"{cfg_name}.yaml"
+    cfg_file.write_text(src)
+    weights = tmp / cfg_name / "models" / "weights_0"
     outputs = {}
     for name, args in (
             ("train", ["--config_file", str(cfg_file), "--max_steps", "2"]),
@@ -2365,8 +2601,9 @@ def run_clis(tmp):
                               f"vfdepth_tpu_torch.{name}", *args],
                              cwd=str(ROOT), capture_output=True, text=True,
                              timeout=600)
-        print(f"CLI {name}: exit {res.returncode} in "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
+        print(f"CLI {name}{' (aug_depth)' if aug else ''}: exit "
+              f"{res.returncode} in {time.perf_counter() - t:.1f} s",
+              flush=True)
         if res.returncode != 0:
             print(res.stdout[-3000:], res.stderr[-3000:], flush=True)
         check(res.returncode == 0, f"python -m vfdepth_tpu_torch.{name} "
@@ -2378,6 +2615,145 @@ def run_clis(tmp):
     check(len(lines) == 2, "the eval CLI printed no metric and median lines")
     for line in lines:
         print(f"CLI eval: {line.strip()}", flush=True)
+    if aug:
+        syn = tmp / cfg_name / "syn_results"
+        n = len(list(syn.iterdir())) if syn.is_dir() else 0
+        check(n == SWEEP_VIEWS, f"the aug eval CLI wrote {n} syn images, "
+                                f"expected {SWEEP_VIEWS}")
+        print(f"CLI eval (aug_depth): {n} syn images written", flush=True)
+
+
+def aug_config(mixed_precision: bool = False, mode: str = "train"):
+    """``configs/ddad/ddad_surround_fusion_augdepth.yaml`` (the published
+    depth-synthesis config: the production fusion model, ``aug_angle``
+    (15, 15, 40), ``depth_con_coeff`` 0.03, ``depth_sm_coeff`` 0.05)."""
+    from vfdepth_tpu_torch.config import get_config
+    cfg = get_config(str(AUG_CONFIG), mode=mode)
+    cfg.set("mixed_precision", mixed_precision)
+    check(cfg.aug_depth, "the augdepth yaml has aug_depth off")
+    return cfg
+
+
+def run_synthesis_sweep(cfg, device, label, per_evaluation, tmp):
+    """``Trainer.evaluate`` with ``syn_visualize`` on the seeded model at
+    the config's eval batch (``FakeDataset(with_depth=True)``, the even
+    rig): batch 0 skipped, batch ``SYN_IDX`` predicted, swept
+    (``synthesize_sweep``: ``fuse_voxel`` once, one ``decode_view`` a view)
+    and written (``log_result``: the per-camera disparities and one syn
+    image a view), then the evaluation stops. Checks the launches (K1 twice,
+    K3 twice for the request and once a view), each view's disparity
+    (shape, finite, in [0, 1]) and the views ``SWEEP_CHECK_VIEWS`` against
+    the plain versions. Returns (launches, ms a view)."""
+    import numpy as np
+    from vfdepth_tpu_torch.data import BatchLoader, FakeDataset
+    from vfdepth_tpu_torch.training import Trainer, VFDepthModel, synthesis
+    b = cfg.eval_batch_size
+    check(cfg.syn_visualize and cfg.batch_size == b,
+          f"{label}: the eval config must sweep at batch {b}")
+    cfg.set("syn_idx", SYN_IDX)
+    cfg.set("log_path", str(tmp / "log"))
+    t0 = time.perf_counter()
+    model = VFDepthModel(cfg, device=device, seed=0)
+    ds = FakeDataset(num_samples=b * (SYN_IDX + 1), num_cams=cfg.num_cams,
+                     height=cfg.height, width=cfg.width,
+                     frame_ids=tuple(cfg.frame_ids),
+                     fusion_level=cfg.fusion_level, rig="even",
+                     with_depth=True)
+    loader = BatchLoader(ds, b, shuffle=False, num_workers=0)
+    warm = ds.batch(list(range(b)))
+    model.predict(warm, aug_u=torch.rand(model.aug_shape(warm)))
+    synthesis.synthesize_sweep(model, warm, max_views=2)     # warm-up
+    torch.cuda.synchronize()
+    print(f"{label} set-up (model, data, warm-up): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    trainer = Trainer(cfg, model, use_tb=False)
+    real_sweep, real_log = synthesis.synthesize_sweep, trainer.logger.log_result
+    rec = {}
+
+    def timed_sweep(model_, batch, **kw):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        disps = real_sweep(model_, batch, **kw)
+        torch.cuda.synchronize()
+        rec["sweep"] = ((time.perf_counter() - t) * 1e3, _delta(before),
+                        disps, batch)
+        return disps
+
+    def timed_log(*args, **kw):
+        t = time.perf_counter()
+        real_log(*args, **kw)
+        rec["log_ms"] = (time.perf_counter() - t) * 1e3
+    synthesis.synthesize_sweep, trainer.logger.log_result = (timed_sweep,
+                                                             timed_log)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        trainer.evaluate(loader, load_weights=False)
+        torch.cuda.synchronize()
+    finally:
+        synthesis.synthesize_sweep = real_sweep
+    wall = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+    ms, sweep_counts, disps, batch = rec["sweep"]
+    views = len(disps)
+    check(views == SWEEP_VIEWS, f"{label}: {views} views swept")
+    per_view = dict(per_evaluation)
+    k1 = next(k for k, v in per_evaluation.items() if v and k.startswith("K1"))
+    k3 = next(k for k, v in per_evaluation.items() if v and k.startswith("K3"))
+    check(sweep_counts == launches(**{k1: 1, k3: views}),
+          f"{label}: sweep launches {sweep_counts}, expected {k1} 1 and "
+          f"{k3} {views}")
+    per_view[k3] += views
+    per_view[k1] += 1
+    check(counts == per_view, f"{label}: evaluation launches {counts}, "
+                              f"expected {per_view}")
+    for i, d in enumerate(disps):
+        check(d.shape == (b, cfg.height, cfg.width, 1)
+              and bool(np.isfinite(d).all()) and 0.0 <= d.min()
+              and d.max() <= 1.0,
+              f"{label}: view {i} disparity shape {d.shape} or range")
+    syn = sorted((tmp / "log" / "syn_results").iterdir())
+    check(len(syn) == views, f"{label}: {len(syn)} syn images written")
+    real_params = synthesis.aug_depth_params
+
+    def checked_views(k, n_steps=75):
+        every = real_params(k, n_steps)
+        return [every[i] for i in SWEEP_CHECK_VIEWS]
+    model.plain_samplers = True
+    synthesis.aug_depth_params = checked_views
+    try:
+        ref = real_sweep(model, batch)
+    finally:
+        synthesis.aug_depth_params = real_params
+        model.plain_samplers = False
+    torch.cuda.synchronize()
+    check(read_counts() == counts, "the plain sweep launched a kernel")
+    errs = {i: float(abs(disps[i] - r).max())
+            for i, r in zip(SWEEP_CHECK_VIEWS, ref)}
+    err = max(errs.values())
+    tol = FWD_RTOL * max(float(abs(r).max()) for r in ref)
+    check(err <= tol, f"{label}: views {SWEEP_CHECK_VIEWS} kernels vs plain "
+                      f"{errs} > {tol}")
+    moved = float(abs(disps[views // 2] - disps[0]).max())
+    by_view = ", ".join(f"{i} {e:.2e}" for i, e in errs.items())
+    print(f"{label}: Trainer.evaluate with syn_visualize at batch {b} "
+          f"(batch {SYN_IDX} swept): {views} views in {ms / 1e3:.2f} s, "
+          f"{ms / views:.3f} ms a view (fuse_voxel once, then one "
+          f"decode_view and a copy to the host a view); {k3} "
+          f"{sweep_counts[k3]} launches in the sweep (= views), {k1} "
+          f"{sweep_counts[k1]}; {len(syn)} syn images and "
+          f"{b * cfg.num_cams} disparity images written in "
+          f"{rec['log_ms'] / 1e3:.2f} s; evaluate {wall / 1e3:.2f} s in "
+          f"all; kernels vs plain max_abs_diff {err:.3e} (tol {tol:.3e}; "
+          f"by view: {by_view}); view {views // 2} differs from view 0 by "
+          f"{moved:.3f}",
+          flush=True)
+    del model, disps, ref
+    torch.cuda.empty_cache()
+    return counts, ms / views
 
 
 # ---------------------------------------------------------------------------
@@ -2517,11 +2893,11 @@ def run_fsm_learn_evaluate(cfg, device, label, per_step, per_validation,
     record = []
     real_predict = fresh.predict
 
-    def timed(batch):
+    def timed(batch, aug_u=None):
         before = read_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = real_predict(batch)
+        out = real_predict(batch, aug_u=aug_u)
         torch.cuda.synchronize()
         record.append(((time.perf_counter() - t) * 1e3, _delta(before)))
         return out
@@ -3094,7 +3470,7 @@ def main() -> int:
     bf16_tols = dict(tols=(BF16_FWD_RTOL, BF16_POSE_ATOL))
 
     def serve(c, label, rig, per_request, unmerged=None, **kw):
-        counts, ms, model, requests, outputs = run_serving_path(
+        counts, ms, model, requests, outputs, draws = run_serving_path(
             c, device, label, per_request, rig, **kw)
         print(f"{label} serving path: {N_REQUESTS} requests, per-request ms "
               f"{[round(m, 3) for m in ms]}, "
@@ -3104,7 +3480,7 @@ def main() -> int:
             "mixed_precision", False) else None), f"{label}: compute dtype")
         if unmerged is not None:
             counts, ms = run_unmerged(model, requests[1], outputs[1], label,
-                                      unmerged, **kw)
+                                      unmerged, aug_u=draws[1], **kw)
             paths[f"{label} unmerged request"] = dict(launches=counts,
                                                       ms=[ms])
         del model, outputs
@@ -3167,6 +3543,29 @@ def main() -> int:
           launches(K1=3, K3=1))
     train(cfg_upf, "6-camera unbatched pose frames", "even",
           launches(K1=3, K2=3, K3=1, K4=1, K5=4))
+    # depth synthesis (the published augdepth yaml): the voxel volume is
+    # decoded twice a request and a step, along the main and the rotated
+    # frusta (K3 2, K4 2); K3 and K4 are then held and timed on the rotated
+    # coordinates of the warm-up step
+    cfg_aug = aug_config()
+    serve(cfg_aug, "6-camera aug", "even", launches(K1=1, K3=2),
+          launches(K1=2, K3=2))
+    k3k4_calls = {}
+    train(cfg_aug, "6-camera aug", "even",
+          launches(K1=1, K2=1, K3=2, K4=2, K5=4), k3k4_calls=k3k4_calls)
+    check_rotated_frusta(rows, k3k4_calls)
+    cfg_aug_mp = aug_config(mixed_precision=True)
+    serve(cfg_aug_mp, "6-camera aug bf16", "even",
+          launches(**{"K1-bf16": 1, "K3-bf16": 2}),
+          launches(**{"K1-bf16": 2, "K3-bf16": 2}), **bf16_tols)
+    train(cfg_aug_mp, "6-camera aug bf16", "even", launches(
+        **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 2, "K4-bf16": 2,
+           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    cfg_aug_f32u = aug_config(mixed_precision=True)
+    cfg_aug_f32u.set("sampler_3d", "packed_f32grad")
+    train(cfg_aug_f32u, "6-camera aug bf16 packed_f32grad", "even", launches(
+        **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 2, "K4-f32upd-bf16": 2,
+           "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
     # the evaluation and the training loop: the full-width model through
     # Trainer.evaluate (batch 4) and Trainer.learn (pinned prefetch), then
     # the command lines on the tiny config
@@ -3205,7 +3604,15 @@ def main() -> int:
               f"with the pinned prefetch", flush=True)
         paths["6-camera trainer"] = dict(launches=counts, ms=[ms])
         torch.cuda.empty_cache()
+        # the depth-synthesis sweep through Trainer.evaluate at the
+        # published eval batch (4), all of its views
+        counts, view_ms = run_synthesis_sweep(
+            aug_config(mode="eval"), device, "6-camera aug sweep",
+            launches(K1=1, K3=2), tmp / "sweep")
+        paths["6-camera aug evaluation sweep"] = dict(launches=counts,
+                                                      ms=[view_ms])
         run_clis(tmp)
+        run_clis(tmp, aug=True)
 
         # the fsm (Monodepth2) baseline at full width: a request runs no
         # kernel (no voxel volume), a step K5 4 times (render_views)

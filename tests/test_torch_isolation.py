@@ -25,7 +25,8 @@ TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
                     "utils.logger", "data.synthetic_scene", "data.factory",
                     "data.loader", "training.checkpoint", "training.trainer",
                     "eval", "train", "data.depth_projection", "native",
-                    "data.transforms", "data.ddad", "data.nuscenes")
+                    "data.transforms", "data.ddad", "data.nuscenes",
+                    "ops.grid_sample", "training.synthesis")
 # files outside both packages that import JAX: the JAX package's own entry
 # points and scripts, and the one converter that carries its checkpoints
 # into the port
@@ -138,11 +139,12 @@ def _cfg_with(**over):
 
 def test_unported_configs_raise():
     """What is not ported raises: ``sampler_3d: gather`` under mixed
-    precision with the fusion depth net, and the depth-synthesis branch (in
-    ``forward`` and in ``predict``). Unbatched pose
-    frames and mixed precision on the 3-camera rig (the bf16 forms of K1b
-    and K2b) build, as do ``merge_backprojection: false`` and mixed
-    precision on the 6-camera rig."""
+    precision with the fusion depth net. Unbatched pose frames and mixed
+    precision on the 3-camera rig (the bf16 forms of K1b and K2b) build, as
+    do ``merge_backprojection: false``, mixed precision on the 6-camera rig
+    and the depth-synthesis branch, whose ``predict`` and ``forward`` need
+    the rotated views' draw ``aug_u`` of ``aug_shape`` (a missing or
+    misshapen draw raises, as a missing noise does)."""
     with pytest.raises(NotImplementedError):
         VFDepthModel(_cfg_with(mixed_precision=True, sampler_3d="gather"),
                      device="cpu")
@@ -158,15 +160,19 @@ def test_unported_configs_raise():
                         device="cpu")._can_merge_backproject()
     cfg = _cfg_with(aug_depth=True)
     model = VFDepthModel(cfg, device="cpu")
+    assert model.aug_depth
     batch = FakeDataset(num_samples=1, num_cams=cfg.num_cams,
                         height=cfg.height, width=cfg.width,
                         fusion_level=cfg.fusion_level).batch([0])
-    with pytest.raises(NotImplementedError, match="depth-synthesis"):
-        model(batch, step=0, noise=torch.zeros(model.noise_shape(batch)))
-    # serving too: JAX's forward(train=False) returns the depth-synthesis
-    # outputs, which the port cannot give
-    with pytest.raises(NotImplementedError, match="depth-synthesis"):
-        model.predict(batch)
+    assert model.aug_shape(batch) == (1, cfg.num_cams, 3)
+    for aug_u in (None, torch.rand(1, cfg.num_cams, 2)):
+        with pytest.raises(ValueError, match="aug_u"):
+            model(batch, step=0, noise=torch.zeros(model.noise_shape(batch)),
+                  aug_u=aug_u)
+        with pytest.raises(ValueError, match="aug_u"):
+            model.predict(batch, aug_u=aug_u)
+    out = model.predict(batch, aug_u=torch.rand(model.aug_shape(batch)))
+    assert {"disp/0/aug", "depth/0/aug"} <= set(out)
 
 
 @pytest.mark.parametrize("depth_model,pose_model", [

@@ -140,8 +140,11 @@ def test_intensity_align_passes_through_empty_overlap():
 
 
 def test_render_views_rejects_depth_synthesis():
+    """The depth-synthesis branch needs the extrinsics, the rotated
+    extrinsics and the rotated views' depth; without them it raises
+    (tests/test_torch_synthesis_modules.py holds the branch against JAX)."""
     batch, rel_cam, depth, cam = _scene(4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="aug_depth"):
         tvr.render_views({f: torch.from_numpy(batch[f"color/{f}/0"])
                           for f in FRAMES}, torch.from_numpy(batch["mask"]),
                          torch.from_numpy(batch["K/0"]),

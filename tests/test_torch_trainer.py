@@ -169,8 +169,10 @@ def runs(tmp_path_factory):
     record = dict(lrs=[], losses=[], epoch_end={})
     real_step = trainer_module.train_step
 
-    def recording_step(model, optimizer, batch, step, generator, noise=None):
-        logs = real_step(model, optimizer, batch, step, generator, noise)
+    def recording_step(model, optimizer, batch, step, generator, noise=None,
+                       aug_u=None):
+        logs = real_step(model, optimizer, batch, step, generator, noise,
+                         aug_u)
         record["lrs"].append([g["lr"] for g in optimizer.param_groups])
         record["losses"].append(float(logs["total_loss"]))
         if (step + 1) % (N_SAMPLES // BATCH) == 0:
@@ -381,8 +383,10 @@ def test_pretrain_resumes_from_the_saved_step(tmp_path, monkeypatch):
     seen = []
     real_step = trainer_module.train_step
 
-    def recording(model, optimizer, batch, step, generator, noise=None):
-        logs = real_step(model, optimizer, batch, step, generator, noise)
+    def recording(model, optimizer, batch, step, generator, noise=None,
+                  aug_u=None):
+        logs = real_step(model, optimizer, batch, step, generator, noise,
+                         aug_u)
         seen.append((step, [g["lr"] for g in optimizer.param_groups]))
         return logs
     monkeypatch.setattr(trainer_module, "train_step", recording)

@@ -11,8 +11,13 @@ The JAX package can restrict the overlap warps to windows
 (``tpu.warp_window``, ``geometry/warp_window.py``); by construction a window
 covers every target pixel with a nonzero value, mask or gradient, so the
 windowed loss equals the dense one. The port runs the dense warps for every
-value of that key. The depth-synthesis branch (``aug_depth``,
-``warp_depth``) is not ported and raises.
+value of that key.
+
+The depth-synthesis branch (``aug_depth``) warps depth, not colour:
+``warp_depth`` samples each source's depth, expressed in the rotated
+target frame, with the plain gather sampler of ``ops/grid_sample.py`` (the
+JAX package's XLA gathers, not a TPU kernel; K5's rules for non-finite
+coordinates and nearest ties differ, and K5 gives no source gradient).
 
 Under mixed precision the colours arrive as bf16 (``training/model.py``):
 the warps take bf16 sources and masks and return bf16 images and masks
@@ -25,7 +30,10 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
-from .projection import project_coords
+from .projection import backproject, project_coords
+from .se3 import invert_pose
+from ..ops import ties
+from ..ops.grid_sample import grid_sample_2d
 from ..ops.warp import warp_image_mask
 
 
@@ -55,6 +63,40 @@ def warp_image(src_img: torch.Tensor, src_mask: torch.Tensor,
     in_bounds = ((coords >= -1.0) & (coords <= 1.0)).all(
         dim=-1, keepdim=True).to(src_img.dtype)
     return img_w, in_bounds * mask_w
+
+
+def warp_depth(src_depth: torch.Tensor, src_mask: torch.Tensor,
+               src_inv_k: torch.Tensor, src_k: torch.Tensor,
+               tar_depth: torch.Tensor, tar_inv_k: torch.Tensor,
+               transform: torch.Tensor, min_depth: float, max_depth: float):
+    """Backward-warp source depth [..., H, W, 1] into the target frame.
+
+    The source depth is first expressed in the target frame (the z of the
+    transformed source points), then sampled bilinearly at the coordinates
+    projected with the inverse transform and clamped to [min_depth,
+    max_depth]. Non-finite coordinates give depth 2.0 (then clamped) and
+    mask 0; the mask (the source mask's nearest sample) is 0 where the
+    coordinates leave [-1, 1] or the sampled depth is not strictly inside
+    the range. Returns (depth, mask); the gradient reaches both depths.
+    """
+    h, w = src_depth.shape[-3], src_depth.shape[-2]
+    src_points = backproject(src_inv_k, src_depth)          # [..., 4, HW]
+    warped = torch.einsum("...ij,...jn->...in", transform[..., :3, :],
+                          src_points)
+    src_depth_t = warped[..., 2, :].reshape(src_depth.shape[:-3] + (h, w, 1))
+
+    coords = project_coords(tar_depth, invert_pose(transform), tar_inv_k,
+                            src_k)
+    depth_w, finite = grid_sample_2d(src_depth_t, coords, mode="bilinear",
+                                     with_finite_mask=True)
+    depth_w = torch.where(finite > 0, depth_w, 2.0)
+    mask_w = grid_sample_2d(src_mask, coords, mode="nearest") * finite
+    in_bounds = ((coords >= -1.0) & (coords <= 1.0)).all(
+        dim=-1, keepdim=True).to(src_depth.dtype)
+    valid_min = (depth_w > min_depth).to(src_depth.dtype)
+    valid_max = (depth_w < max_depth).to(src_depth.dtype)
+    depth_w = ties.clip(depth_w, min_depth, max_depth)
+    return depth_w, in_bounds * mask_w * valid_min * valid_max
 
 
 def intensity_align(ref_img: torch.Tensor, ref_mask: torch.Tensor,
@@ -99,8 +141,9 @@ class RenderOutputs(NamedTuple):
     overlap_img / overlap_mask:   [b, cams, 1 + n_ctx, H, W, 3|1]
       (index 0 is frame 0 (spatio), then the context frames
       (spatio-temporal))
-    tform_depth / tform_depth_mask: the depth-synthesis branch; always None
-    in the port.
+    tform_depth / tform_depth_mask: [b, cams, n_nbr + 1, H, W, 1], the
+      depth-synthesis branch (each camera's neighbours, then itself), None
+      without ``aug_depth``
     """
     temporal_img: torch.Tensor
     temporal_mask: torch.Tensor
@@ -122,6 +165,10 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
                  rel_cam: torch.Tensor, frame_ids: Sequence[int],
                  do_intensity_align: bool = True, spatio: bool = True,
                  spatio_temporal: bool = True, aug_depth: bool = False,
+                 extrinsics: Optional[torch.Tensor] = None,
+                 extrinsics_aug: Optional[torch.Tensor] = None,
+                 depth_aug: Optional[torch.Tensor] = None,
+                 min_depth: float = 1.5, max_depth: float = 200.0,
                  plain: bool = False) -> RenderOutputs:
     """Render every warped view the losses need for one scale.
 
@@ -129,12 +176,17 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
     inv_k [b, cams, 4, 4]; depth [b, cams, H, W, 1]; cam_t_cam [b, cams,
     n_ctx, 4, 4]; spatio_pose [b, cams, n_nbr, 4, 4]; spatio_tempo_pose
     [b, cams, n_ctx, n_nbr, 4, 4]; rel_cam [cams, n_nbr] neighbour indices
-    (-1 = none). ``plain`` runs the warp kernel's plain version on any
-    device. (The JAX function's window and depth-synthesis arguments have
-    no counterpart: the port's warps are dense.)
+    (-1 = none). ``aug_depth`` adds the depth-synthesis warps: each
+    camera's neighbours' depths and its own, warped into its rotated view
+    (``extrinsics_aug``, [b, cams, 4, 4]) at that view's depth
+    ``depth_aug`` [b, cams, H, W, 1] by ``warp_depth``. ``plain`` runs the
+    warp kernel's plain version on any device. (The JAX function's window
+    arguments have no counterpart: the port's warps are dense.)
     """
-    if aug_depth:
-        raise NotImplementedError("the depth-synthesis branch is not ported")
+    if aug_depth and (extrinsics is None or extrinsics_aug is None
+                      or depth_aug is None):
+        raise ValueError("aug_depth needs extrinsics, extrinsics_aug and "
+                         "depth_aug")
     ctx_ids = list(frame_ids[1:])
     n_ctx = len(ctx_ids)
     rel_cam = torch.as_tensor(rel_cam, device=depth.device).long()
@@ -173,4 +225,24 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
                  for fi, f in enumerate(ctx_ids)]
         overlap_img = torch.stack([o[0] for o in outs], dim=2)
         overlap_mask = torch.stack([o[1] for o in outs], dim=2)
-    return RenderOutputs(t_img, t_mask, overlap_img, overlap_mask)
+
+    tform_depth = tform_mask = None
+    if aug_depth:
+        cams = depth.shape[1]
+        # sources: each camera's neighbours, then itself
+        self_idx = torch.arange(cams, device=rel_idx.device)[:, None]
+        src_idx = torch.cat([rel_idx, self_idx], dim=1)    # [cams, n_src]
+        src_valid = torch.cat([rel_cam >= 0, torch.ones_like(
+            self_idx, dtype=torch.bool)], dim=1)
+        n_src = src_idx.shape[1]
+        rel_pose = torch.einsum("bcij,bcnjk->bcnik",
+                                invert_pose(extrinsics_aug),
+                                extrinsics[:, src_idx])
+        tform_depth, tform_mask = warp_depth(
+            depth[:, src_idx], mask[:, src_idx], inv_k[:, src_idx],
+            k[:, src_idx], _bcast(depth_aug, n_src), _bcast(inv_k, n_src),
+            rel_pose, min_depth, max_depth)
+        tform_mask = tform_mask * src_valid.to(depth.dtype)[
+            None, :, :, None, None, None]
+    return RenderOutputs(t_img, t_mask, overlap_img, overlap_mask,
+                         tform_depth, tform_mask)

@@ -6,10 +6,9 @@ over scales, then over cameras. The identity-loss tie-break noise enters as
 an explicit tensor of standard normals (``total_loss``'s ``noise``), so a
 test can hand in the JAX package's draws; the port's training step draws it
 from a ``torch.Generator``. Minima over context frames are ``torch.amin``,
-which splits a tied gradient as ``jnp.min`` does.
-
-Not ported (raises ``NotImplementedError``): the depth-synthesis loss,
-whose path the port does not run yet.
+which splits a tied gradient as ``jnp.min`` does. Under ``aug_depth`` the
+depth-synthesis loss (consistency of the rotated view's depth with the
+warped depths, and its smoothness) joins each scale's sum.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ import torch.nn.functional as F
 from .primitives import (_smoothness_maps, auto_mask, mean_normalized_disp,
                          photometric_loss)
 from ..geometry.se3 import matrix_to_euler_angles_xyz
+from ..ops import ties
 
 _EPSILON = 1e-5  # identity-loss tie-break noise scale
 
@@ -147,8 +147,31 @@ def pose_consistency_loss(cam_t_cam: torch.Tensor, extrinsics: torch.Tensor,
     return torch.cat([percam.new_zeros(1), percam[1:]])
 
 
-def depth_synthesis_loss(*args, **kwargs):
-    raise NotImplementedError("the depth-synthesis loss is not ported")
+def depth_synthesis_loss(depth_aug: torch.Tensor, tform_depth: torch.Tensor,
+                         tform_mask: torch.Tensor, disp_aug: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Novel-view depth consistency and smoothness, per camera -> ([cams],
+    [cams]).
+
+    depth_aug [b, cams, H, W, 1]; tform_depth / tform_mask [b, cams, n_src,
+    H, W, 1]. Consistency: |d_aug - d_warp| / (d_aug + d_warp) clipped to
+    [0, 1], the masked mean over batch, sources and pixels. Smoothness: the
+    plain (not edge-aware) first-order gradients of the mean-normalised
+    aug disparity. ``abs`` and the clip take JAX's derivative at ties.
+    """
+    da = depth_aug[:, :, None]
+    con = ties.abs(da - tform_depth) / (da + tform_depth + 1e-8)
+    con = ties.clip(con, 0.0, 1.0)
+    num = (con * tform_mask).sum(dim=(0, 2, 3, 4, 5))
+    den = tform_mask.sum(dim=(0, 2, 3, 4, 5))
+    depth_con = num / (den + 1e-8)
+
+    nd = mean_normalized_disp(disp_aug)
+    gx = ties.abs(nd[..., :, :-1, :] - nd[..., :, 1:, :]).mean(
+        dim=(0, 2, 3, 4))
+    gy = ties.abs(nd[..., :-1, :, :] - nd[..., 1:, :, :]).mean(
+        dim=(0, 2, 3, 4))
+    return depth_con, gx + gy
 
 
 def total_loss(noise: torch.Tensor, cfg: LossConfig,
@@ -156,16 +179,18 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
                disps: Dict[int, torch.Tensor],
                depths: Dict[int, torch.Tensor], cam_t_cam: torch.Tensor,
                rendered: Dict[int, "RenderOutputs"],  # noqa: F821
+               disps_aug: Optional[Dict[int, torch.Tensor]] = None,
+               depths_aug: Optional[Dict[int, torch.Tensor]] = None,
                step=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full training loss -> (scalar, logs).
 
     noise: [len(cfg.scales), b, cams, n_ctx, H, W, 1] standard normals, one
     slice per scale in ``cfg.scales`` order (JAX draws them from one key
-    split per scale). ``step`` drives the cold-start schedule when it is
+    split per scale). ``disps_aug`` / ``depths_aug`` (scale -> the rotated
+    views' disparity and depth) feed the depth-synthesis loss under
+    ``cfg.aug_depth``. ``step`` drives the cold-start schedule when it is
     configured; None (eval) means full coefficients.
     """
-    if cfg.aug_depth:
-        depth_synthesis_loss()
     ctx_ids = list(cfg.frame_ids[1:])
     target = batch["color/0/0"]
     ref_mask = batch["mask"]
@@ -205,6 +230,17 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
             scale_loss = scale_loss + cfg.pose_loss_coeff * pose_l
             if scale == 0:
                 logs["pose"] = pose_l.mean()
+        if cfg.aug_depth:
+            con, sm = depth_synthesis_loss(depths_aug[scale], r.tform_depth,
+                                           r.tform_depth_mask,
+                                           disps_aug[scale])
+            scale_loss = (scale_loss + cfg.depth_con_coeff * con
+                          + cfg.depth_sm_coeff * sm)
+            if scale == 0:
+                logs["depth_con_loss"] = con.mean()
+                logs["depth_sm_loss"] = sm.mean()
+                logs["depth_loss"] = (cfg.depth_con_coeff * con
+                                      + cfg.depth_sm_coeff * sm).mean()
         cam_loss = cam_loss + scale_loss
 
         if scale == 0:

@@ -15,6 +15,12 @@ back-projections into one by default and calls the halves
 ([b, 2, n, C+1]) or one row per camera ([b, cams, n, C+1]), it defaults to
 the group sums (the JAX package defaults to per camera).
 
+The depth-synthesis branch: given rotated extrinsics, the depth net
+decodes the same voxel volume a second time along the rotated frusta
+(kernel K3 again, ``disp/{s}/aug``), with the same reduction and decoder;
+``fuse_voxel`` and ``decode_view`` split the net for the eval sweep
+(``training/synthesis.py``).
+
 ``dtype`` is the compute dtype of every layer (``models/blocks.py``);
 ``sampler_3d`` (the depth net's) picks the update dtype of the frustum
 sampler's backward (``models/vfnet.py``).
@@ -30,6 +36,7 @@ from .blocks import ConvBlock, pack_cam_feat, unpack_cam_feat
 from .decoders import FusionDepthDecoder, MonoDepthDecoder, PoseDecoder
 from .resnet import ResnetEncoder, num_ch_enc
 from .vfnet import VFNet
+from ..geometry.se3 import axis_angle_to_matrix
 from ..ops import ties
 from ..ops.resize import resize_bilinear
 
@@ -51,6 +58,19 @@ def _aggregate(feats: List[torch.Tensor], lev: int,
                                           channels_last=False)
                           for f in feats[lev + 1:]]
     return conv1x1(torch.cat(agg, dim=1))
+
+
+def _own_backprojection(fn: VFNet, feats_agg, mask, intrinsics,
+                        extrinsics_inv, plain: bool):
+    """A net's own back-projection: (feat, count, grouped), group sums (K1)
+    where ``fn`` allows them, else one row per camera (K1b)."""
+    if fn.grouped_backprojection:
+        feat, count = fn.backproject_into_voxel_grouped(
+            feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        return feat, count, True
+    feat, _, count = fn.backproject_into_voxel(
+        feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+    return feat, count, False
 
 
 class FusedDepthNet(nn.Module):
@@ -84,40 +104,76 @@ class FusedDepthNet(nn.Module):
     def forward(self, images: torch.Tensor, mask: torch.Tensor,
                 intrinsics: torch.Tensor, inv_k: torch.Tensor,
                 extrinsics: torch.Tensor, extrinsics_inv: torch.Tensor,
+                extrinsics_aug: Optional[torch.Tensor] = None,
                 plain: bool = False) -> Dict[str, torch.Tensor]:
         """images [b, cams, H, W, 3] (frame 0), mask [b, cams, H, W, 1],
-        intrinsics and inv_k at the fusion scale -> {'disp/{s}'}."""
+        intrinsics and inv_k at the fusion scale -> {'disp/{s}'}, and
+        {'disp/{s}/aug'} where ``extrinsics_aug`` is given."""
         feats, feats_agg = self.encode_aggregate(images)
-        fn = self.fusion_net
-        grouped = fn.grouped_backprojection
-        if grouped:
-            feat, count = fn.backproject_into_voxel_grouped(
-                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
-        else:
-            feat, _, count = fn.backproject_into_voxel(
-                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        feat, count, grouped = _own_backprojection(
+            self.fusion_net, feats_agg, mask, intrinsics, extrinsics_inv,
+            plain)
         return self.decode_from_backprojection(
             feat, count, feats[:self.fusion_level], inv_k, extrinsics,
-            grouped=grouped, plain=plain)
+            extrinsics_aug=extrinsics_aug, grouped=grouped, plain=plain)
 
     def decode_from_backprojection(self, feat: torch.Tensor,
                                    count: torch.Tensor,
                                    skip_feats: Sequence[torch.Tensor],
                                    inv_k: torch.Tensor,
                                    extrinsics: torch.Tensor,
+                                   extrinsics_aug: Optional[
+                                       torch.Tensor] = None,
                                    grouped: bool = True,
                                    plain: bool = False
                                    ) -> Dict[str, torch.Tensor]:
         """Back-projected voxel features feat (camera-group sums [b, 2, n,
         C+1], or per camera [b, cams, n, C+1] unless ``grouped``) and count
-        [b, n] -> {'disp/{s}': [b, cams, H/2^s, W/2^s, 1]}."""
+        [b, n] -> {'disp/{s}': [b, cams, H/2^s, W/2^s, 1]}; with
+        ``extrinsics_aug`` also {'disp/{s}/aug'}, the volume decoded along
+        the rotated frusta after the main decode (so a train-mode step
+        updates BatchNorm's statistics in the JAX package's order)."""
         b, cams = inv_k.shape[:2]
         voxel_feat = self.fusion_net.fuse_depth(feat, count, grouped=grouped)
+        outputs = {}
+        views = [(extrinsics, "")]
+        if extrinsics_aug is not None:
+            views.append((extrinsics_aug, "/aug"))
+        for ext, tag in views:
+            proj = self.fusion_net.project_voxel_into_image(
+                voxel_feat, inv_k, ext, plain=plain)
+            dec = self.decoder(list(skip_feats) + [proj])
+            outputs.update({k + tag: unpack_cam_feat(_to_nhwc(v), b, cams)
+                            for k, v in dec.items()})
+        return outputs
+
+    def fuse_voxel(self, images: torch.Tensor, mask: torch.Tensor,
+                   intrinsics: torch.Tensor, extrinsics_inv: torch.Tensor,
+                   plain: bool = False) -> torch.Tensor:
+        """Encoder, back-projection and fusion only -> the voxel volume [b,
+        n_voxels, C]: the first half of the depth-synthesis sweep."""
+        _, feats_agg = self.encode_aggregate(images)
+        feat, count, grouped = _own_backprojection(
+            self.fusion_net, feats_agg, mask, intrinsics, extrinsics_inv,
+            plain)
+        return self.fusion_net.fuse_depth(feat, count, grouped=grouped)
+
+    def decode_view(self, voxel_feat: torch.Tensor, inv_k_aug: torch.Tensor,
+                    rot: torch.Tensor, extrinsics: torch.Tensor,
+                    plain: bool = False) -> torch.Tensor:
+        """Camera 0's disparity at a novel viewpoint: the rotation ``rot``
+        [3] (axis-angle) applied on top of the extrinsics [b, cams, 4, 4],
+        inv_k_aug [b, cams, 4, 4] at the fusion scale -> [b, H', W', 1] at
+        the finest scale. The JAX package decodes every camera and keeps
+        camera 0; with BatchNorm in eval mode every camera decodes alone,
+        so only camera 0 is decoded here (one K3 launch a view)."""
+        tform = torch.eye(4, dtype=extrinsics.dtype, device=extrinsics.device)
+        tform[:3, :3] = axis_angle_to_matrix(rot.to(extrinsics.dtype))
+        ext_aug = tform @ extrinsics[:, :1]
         proj = self.fusion_net.project_voxel_into_image(
-            voxel_feat, inv_k, extrinsics, plain=plain)
-        dec = self.decoder(list(skip_feats) + [proj])
-        return {k: unpack_cam_feat(_to_nhwc(v), b, cams)
-                for k, v in dec.items()}
+            voxel_feat, inv_k_aug[:, :1], ext_aug, plain=plain)
+        disp = self.decoder([proj])[f"disp/{min(self.decoder.scales)}"]
+        return _to_nhwc(disp)
 
 
 class FusedPoseNet(nn.Module):
@@ -168,14 +224,9 @@ class FusedPoseNet(nn.Module):
         are unused (the JAX signature)."""
         feats_agg = self.encode_aggregate(cur_images, next_images,
                                           n_ctx=n_ctx)
-        fn = self.fusion_net
-        grouped = fn.grouped_backprojection
-        if grouped:
-            feat, count = fn.backproject_into_voxel_grouped(
-                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
-        else:
-            feat, _, count = fn.backproject_into_voxel(
-                feats_agg, mask, intrinsics, extrinsics_inv, plain=plain)
+        feat, count, grouped = _own_backprojection(
+            self.fusion_net, feats_agg, mask, intrinsics, extrinsics_inv,
+            plain)
         return self.pose_from_backprojection(feat, count, n_ctx=n_ctx,
                                              grouped=grouped)
 

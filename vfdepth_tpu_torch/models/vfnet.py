@@ -10,7 +10,8 @@ Ported: ``_project_cam_points``, the grouped back-projection (kernel K1,
 backward K2) for rigs whose two overlap groups are equal, the ungrouped one
 (kernel K1b, backward K2b: the 3-camera rig), ``fuse_depth`` and
 ``pose_voxel_to_bev`` in both forms, ``project_voxel_into_image`` (kernel
-K3, backward K4 in the update dtype ``sampler_3d`` names) and ``BEVFold``.
+K3, backward K4 in the update dtype ``sampler_3d`` names), ``BEVFold`` and
+``augment_extrinsics`` (the depth-synthesis branch's random rotation).
 
 ``dtype`` is the compute dtype (``models/blocks.py``). Under mixed
 precision the back-projected features, the voxel volume and the frustum
@@ -31,6 +32,7 @@ from torch import nn
 from .blocks import ConvBlock, PointwiseBlock
 from ..geometry.projection import (frustum_world_points, linspace_f32,
                                    voxel_points_homo)
+from ..geometry.se3 import axis_angle_to_matrix
 from ..ops.backproject_sample import (sample_backproject_grouped_raw,
                                       sample_backproject_raw)
 from ..ops import ties
@@ -355,7 +357,8 @@ class VFNet(nn.Module):
     def project_voxel_into_image(self, voxel_feat: torch.Tensor,
                                  inv_k: torch.Tensor, extrinsics: torch.Tensor,
                                  plain: bool = False) -> torch.Tensor:
-        """Voxel volume [b, n, C] -> per-camera frustum features (kernel K3,
+        """Voxel volume [b, n, C] -> the frustum features of the cameras
+        that inv_k / extrinsics [b, cams, 4, 4] describe (kernel K3,
         backward K4) -> reduced 2-D feature, packed NCHW [b*cams,
         feat_out_dim, h, w]. ``plain`` runs the kernels' plain versions on
         any device."""
@@ -365,7 +368,7 @@ class VFNet(nn.Module):
         sampled = Sample3dTrilinear.apply(
             vol, self.frustum_coords(inv_k, extrinsics), plain,
             self.bf16_updates)
-        feat2d = sampled.reshape(b * self.num_cams, self.img_h, self.img_w,
+        feat2d = sampled.reshape(b * inv_k.shape[1], self.img_h, self.img_w,
                                  self.proj_d_bins * c)
         return self.reduce_dim_1(self.reduce_dim_0(feat2d.permute(0, 3, 1, 2)))
 
@@ -380,3 +383,24 @@ class VFNet(nn.Module):
         voxel_feat = total / (count[..., None] + 1e-7)
         return self.reduce_dim_1(
             self.reduce_dim_0(voxel_feat, groups=frame_groups))
+
+
+def augment_extrinsics(aug_u: torch.Tensor, extrinsics: torch.Tensor,
+                       aug_angle: Sequence[float]) -> torch.Tensor:
+    """The depth-synthesis branch's random rotation of each camera:
+    R(aug_angle * (aug_u - 0.5)) @ extrinsics, detached.
+
+    aug_u [b, cams, 3] is the random draw, uniform in [0, 1) (the JAX
+    package draws it from its key). As in the JAX package and the
+    reference, ``(u - 0.5) * aug_angle`` goes straight into the axis-angle
+    rotation, so the config's angles act as radians here (the eval sweep's
+    ``aug_depth_params`` uses degrees).
+    """
+    angle = (aug_u.to(extrinsics.dtype) - 0.5) * torch.tensor(
+        [float(a) for a in aug_angle], dtype=extrinsics.dtype,
+        device=extrinsics.device)
+    tform = torch.zeros(extrinsics.shape[:2] + (4, 4),
+                        dtype=extrinsics.dtype, device=extrinsics.device)
+    tform[..., :3, :3] = axis_angle_to_matrix(angle)
+    tform[..., 3, 3] = 1.0
+    return (tform @ extrinsics).detach()

@@ -49,10 +49,20 @@ mixed precision), 'gather' f32 ones in an f32 config (the same function up
 to summation order), and None means 'packed' under mixed precision and
 'packed_f32grad' otherwise.
 
-Not ported yet (raise ``NotImplementedError``): ``sampler_3d: gather``
+``training.aug_depth: true`` adds the depth-synthesis branch (with the
+fusion depth net): each camera's extrinsics are rotated at random
+(``models/vfnet.py augment_extrinsics``, the draw an explicit tensor
+``aug_u`` of ``aug_shape``, uniform in [0, 1), as the tie-break noise is
+one of normals), the depth net decodes its voxel volume a second time
+along the rotated frusta (kernel K3 again, backward K4 again), and
+``predict`` and ``forward`` return ``disp/{s}/aug`` and ``depth/{s}/aug``
+(the latter at ``K/0``'s unrotated focal length); ``forward`` warps the
+neighbours' and the camera's own depths into the rotated views
+(``warp_depth``) for the depth-synthesis loss.
+
+Not ported yet (raises ``NotImplementedError``): ``sampler_3d: gather``
 under mixed precision with the fusion depth net (JAX's backward is an XLA
-scatter of bf16 updates into a bf16 volume, not a TPU kernel), the
-depth-synthesis branch (``predict`` skips it, ``forward`` raises). Config
+scatter of bf16 updates into a bf16 volume, not a TPU kernel). Config
 keys that name TPU alternates of one
 function map onto the port's one implementation (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors): ``tpu.sampler_2d``,
@@ -77,6 +87,7 @@ from ..models import (FusedDepthNet, FusedPoseNet, MonoDepthNet, MonoPoseNet,
                       backproject_features, backproject_features_grouped,
                       grouped_backprojection_ok, pack_cam_feat,
                       unpack_cam_feat)
+from ..models.vfnet import augment_extrinsics
 from ..ops.resize import resize_bilinear
 from ..weights import init_random
 
@@ -164,6 +175,12 @@ class VFDepthModel(nn.Module):
         self.min_depth, self.max_depth = cfg.min_depth, cfg.max_depth
         self.focal_length_scale = cfg.focal_length_scale
         self.loss_cfg = loss_config_from(cfg)
+        self.aug_depth = bool(cfg.aug_depth)
+        self.aug_angle = tuple(cfg.get("aug_angle", (15.0, 15.0, 40.0)))
+        if self.aug_depth and cfg.depth_model != "fusion":
+            # the rotated views are decoded from the voxel volume, which
+            # only the fusion depth net has (JAX fails there too)
+            raise ValueError("aug_depth needs the fusion depth net")
         self.intensity_align = bool(cfg.intensity_align)
         self.plain_samplers = False
         # the voxel keys only where a fusion net is built: the published fsm
@@ -237,10 +254,11 @@ class VFDepthModel(nn.Module):
             x["extrinsics_inv"] = invert_pose(x["extrinsics"])
         return x
 
-    def _predict_pose_depth(self, x: Mapping[str, torch.Tensor]
-                            ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
-        """(cam_T_cam [b, cams, n_ctx, 4, 4], {scale: disp [b, cams, h, w,
-        1]}) from a batch already on the device."""
+    def _predict_pose_depth(self, x: Mapping[str, torch.Tensor],
+                            extrinsics_aug: Optional[torch.Tensor] = None):
+        """(cam_T_cam [b, cams, n_ctx, 4, 4], the depth net's outputs
+        {'disp/{s}' [b, cams, h, w, 1], and 'disp/{s}/aug' where
+        ``extrinsics_aug`` is given}) from a batch already on the device."""
         fk = f"K/{self.fusion_level + 1}"
         fik = f"inv_K/{self.fusion_level + 1}"
         ctx = self.frame_ids[1:]
@@ -279,9 +297,9 @@ class VFDepthModel(nn.Module):
         skips = [dfeats[i] for i in range(self.fusion_level)]
         disps = self.depth_net.decode_from_backprojection(
             feat_depth, count, skips, x[fik], x["extrinsics"],
-            grouped=self.grouped, plain=self.plain_samplers)
-        return (self._cam_t_cam(axisangle, translation, x, bsz),
-                {s: disps[f"disp/{s}"] for s in self.scales})
+            extrinsics_aug=extrinsics_aug, grouped=self.grouped,
+            plain=self.plain_samplers)
+        return self._cam_t_cam(axisangle, translation, x, bsz), disps
 
     def _cam_t_cam(self, axisangle: torch.Tensor, translation: torch.Tensor,
                    x: Mapping[str, torch.Tensor], bsz: int) -> torch.Tensor:
@@ -337,22 +355,24 @@ class VFDepthModel(nn.Module):
                                torch.cat([o[1] for o in outs]), x,
                                x["color_aug/0/0"].shape[0])
 
-    def predict_depth(self, x: Mapping[str, torch.Tensor]
-                      ) -> Dict[int, torch.Tensor]:
+    def predict_depth(self, x: Mapping[str, torch.Tensor],
+                      extrinsics_aug: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
         """The depth net alone (JAX ``predict_depth``; a fusion net on its
-        own back-projection, an fsm net on each camera alone): {scale: disp
-        [b, cams, h, w, 1]}."""
+        own back-projection, an fsm net on each camera alone): {'disp/{s}'
+        [b, cams, h, w, 1]}, and a fusion net's 'disp/{s}/aug' where
+        ``extrinsics_aug`` is given."""
         images = x["color_aug/0/0"]
         if isinstance(self.depth_net, MonoDepthNet):
             b, cams = images.shape[:2]
             out = self.depth_net(pack_cam_feat(images))
-            return {s: unpack_cam_feat(out[f"disp/{s}"], b, cams)
-                    for s in self.scales}
+            return {k: unpack_cam_feat(v, b, cams) for k, v in out.items()}
         lev = self.fusion_level + 1
-        out = self.depth_net(images, x["mask"], x[f"K/{lev}"],
-                             x[f"inv_K/{lev}"], x["extrinsics"],
-                             x["extrinsics_inv"], plain=self.plain_samplers)
-        return {s: out[f"disp/{s}"] for s in self.scales}
+        return self.depth_net(images, x["mask"], x[f"K/{lev}"],
+                              x[f"inv_K/{lev}"], x["extrinsics"],
+                              x["extrinsics_inv"],
+                              extrinsics_aug=extrinsics_aug,
+                              plain=self.plain_samplers)
 
     def _can_merge_backproject(self) -> bool:
         # an instance-level predict_pose override must keep routing through
@@ -362,35 +382,56 @@ class VFDepthModel(nn.Module):
                 and isinstance(self.depth_net, FusedDepthNet)
                 and (self.batch_pose_frames or len(self.frame_ids) <= 2))
 
-    def _predict(self, x: Mapping[str, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
-        """(cam_T_cam, {scale: disp}) through the merged back-projection,
-        or through each net's own where the two are not merged."""
+    def _predict(self, x: Mapping[str, torch.Tensor],
+                 aug_u: Optional[torch.Tensor] = None):
+        """(cam_T_cam, {scale: disp}, {scale: aug disp} or None, the rotated
+        extrinsics or None) through the merged back-projection, or through
+        each net's own where the two are not merged. ``aug_u`` (under
+        ``aug_depth``) is the rotation's draw; a missing or misshapen one
+        raises, as a missing noise does."""
+        ext_aug = None
+        if self.aug_depth:
+            if aug_u is None or tuple(aug_u.shape) != self.aug_shape(x):
+                raise ValueError(f"aug_depth: aug_u must have shape "
+                                 f"{self.aug_shape(x)}")
+            aug_u = torch.as_tensor(aug_u).to(self.device)
+            ext_aug = augment_extrinsics(aug_u, x["extrinsics"],
+                                         self.aug_angle)
         if self._can_merge_backproject():
-            return self._predict_pose_depth(x)
-        return self.predict_pose(x), self.predict_depth(x)
+            cam_t_cam, out = self._predict_pose_depth(x, ext_aug)
+        else:
+            cam_t_cam = self.predict_pose(x)
+            out = self.predict_depth(x, ext_aug)
+        disps = {s: out[f"disp/{s}"] for s in self.scales}
+        disps_aug = ({s: out[f"disp/{s}/aug"] for s in self.scales}
+                     if self.aug_depth else None)
+        return cam_t_cam, disps, disps_aug, ext_aug
 
     @torch.inference_mode()
-    def predict(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+    def predict(self, batch: Mapping, aug_u: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         """Batch dict (NHWC numpy arrays or tensors, the JAX package's
         contract) -> {'cam_T_cam' [b, cams, n_ctx, 4, 4], 'disp/{s}',
         'depth/{s}' [b, cams, H, W, 1]} on this model's device. BatchNorm
-        runs in eval mode. Raises under ``aug_depth`` (the depth-synthesis
-        outputs ``disp/{s}/aug`` and ``depth/{s}/aug`` are not ported)."""
-        if self.loss_cfg.aug_depth:
-            raise NotImplementedError("the depth-synthesis branch is not "
-                                      "ported")
+        runs in eval mode. Under ``aug_depth`` ``aug_u`` (``aug_shape``,
+        uniform in [0, 1)) draws the rotated views, and the outputs add
+        ``disp/{s}/aug`` and ``depth/{s}/aug``, as JAX's
+        ``forward(train=False)`` returns them."""
         lev = self.fusion_level + 1
         keys = {f"K/{lev}", f"inv_K/{lev}", "K/0", "mask", "extrinsics",
                 "extrinsics_inv",
                 *(f"color_aug/{f}/0" for f in self.frame_ids)}
         x = self._to_device(batch, keys)
         with self._bn_mode(False):
-            cam_t_cam, disps = self._predict(x)
+            cam_t_cam, disps, disps_aug, _ = self._predict(x, aug_u)
         outputs = {"cam_T_cam": cam_t_cam}
         for s in self.scales:
             outputs[f"disp/{s}"] = disps[s]
             outputs[f"depth/{s}"] = self.to_depth(disps[s], x["K/0"])
+            if disps_aug is not None:
+                outputs[f"disp/{s}/aug"] = disps_aug[s]
+                outputs[f"depth/{s}/aug"] = self.to_depth(disps_aug[s],
+                                                          x["K/0"])
         return outputs
 
     def noise_shape(self, batch: Mapping) -> Tuple[int, ...]:
@@ -399,8 +440,14 @@ class VFDepthModel(nn.Module):
         b, cams, h, w = batch["color/0/0"].shape[:4]
         return (len(self.scales), b, cams, len(self.frame_ids) - 1, h, w, 1)
 
+    def aug_shape(self, batch: Mapping) -> Tuple[int, ...]:
+        """Shape of the depth-synthesis rotation's draw ``aug_u``: [b, cams,
+        3]."""
+        return tuple(batch["extrinsics"].shape[:2]) + (3,)
+
     def forward(self, batch: Mapping, step=None,
-                noise: Optional[torch.Tensor] = None, train: bool = True,
+                noise: Optional[torch.Tensor] = None,
+                aug_u: Optional[torch.Tensor] = None, train: bool = True,
                 return_renders: bool = False):
         """The whole pipeline with the loss -> (outputs, loss, logs).
 
@@ -411,23 +458,25 @@ class VFDepthModel(nn.Module):
         cold-start schedule when the config sets one. ``noise`` [n_scales,
         b, cams, n_ctx, H, W, 1] (``noise_shape``) holds the standard
         normals of the identity-loss tie-break (the JAX package draws them
-        from its key; see ``training/step.py train_step``).
+        from its key; see ``training/step.py train_step``); ``aug_u``
+        [b, cams, 3] (``aug_shape``) the uniform draw of the rotated views
+        under ``aug_depth`` (JAX draws it from the key's second split).
         ``return_renders`` adds the smallest scale's warped views and the
         reprojection map and mask to the outputs (``temporal_img`` /
         ``temporal_mask``, ``overlap_img`` / ``overlap_mask`` where the
         overlap losses are on, ``reproj_map`` / ``reproj_mask``), for the
         logger's image panels.
         """
-        if self.loss_cfg.aug_depth:
-            raise NotImplementedError("the depth-synthesis branch is not "
-                                      "ported")
         x = self._to_device(batch)
         if noise is None or tuple(noise.shape) != self.noise_shape(x):
             raise ValueError(f"noise must have shape {self.noise_shape(x)}")
         with self._bn_mode(train):
-            cam_t_cam, disps = self._predict(x)
+            cam_t_cam, disps, disps_aug, ext_aug = self._predict(x, aug_u)
         k0 = x["K/0"]
         depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
+        depths_aug = ({s: self.to_depth(disps_aug[s], k0)
+                       for s in self.scales}
+                      if disps_aug is not None else None)
         spatio_pose, st_pose = relative_cam_poses(
             x["extrinsics"], x["extrinsics_inv"], cam_t_cam, self.rel_cam)
         # the warp sources in the compute dtype; the loss targets stay f32
@@ -439,14 +488,22 @@ class VFDepthModel(nn.Module):
             do_intensity_align=self.intensity_align,
             spatio=self.loss_cfg.spatio,
             spatio_temporal=self.loss_cfg.spatio_temporal,
+            aug_depth=self.aug_depth, extrinsics=x["extrinsics"],
+            extrinsics_aug=ext_aug,
+            depth_aug=depths_aug[s] if depths_aug else None,
+            min_depth=self.min_depth, max_depth=self.max_depth,
             plain=self.plain_samplers) for s in self.scales}
         loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
                                 disps, depths, cam_t_cam, rendered,
+                                disps_aug=disps_aug, depths_aug=depths_aug,
                                 step=step)
         outputs = {"cam_T_cam": cam_t_cam}
         for s in self.scales:
             outputs[f"disp/{s}"] = disps[s]
             outputs[f"depth/{s}"] = depths[s]
+            if disps_aug is not None:
+                outputs[f"disp/{s}/aug"] = disps_aug[s]
+                outputs[f"depth/{s}/aug"] = depths_aug[s]
         if return_renders:
             r0 = rendered[min(self.scales)]
             outputs["temporal_img"] = r0.temporal_img

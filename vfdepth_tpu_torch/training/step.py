@@ -104,25 +104,40 @@ def _draw_noise(model: VFDepthModel, batch: Mapping,
                        device=generator.device)
 
 
+def _draw_aug(model: VFDepthModel, batch: Mapping,
+              generator: torch.Generator) -> Optional[torch.Tensor]:
+    """The depth-synthesis rotation's uniform draw (after the noise), None
+    without ``aug_depth``."""
+    if not model.aug_depth:
+        return None
+    return torch.rand(model.aug_shape(batch), generator=generator,
+                      device=generator.device)
+
+
 def _scalars(logs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in logs.items() if v.dim() == 0}
 
 
 def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
                batch: Mapping, step: int, generator: torch.Generator,
-               noise: Optional[torch.Tensor] = None
+               noise: Optional[torch.Tensor] = None,
+               aug_u: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """Forward, loss, backward and one Adam update at global step ``step``
     (the number of updates made before it). The identity tie-break noise
     is ``noise`` where given (``model.noise_shape(batch)``), else drawn from
-    ``generator`` (on its device). Returns the scalar logs, detached, on the
+    ``generator`` (on its device); under ``aug_depth`` the rotated views'
+    draw likewise ``aug_u`` (``model.aug_shape(batch)``) or, after the
+    noise, ``generator``. Returns the scalar logs, detached, on the
     model's device."""
     for group in optimizer.param_groups:
         group["lr"] = lr_at(group, step)
     optimizer.zero_grad(set_to_none=True)
     if noise is None:
         noise = _draw_noise(model, batch, generator)
-    _, loss, logs = model(batch, step=step, noise=noise)
+    if aug_u is None:
+        aug_u = _draw_aug(model, batch, generator)
+    _, loss, logs = model(batch, step=step, noise=noise, aug_u=aug_u)
     loss.backward()
     optimizer.step()
     return _scalars(logs)
@@ -134,8 +149,11 @@ def eval_step(model: VFDepthModel, batch: Mapping,
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The forward and the loss with BatchNorm in eval mode, no gradient
     (JAX ``build_eval_step``): (outputs, scalar logs). The tie-break noise
-    is drawn from ``generator``; ``return_renders`` adds the warped views
-    for the image panels (``VFDepthModel.forward``)."""
-    outputs, _, logs = model(batch, noise=_draw_noise(model, batch, generator),
+    and, under ``aug_depth``, the rotated views' draw are drawn from
+    ``generator``; ``return_renders`` adds the warped views for the image
+    panels (``VFDepthModel.forward``)."""
+    noise = _draw_noise(model, batch, generator)
+    outputs, _, logs = model(batch, noise=noise,
+                             aug_u=_draw_aug(model, batch, generator),
                              train=False, return_renders=return_renders)
     return outputs, _scalars(logs)

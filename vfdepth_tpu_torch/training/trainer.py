@@ -12,15 +12,18 @@ Left out, each with its ROADMAP item:
   * the mesh branches of the JAX ``_build_step`` and its process-0 rule
     (A7): one device, one process, one ``train_step``;
   * ``_note_warp_overflow``'s dense fallback (A8): the port's warps are
-    dense and log no overflow;
-  * ``evaluate``'s depth-synthesis sweep (``syn_visualize``, A5) raises.
+    dense and log no overflow.
 
 Randomness is explicit: ``learn``'s ``seed`` seeds the ``torch.Generator``
-(on the model's device) that draws each step's tie-break noise; validation
-and the image panels draw from a generator of their own, so the training
-noise does not depend on the log cadence. ``noise_fn(step, shape)``, where
-given, supplies each step's noise instead (how a test hands in the JAX
-package's draws).
+(on the model's device) that draws each step's tie-break noise and, under
+``aug_depth``, the rotated views' uniform draw after it; validation and the
+image panels draw from a generator of their own, so the training draws do
+not depend on the log cadence. ``noise_fn(step, shape)`` and
+``aug_fn(step, shape)``, where given, supply each step's draws instead (how
+a test hands in the JAX package's). ``evaluate`` draws the rotated views of
+each batch from a generator seeded with its ``seed``; with
+``syn_visualize`` it renders the depth-synthesis sweep
+(``training/synthesis.py``) at batch ``syn_idx`` and stops there.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from ..data.loader import device_prefetch
 from ..utils.logger import Logger
 from ..utils.metrics import METRIC_NAMES, compute_depth_metrics
 
-NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
+DrawFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
 
 
 def _numpy(tree: Mapping) -> Dict[str, np.ndarray]:
@@ -59,7 +62,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def learn(self, train_loader, val_loader=None, seed: int = 42,
               max_steps: Optional[int] = None,
-              noise_fn: Optional[NoiseFn] = None) -> torch.optim.Optimizer:
+              noise_fn: Optional[DrawFn] = None,
+              aug_fn: Optional[DrawFn] = None) -> torch.optim.Optimizer:
         """Full training run of ``self.model`` in place; returns the
         optimizer. ``train_loader`` (a ``BatchLoader``) / ``val_loader``
         yield numpy batch dicts (already collated, NHWC). The StepLR
@@ -93,8 +97,10 @@ class Trainer:
                 before = time.time()
                 noise = (noise_fn(step, model.noise_shape(batch))
                          if noise_fn is not None else None)
+                aug_u = (aug_fn(step, model.aug_shape(batch))
+                         if aug_fn is not None else None)
                 logs = train_step(model, optimizer, batch, step, train_gen,
-                                  noise=noise)
+                                  noise=noise, aug_u=aug_u)
 
                 if self.logger.is_checkpoint(step):
                     logs = {k: float(v) for k, v in logs.items()}
@@ -159,19 +165,23 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def evaluate(self, eval_loader, vis_results: bool = False,
-                 load_weights: bool = True):
+                 load_weights: bool = True, seed: int = 42):
         """Full-dataset evaluation (the reference's ``evaluate``:112-152):
         (average metric dict, average median-scaled dict) over batches.
 
         Each batch goes through ``VFDepthModel.predict``. The JAX package
         runs its eval step here and discards the loss; only ``depth/0``
         reaches the metrics, and predict computes the same tensor, so the
-        warps and the loss are skipped.
+        warps and the loss are skipped. Under ``aug_depth`` each batch's
+        rotated views are drawn from a generator seeded with ``seed``.
+
+        With ``syn_visualize`` the batches before ``syn_idx`` are skipped;
+        that batch is predicted, swept (``synthesize_sweep``) and written by
+        ``log_result``, and the evaluation stops there (no metrics: both
+        dicts stay 0).
         """
-        if self.cfg.get("syn_visualize", False):
-            raise NotImplementedError(
-                "the depth-synthesis sweep (syn_visualize) is not ported yet "
-                "(ROADMAP A5)")
+        syn_visualize = bool(self.cfg.get("syn_visualize", False))
+        syn_idx = self.cfg.get("syn_idx") or 0
         if load_weights:
             load_checkpoint(self.cfg.load_weights_dir, self.model,
                             models_to_load=self.cfg.models_to_load,
@@ -180,8 +190,21 @@ class Trainer:
         avg_metric = {k: 0.0 for k in METRIC_NAMES}
         avg_median = {k: 0.0 for k in METRIC_NAMES}
         n_batches = 0
+        model = self.model
+        gen = torch.Generator(model.device).manual_seed(seed)
         for batch_idx, batch in enumerate(eval_loader):
-            outputs = self.model.predict(batch)
+            if syn_visualize and batch_idx < syn_idx:
+                continue
+            aug_u = (torch.rand(model.aug_shape(batch), generator=gen,
+                                device=gen.device)
+                     if model.aug_depth else None)
+            outputs = model.predict(batch, aug_u=aug_u)
+            if syn_visualize:
+                from .synthesis import synthesize_sweep
+                out_np = _numpy(outputs)
+                out_np["disp_vis"] = synthesize_sweep(model, batch)
+                self.logger.log_result(out_np, batch_idx, syn_visualize=True)
+                break
             metric, median, _ = compute_depth_metrics(
                 np.asarray(batch["depth"]),
                 outputs["depth/0"].float().cpu().numpy(),

@@ -167,7 +167,27 @@ Phases (any failure exits non-zero):
     first view and one of each later segment of the sweep against the
     plain versions); and, after the command lines of 10,
     both command lines again on tiny_fake.yaml with ``aug_depth`` and the
-    sweep on (767 syn images written).
+    sweep on (767 syn images written);
+14. the last model options: ``sampler_3d: gather`` under mixed precision
+    on the 6-camera rig (3 requests: K1-bf16 1 and the gather-bf16
+    forward 1 a request, an unmerged request; 3 steps: K1-, K2-bf16 1,
+    the gather-bf16 forward and backward 1, K5-bf16 4 a step), then both
+    gather-bf16 forms on the warm-up step's own volume, coordinates and
+    cotangent (``check_gather_forms``: bit for bit against their plain
+    versions, two launches bit-identical, the backward's plan against the
+    plain plan; timed beside their bounds and 5-D ``F.grid_sample`` in
+    bf16 and its autograd backward; rows "K3-gather-bf16" and
+    "K4-gather-bf16", counterparts of JAX's XLA gather and scatter, not of
+    TPU kernels); ``tpu.remat`` (``run_remat``: the 6-camera batch-2 step
+    in f32 with remat False, 'all', 'depth_net', 'pose_net' and in bf16
+    with False and 'all', each held against the remat-False step and
+    timed 3 times with its peak device memory, K3 twice a step where the
+    depth net is rematerialised; the f32 peaks at batch 4 for False and
+    'all'; a ``{"remat": [...]}`` line); and, before the evaluation of 8,
+    ``weights_init`` (``run_weights_init``: ``ddad_surround_fusion.yaml``
+    and ``ddad_baseline.yaml`` with ``VFDEPTH_RESNET_WEIGHTS`` naming a
+    seeded synthetic torchvision ResNet-18 ``.pth``: every encoder tensor
+    against the file, one request and one step from each).
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -180,6 +200,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1641,7 +1662,9 @@ def kernel_counters():
     the name of its counter). A bf16 form counts apart from the f32 one."""
     from vfdepth_tpu_torch.ops.backproject_sample import (
         backproject_grouped, backproject_grouped_bwd, sample2d, sample2d_bwd)
-    from vfdepth_tpu_torch.ops.sample3d import (sample3d_trilinear,
+    from vfdepth_tpu_torch.ops.sample3d import (sample3d_gather,
+                                                sample3d_gather_bwd,
+                                                sample3d_trilinear,
                                                 sample3d_trilinear_bwd,
                                                 sample3d_trilinear_bwd_bf16)
     from vfdepth_tpu_torch.ops.warp import warp_image_mask_maps
@@ -1657,7 +1680,9 @@ def kernel_counters():
             "K3-bf16": (sample3d_trilinear, bf16),
             "K4-bf16": (sample3d_trilinear_bwd_bf16, f32),
             "K4-f32upd-bf16": (sample3d_trilinear_bwd, bf16),
-            "K5-bf16": (warp_image_mask_maps, bf16)}
+            "K5-bf16": (warp_image_mask_maps, bf16),
+            "K3-gather-bf16": (sample3d_gather, bf16),
+            "K4-gather-bf16": (sample3d_gather_bwd, bf16)}
 
 
 def reset_counts():
@@ -1840,15 +1865,16 @@ def capture_k5(fn):
     return calls
 
 
-def capture_k3k4(fn):
+def capture_k3k4(fn, sampler: str = "Sample3dTrilinear"):
     """Runs ``fn()`` with the depth net's frustum sampler
-    (``Sample3dTrilinear`` as ``models/vfnet.py`` calls it) recording
+    (``Sample3dTrilinear`` as ``models/vfnet.py`` calls it, or the
+    ``sampler`` named: ``Sample3dGather``, the gather-bf16 forms) recording
     copies of what it hands K3 and K4: {"fwd": [(vol, coords)] in call
     order, "bwd": [(g, coords, vol_shape)] (each sample's cotangent, as K4
     receives it) in the order the backward reaches them}."""
     import types
     from vfdepth_tpu_torch.models import vfnet
-    original = vfnet.Sample3dTrilinear
+    original = getattr(vfnet, sampler)
     calls = {"fwd": [], "bwd": []}
 
     def apply(vol, coords, *args):
@@ -1859,11 +1885,11 @@ def capture_k3k4(fn):
             out.register_hook(lambda g: calls["bwd"].append(
                 (g.detach().contiguous().clone(), coords, shape)))
         return out
-    vfnet.Sample3dTrilinear = types.SimpleNamespace(apply=apply)
+    setattr(vfnet, sampler, types.SimpleNamespace(apply=apply))
     try:
         fn()
     finally:
-        vfnet.Sample3dTrilinear = original
+        setattr(vfnet, sampler, original)
     return calls
 
 
@@ -2046,14 +2072,15 @@ def time_k5_on_step(key, row, calls):
 
 def run_training_path(cfg, device, label: str, per_step, rig: str,
                       tols=(STEP_LOSS_RTOL, STEP_GRAD_RTOL), k5_calls=None,
-                      k3k4_calls=None):
+                      k3k4_calls=None, sampler: str = "Sample3dTrilinear"):
     """Full-width training steps at the config's batch through
     ``train_step``; returns (launches per kernel over the timed steps,
     per-step ms). ``tols``: step 1 against the plain versions, the loss's
     (and the depth-synthesis logs') relative difference and each
     gradient's relative L2 difference. ``k5_calls``: a list that receives
     K5's inputs of the (uncounted) warm-up step; ``k3k4_calls`` a dict that
-    receives K3's and K4's (``capture_k3k4``)."""
+    receives K3's and K4's (``capture_k3k4``; ``sampler`` names the
+    frustum sampler's Function to record)."""
     loss_rtol, grad_rtol = tols
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
@@ -2082,7 +2109,7 @@ def run_training_path(cfg, device, label: str, per_step, rig: str,
     if k3k4_calls is None:
         run_k5()
     else:
-        k3k4_calls.update(capture_k3k4(run_k5))
+        k3k4_calls.update(capture_k3k4(run_k5, sampler))
     logs0 = warm["logs"]
     torch.cuda.synchronize()
     print(f"{label} training path set-up (model, data, warm-up step): "
@@ -3361,6 +3388,409 @@ def run_readers(device, tmp, paths):
         run_reader_paths(cfgs, device, dataset, paths)
 
 
+# ------------------------------------------------ the last model options
+
+RESNET_ENV = "VFDEPTH_RESNET_WEIGHTS"
+REMAT_VALUES = (False, "all", "depth_net", "pose_net")
+REMAT_BF16_VALUES = (False, "all")
+REMAT_SAMPLES = 3
+REMAT_PEAK_BATCH = 4
+
+
+def synthetic_resnet18(path: Path, seed: int = 0):
+    """A ResNet-18 state dict in torchvision's layout (its names, OIHW
+    convolutions, BatchNorm weight / bias / running statistics /
+    ``num_batches_tracked``, the fc head), seeded, saved to ``path`` as a
+    ``.pth``: the stand-in for an ImageNet file, which the repository does
+    not hold and nothing fetches. Returns the state dict."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = torch.randn(cout, cin, k, k,
+                                           generator=gen) / math.sqrt(
+            cin * k * k)
+
+    def bn(name, ch):
+        sd[f"{name}.weight"] = torch.rand(ch, generator=gen) + 0.5
+        sd[f"{name}.bias"] = torch.randn(ch, generator=gen) * 0.1
+        sd[f"{name}.running_mean"] = torch.randn(ch, generator=gen) * 0.1
+        sd[f"{name}.running_var"] = torch.rand(ch, generator=gen) * 1.5 + 0.5
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(100)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for stage, width in enumerate((64, 128, 256, 512)):
+        for blk in range(2):
+            t = f"layer{stage + 1}.{blk}"
+            conv(f"{t}.conv1", width, cin, 3)
+            bn(f"{t}.bn1", width)
+            conv(f"{t}.conv2", width, width, 3)
+            bn(f"{t}.bn2", width)
+            if stage > 0 and blk == 0:
+                conv(f"{t}.downsample.0", width, cin, 1)
+                bn(f"{t}.downsample.1", width)
+            cin = width
+    sd["fc.weight"] = torch.randn(1000, cin, generator=gen) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def _torchvision_name(local: str) -> str:
+    """A port encoder tensor's name -> torchvision's (``bn1.bn.weight`` ->
+    ``bn1.weight``, ``layer2_0.downsample_bn.bn.running_var`` ->
+    ``layer2.0.downsample.1.running_var``)."""
+    local = (local.replace(".bn.", ".")
+             .replace("downsample_conv", "downsample.0")
+             .replace("downsample_bn", "downsample.1"))
+    return local.replace("_", ".", 1) if local.startswith("layer") else local
+
+
+def check_loaded_encoders(model, sd, label: str) -> int:
+    """Every encoder tensor of both nets equals the file's: the depth net's
+    as they are, the pose net's conv1 tiled over its two frames and
+    halved. Returns the number of tensors compared."""
+    state = model.state_dict()
+    n = 0
+    for net, n_imgs in (("depth_net", 1), ("pose_net", 2)):
+        prefix = f"{net}.encoder."
+        for name, value in state.items():
+            if not name.startswith(prefix) or name.endswith(
+                    "num_batches_tracked"):
+                continue
+            key = _torchvision_name(name[len(prefix):])
+            check(key in sd, f"{label}: {name} has no tensor {key} in the "
+                             f"file")
+            want = sd[key]
+            if key == "conv1.weight":
+                want = torch.cat([want] * n_imgs, dim=1) / n_imgs
+            check(torch.equal(value.cpu(), want),
+                  f"{label}: {name} differs from the file's {key}")
+            n += 1
+    check(n == 2 * 100, f"{label}: {n} encoder tensors, expected 200")
+    return n
+
+
+def run_weights_init(device, tmp: Path, paths):
+    """The published ``ddad_surround_fusion.yaml`` and ``ddad_baseline.yaml``
+    (``weights_init: true``) built with ``VFDEPTH_RESNET_WEIGHTS`` naming a
+    synthetic torchvision ResNet-18 file: every encoder tensor against the
+    file, then one full-width request and one training step from each,
+    launches counted (the fusion model: K1 1, K3 1 a request, K1-K4 1, K5
+    4 a step; the fsm baseline: none, K5 4)."""
+    from vfdepth_tpu_torch.config import get_config
+    from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
+                                            train_step)
+    path = tmp / "resnet18_synthetic.pth"
+    sd = synthetic_resnet18(path)
+    old = os.environ.get(RESNET_ENV)
+    os.environ[RESNET_ENV] = str(path)
+    try:
+        for yaml, label, per_request, per_step in (
+                ("ddad_surround_fusion.yaml", "6-camera ImageNet-init",
+                 launches(K1=1, K3=1),
+                 launches(K1=1, K2=1, K3=1, K4=1, K5=4)),
+                ("ddad_baseline.yaml", "6-camera fsm ImageNet-init",
+                 launches(), launches(K5=4))):
+            cfg = get_config(str(ROOT / "configs" / "ddad" / yaml))
+            check(bool(cfg.get("weights_init")), f"{yaml}: weights_init")
+            t0 = time.perf_counter()
+            model = VFDepthModel(cfg, device=device, seed=0)
+            n = check_loaded_encoders(model, sd, label)
+            print(f"{label} ({yaml}): {n} encoder tensors equal the "
+                  f"file's (the pose conv1 tiled and halved); built in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            b = cfg.batch_size
+            ds = _dataset(cfg, 1 + b, "even")
+            request, batch = ds.batch([0]), ds.batch(list(range(1, 1 + b)))
+            opt = create_train_state(model)
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = model.predict(request)
+            torch.cuda.synchronize()
+            req_ms = (time.perf_counter() - t) * 1e3
+            counts = read_counts()
+            check(counts == per_request, f"{label} request: kernel launches "
+                                         f"{counts}, expected {per_request}")
+            check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+                  f"{label} request: outputs not finite")
+            paths[f"{label} request"] = dict(launches=counts, ms=[req_ms])
+            stats0 = model.depth_net.encoder.bn1.bn.running_mean.clone()
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs = train_step(model, opt, batch, 0,
+                              torch.Generator(device).manual_seed(7))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) * 1e3
+            counts = read_counts()
+            check(counts == per_step, f"{label} step: kernel launches "
+                                      f"{counts}, expected {per_step}")
+            loss = logs["total_loss"].item()
+            check(math.isfinite(loss), f"{label} step: loss not finite")
+            check(not torch.equal(stats0,
+                                  model.depth_net.encoder.bn1.bn.running_mean),
+                  f"{label} step: the encoder's statistics did not move")
+            paths[f"{label} step"] = dict(launches=counts, ms=[step_ms])
+            print(f"{label}: request {req_ms:.2f} ms (depth/0 in "
+                  f"[{out['depth/0'].min().item():.3f}, "
+                  f"{out['depth/0'].max().item():.3f}] m), one step at batch "
+                  f"{b} {step_ms:.2f} ms, loss {loss:.6f} (first calls: "
+                  f"cuDNN's set-up included)", flush=True)
+            del model, opt, out
+            torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop(RESNET_ENV, None)
+        else:
+            os.environ[RESNET_ENV] = old
+
+
+def _remat_step_launches(mp: bool, depth_remat: bool):
+    """Launches a 6-camera step (merged back-projection) makes: under remat
+    of the depth net its ``decode_from_backprojection`` runs again in the
+    backward pass, so K3 twice; the back-projection between the
+    checkpointed calls is not recomputed (JAX's remat leaves it out too)."""
+    tag = "-bf16" if mp else ""
+    return launches(**{f"K1{tag}": 1, f"K2{tag}": 1,
+                       f"K3{tag}": 2 if depth_remat else 1, f"K4{tag}": 1,
+                       f"K5{tag}": 4})
+
+
+def run_remat(device, paths):
+    """``tpu.remat`` on the 6-camera full-width training step at batch 2:
+    f32 with remat False, 'all', 'depth_net', 'pose_net', bf16 with False
+    and 'all', each from the same state and batch (the model's ``remat``
+    set between runs; step 1, the same tie-break noise). The first of
+    ``REMAT_SAMPLES`` steps of each value against the remat-False step:
+    loss and each gradient within the step tolerances (bf16: the bf16
+    ones), every BatchNorm running statistic within the loss tolerance of
+    its magnitude; each sample's ms and the peak device memory of the
+    samples (``max_memory_allocated``: the model, its Adam state, the
+    batch and the step's activations). Then the f32 peak at batch 4 with
+    remat False and 'all'. Returns the table."""
+    from vfdepth_tpu_torch.config import get_config
+    from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
+                                            train_step)
+    table = []
+    for mp, values, (loss_rtol, grad_rtol) in (
+            (False, REMAT_VALUES, (STEP_LOSS_RTOL, STEP_GRAD_RTOL)),
+            (True, REMAT_BF16_VALUES, (BF16_STEP_LOSS_RTOL,
+                                       BF16_STEP_GRAD_RTOL))):
+        cfg = get_config(str(CONFIG))
+        cfg.set("mixed_precision", mp)
+        model = VFDepthModel(cfg, device=device, seed=0)
+        opt = create_train_state(model)
+        batch = _dataset(cfg, cfg.batch_size, "even").batch(
+            list(range(cfg.batch_size)))
+        state0 = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        opt0 = copy.deepcopy(opt.state_dict())
+
+        def step(b=batch):
+            model.load_state_dict(state0)
+            opt.load_state_dict(opt0)
+            return train_step(model, opt, b, 1,
+                              torch.Generator(device).manual_seed(1001))
+        step()                                    # warm-up (not counted)
+        logs = step()
+        ref = dict(loss=logs["total_loss"].item(),
+                   grads={k: p.grad.clone()
+                          for k, p in model.named_parameters()},
+                   stats={k: v.clone() for k, v in model.named_buffers()
+                          if k.endswith(("running_mean", "running_var"))})
+        tag = " bf16" if mp else ""
+        for value in values:
+            model.remat = value
+            depth_remat = model._remat_for(model.depth_net)
+            per_step = _remat_step_launches(mp, depth_remat)
+            ms = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            for i in range(REMAT_SAMPLES):
+                before = read_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logs = step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                delta = {k: n - before[k] for k, n in read_counts().items()}
+                check(delta == per_step, f"remat {value!r}{tag}: kernel "
+                      f"launches {delta}, expected {per_step}")
+                if i == 0:
+                    loss = logs["total_loss"].item()
+                    check(abs(loss - ref["loss"]) <= loss_rtol
+                          * abs(ref["loss"]), f"remat {value!r}{tag}: loss "
+                          f"{loss} vs {ref['loss']}")
+                    worst = max(
+                        ((p.grad - ref["grads"][k]).norm()
+                         / ref["grads"][k].norm().clamp_min(1e-30)).item()
+                        for k, p in model.named_parameters())
+                    check(worst <= grad_rtol, f"remat {value!r}{tag}: a "
+                          f"gradient differs by {worst} (relative L2)")
+                    bufs = dict(model.named_buffers())
+                    stat_err = max(
+                        ((bufs[k] - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30)).item()
+                        for k, v in ref["stats"].items())
+                    check(stat_err <= loss_rtol, f"remat {value!r}{tag}: "
+                          f"BatchNorm statistics differ by {stat_err}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = read_counts()
+            label = f"6-camera{tag} remat {value}"
+            paths[label] = dict(launches=counts, ms=ms)
+            table.append(dict(dtype="bf16" if mp else "f32",
+                              remat=str(value), batch=cfg.batch_size,
+                              ms=ms, peak_gib=peak, loss_rel=abs(
+                                  loss - ref["loss"]) / abs(ref["loss"]),
+                              worst_grad_rel=worst, stats_rel=stat_err))
+            print(f"{label}: step ms {[round(m, 3) for m in ms]}, peak "
+                  f"device memory {peak:.3f} GiB at batch {cfg.batch_size}; "
+                  f"step 1 against remat False: loss rel "
+                  f"{table[-1]['loss_rel']:.2e}, worst gradient rel "
+                  f"{worst:.2e}, BatchNorm statistics rel {stat_err:.2e}; "
+                  f"launches a step {({k: v for k, v in per_step.items() if v})}",
+                  flush=True)
+        if not mp:
+            big = _dataset(cfg, REMAT_PEAK_BATCH, "even").batch(
+                list(range(REMAT_PEAK_BATCH)))
+            for value in (False, "all"):
+                model.remat = value
+                step(big)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                logs = step(big)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                check(math.isfinite(logs["total_loss"].item()),
+                      f"remat {value!r} at batch {REMAT_PEAK_BATCH}: loss")
+                table.append(dict(dtype="f32", remat=str(value),
+                                  batch=REMAT_PEAK_BATCH, ms=[ms],
+                                  peak_gib=peak))
+                print(f"6-camera remat {value} at batch {REMAT_PEAK_BATCH}: "
+                      f"step {ms:.3f} ms, peak device memory {peak:.3f} GiB",
+                      flush=True)
+            del big
+        model.remat = False
+        del model, opt, state0, opt0, ref
+        torch.cuda.empty_cache()
+    print(json.dumps({"remat": table}), flush=True)
+    return table
+
+
+def check_gather_forms(calls):
+    """The gather-bf16 forms (``sampler_3d: gather`` under mixed precision;
+    counterparts of JAX's XLA gather ``grid_sample_3d`` and the scatter of
+    its VJP ``_gs3d_bwd``, not of TPU kernels) on the volume, coordinates
+    and cotangent that the 6-camera bf16 gather step's warm-up handed them
+    (``capture_k3k4``): each against its plain version bit for bit, two
+    launches bit-identical, the backward's plan on the card against the
+    plain plan; timed (median of 20 with CUDA events, and 20 back to
+    back; the backward's plan and reduce apart) beside the plain version,
+    the bound (bytes over 3.35 TB/s: the volume, coordinates and output;
+    for the backward the rows of g that some live tap reads, the
+    coordinates and dvol) and the library call (5-D ``F.grid_sample`` in
+    bf16, and its autograd backward). Returns the two rows."""
+    from vfdepth_tpu_torch.ops import sample3d as s3
+    check(len(calls["fwd"]) == 1 and len(calls["bwd"]) == 1,
+          f"the gather step called its sampler {len(calls['fwd'])} and its "
+          f"backward {len(calls['bwd'])} times, expected 1 and 1")
+    (vol, coords), (g, _, shape) = calls["fwd"][0], calls["bwd"][0]
+    check(vol.dtype == g.dtype == torch.bfloat16, "gather: not bf16")
+
+    def bits(t):
+        return t.view(torch.int16)
+    out = s3.sample3d_gather(vol, coords)
+    again = s3.sample3d_gather(vol, coords)
+    ref = s3.sample3d_gather_plain(vol, coords)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(out), bits(ref)), "K3-gather-bf16 differs from "
+                                             "its plain version")
+    check(torch.equal(bits(out), bits(again)), "K3-gather-bf16: two "
+                                               "launches differ")
+    err3 = (out.float() - ref.float()).abs().max().item()
+    nb = vol.shape[0]
+    vol_czyx = vol.permute(0, 4, 3, 1, 2).contiguous()
+    grid = coords.reshape(nb, 1, 1, -1, 3).to(torch.bfloat16)
+    row3 = _row(
+        "sample3d_gather (bf16)", "sample3d.cu",
+        "vfdepth_tpu/ops/grid_sample.py:188", err3,
+        time_ms(lambda: s3.sample3d_gather(vol, coords)),
+        time_ms(lambda: s3.sample3d_gather_plain(vol, coords), reps=5),
+        nbytes(vol, coords, out), coords.shape[0] * coords.shape[1]
+        * vol.shape[-1] * 8 * 2,
+        time_ms(lambda: F.grid_sample(vol_czyx, grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True)),
+        dict(vol=vol.shape, coords=coords.shape, out=out.shape))
+    row3["stream_ms"] = stream_ms(lambda: s3.sample3d_gather(vol, coords))
+    row3["counterpart_of"] = "XLA gather grid_sample_3d, not a TPU kernel"
+    del out, again, ref
+
+    order, start = s3.sample3d_gather_bwd_plan(coords, shape)
+    p_order, p_start = s3.sample3d_gather_bwd_plan_plain(coords, shape)
+    check(torch.equal(order, p_order) and torch.equal(start, p_start),
+          "K4-gather-bf16: the card's plan differs from the plain plan")
+    dvol = s3.sample3d_gather_bwd(g, coords, shape)
+    again = s3.sample3d_gather_bwd(g, coords, shape)
+    ref = s3.sample3d_gather_bwd_plain(g, coords, shape)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(dvol), bits(ref)), "K4-gather-bf16 differs from "
+                                              "its plain version")
+    check(torch.equal(bits(dvol), bits(again)), "K4-gather-bf16: two "
+                                                "launches differ")
+    err4 = (dvol.float() - ref.float()).abs().max().item()
+    live = int(start[-1])
+    live_pts = int(torch.unique(order[:live].long() // 8).numel())
+    runs = start[1:] - start[:-1]
+    c = shape[-1]
+    vol_g = vol.permute(0, 4, 3, 1, 2).contiguous().requires_grad_()
+    lib_out = F.grid_sample(vol_g, grid, mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+    lib_g = g.transpose(1, 2).reshape(lib_out.shape).contiguous()
+    row4 = _row(
+        "sample3d_gather_bwd (bf16)", "sample3d_bwd.cu",
+        "vfdepth_tpu/ops/grid_sample.py:165", err4,
+        time_ms(lambda: s3.sample3d_gather_bwd(g, coords, shape)),
+        time_ms(lambda: s3.sample3d_gather_bwd_plain(g, coords, shape),
+                reps=2, warmup=1),
+        live_pts * c * g.element_size() + nbytes(coords, dvol),
+        live * c * 2,
+        time_ms(lambda: torch.autograd.grad(lib_out, vol_g, lib_g,
+                                            retain_graph=True)),
+        dict(g=g.shape, coords=coords.shape, dvol=dvol.shape))
+    row4.update(stage_split(
+        lambda: s3.sample3d_gather_bwd_plan(coords, shape),
+        lambda p: s3._gather_bwd_launch(g, coords, shape, *p)))
+    row4["stream_ms"] = stream_ms(lambda: s3.sample3d_gather_bwd(g, coords,
+                                                                 shape))
+    row4["counterpart_of"] = ("XLA scatter of grid_sample_3d's VJP "
+                              "_gs3d_bwd, not a TPU kernel")
+    row4.update(live_taps=live, taps=int(order.numel()),
+                live_points=live_pts, hottest_voxel=int(runs.max()),
+                voxels_touched=int((runs > 0).sum()))
+    print(f"K3-gather-bf16 on the 6-camera bf16 gather step "
+          f"({coords.shape[1]} points a frameset, batch {nb}): equal to its "
+          f"plain version bit for bit, two launches bit-identical", flush=True)
+    print(f"K4-gather-bf16 on that step: plan {live} live of "
+          f"{order.numel()} taps ({live_pts} points), "
+          f"{row4['voxels_touched']} voxels touched, the hottest "
+          f"{row4['hottest_voxel']} taps; equal to the plain plan; equal to "
+          f"its plain version bit for bit, two launches bit-identical",
+          flush=True)
+    rows = {"K3-gather-bf16": row3, "K4-gather-bf16": row4}
+    del dvol, again, ref, lib_out, vol_g
+    torch.cuda.empty_cache()
+    _print_rows(rows)
+    return rows
+
+
 def profile(label, fn, top: int = 14):
     """``fn`` once more under ``torch.profiler``: device time by kernel
     (self time, summed over launches), and the device's busy time as the
@@ -3566,6 +3996,24 @@ def main() -> int:
     train(cfg_aug_f32u, "6-camera aug bf16 packed_f32grad", "even", launches(
         **{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 2, "K4-f32upd-bf16": 2,
            "K5-bf16": 4}), tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    # sampler_3d: gather under mixed precision: the gather-bf16 forms in
+    # place of K3-bf16 and K4, then held and timed on the step's own inputs
+    cfg_gather = mixed_precision_config()
+    cfg_gather.set("sampler_3d", "gather")
+    serve(cfg_gather, "6-camera bf16 gather", "even",
+          launches(**{"K1-bf16": 1, "K3-gather-bf16": 1}),
+          launches(**{"K1-bf16": 2, "K3-gather-bf16": 1}), **bf16_tols)
+    gather_calls = {}
+    train(cfg_gather, "6-camera bf16 gather", "even", launches(
+        **{"K1-bf16": 1, "K2-bf16": 1, "K3-gather-bf16": 1,
+           "K4-gather-bf16": 1, "K5-bf16": 4}),
+          tols=(BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL),
+          k3k4_calls=gather_calls, sampler="Sample3dGather")
+    rows.update(check_gather_forms(gather_calls))
+    del gather_calls
+    # activation checkpointing: each remat value against the plain step,
+    # with its step time and peak memory
+    run_remat(device, paths)
     # the evaluation and the training loop: the full-width model through
     # Trainer.evaluate (batch 4) and Trainer.learn (pinned prefetch), then
     # the command lines on the tiny config
@@ -3573,6 +4021,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_dir:
         tmp = Path(tmp_dir)
+        # ImageNet encoders from a local (synthetic) torchvision file
+        run_weights_init(device, tmp, paths)
         for mp, label, per_batch, tols in (
                 (False, "6-camera", launches(K1=1, K3=1),
                  (FWD_RTOL, POSE_ATOL, EVAL_METRIC_RTOL,

@@ -122,3 +122,22 @@ def k2_in_plan_order(g: torch.Tensor, coords: torch.Tensor, valid, h: int,
         ys, xs = slice(y0, y0 + grid.ty), slice(x0, x0 + grid.tx)
         out[cam, ys, xs] = img[ys, xs]
     return out
+
+
+def gather_bwd_in_plan_order(g: torch.Tensor, coords: torch.Tensor,
+                             vol_shape) -> torch.Tensor:
+    """The gather-bf16 backward as its CUDA form sums, one tap at a time:
+    the live taps (weight != 0) sorted by (voxel, item) with Python's
+    ``sorted``, each voxel's bf16 sum taking its updates in that order,
+    each update ``g * w`` formed in f32 and rounded once, each addition
+    rounded to bf16. For small sizes (a Python loop over the taps)."""
+    nb, h, w, d, c = vol_shape
+    wts, keys = s3._gather_bwd_items(coords, vol_shape)
+    n_keys = nb * h * w * d
+    g_rows = g.reshape(-1, c).float()
+    acc = torch.zeros(n_keys, c)
+    for key, item in sorted((int(k), i) for i, k in enumerate(keys.tolist())
+                            if k < n_keys):
+        upd = _bf16(g_rows[item // 8] * wts[item])
+        acc[key] = _bf16(acc[key] + upd)
+    return acc.to(torch.bfloat16).reshape(tuple(vol_shape))

@@ -137,17 +137,23 @@ def _cfg_with(**over):
     return cfg
 
 
-def test_unported_configs_raise():
-    """What is not ported raises: ``sampler_3d: gather`` under mixed
-    precision with the fusion depth net. Unbatched pose frames and mixed
-    precision on the 3-camera rig (the bf16 forms of K1b and K2b) build, as
-    do ``merge_backprojection: false``, mixed precision on the 6-camera rig
-    and the depth-synthesis branch, whose ``predict`` and ``forward`` need
-    the rotated views' draw ``aug_u`` of ``aug_shape`` (a missing or
-    misshapen draw raises, as a missing noise does)."""
-    with pytest.raises(NotImplementedError):
-        VFDepthModel(_cfg_with(mixed_precision=True, sampler_3d="gather"),
-                     device="cpu")
+def test_configs_build_and_misshapen_draws_raise():
+    """Every single-device option builds: ``sampler_3d: gather`` under
+    mixed precision with the fusion depth net (the gather-bf16 forms; it
+    serves a request here), unbatched pose frames, mixed precision on the
+    3-camera rig (the bf16 forms of K1b and K2b), ``merge_backprojection:
+    false``, mixed precision on the 6-camera rig and the depth-synthesis
+    branch, whose ``predict`` and ``forward`` need the rotated views' draw
+    ``aug_u`` of ``aug_shape`` (a missing or misshapen draw raises, as a
+    missing noise does)."""
+    cfg = _cfg_with(mixed_precision=True, sampler_3d="gather")
+    model = VFDepthModel(cfg, device="cpu")
+    assert model.sampler_3d == "gather" and model.depth_net.fusion_net.gather
+    out = model.predict(FakeDataset(
+        num_samples=1, num_cams=cfg.num_cams, height=cfg.height,
+        width=cfg.width, fusion_level=cfg.fusion_level).batch([0]))
+    assert out["depth/0"].dtype == torch.float32
+    assert bool(torch.isfinite(out["depth/0"]).all())
     model = VFDepthModel(_cfg_with(batch_pose_frames=False), device="cpu")
     assert len(model.frame_ids) == 3 and not model.batch_pose_frames
     assert not model._can_merge_backproject()
@@ -178,14 +184,13 @@ def test_unported_configs_raise():
 @pytest.mark.parametrize("depth_model,pose_model", [
     ("fsm", "fsm"), ("fusion", "fsm"), ("fsm", "fusion")])
 def test_fsm_pairs_build_and_never_merge(depth_model, pose_model):
-    """Every pair with an fsm net builds (in f32 and bf16, where
-    ``sampler_3d: gather`` only concerns a fusion depth net) and never
-    takes the merged back-projection, even with it on."""
+    """Every pair with an fsm net builds (in f32, and in bf16 with
+    ``sampler_3d: gather``, which a fusion depth net samples with the
+    gather-bf16 forms) and never takes the merged back-projection, even
+    with it on."""
     from vfdepth_tpu_torch.models import (FusedDepthNet, FusedPoseNet,
                                           MonoDepthNet, MonoPoseNet)
     for over in ({}, {"mixed_precision": True, "sampler_3d": "gather"}):
-        if over and depth_model == "fusion":
-            continue
         model = VFDepthModel(_cfg_with(depth_model=depth_model,
                                        pose_model=pose_model,
                                        merge_backprojection=True, **over),
@@ -195,6 +200,8 @@ def test_fsm_pairs_build_and_never_merge(depth_model, pose_model):
         assert isinstance(model.pose_net, MonoPoseNet if pose_model ==
                           "fsm" else FusedPoseNet)
         assert model.merge_backproject and not model._can_merge_backproject()
+        if over and depth_model == "fusion":
+            assert model.depth_net.fusion_net.gather
     with pytest.raises(ValueError, match="depth_model"):
         VFDepthModel(_cfg_with(depth_model="mono"), device="cpu")
 

@@ -37,6 +37,12 @@ plane entry (the JAX package's sequential bf16 scatter: 0.039 against f32).
 The bound is a cosine above 0.995 and a relative L2 difference below 0.1,
 against the plain version and against the f32-update form.
 
+The gather-bf16 forms (``sampler_3d: gather`` under mixed precision:
+``sample3d_gather`` and ``sample3d_gather_bwd``) compute in their plain
+versions' literal bf16 arithmetic and order: equal bit for bit, their
+plans element for element, two launches the same bits, a hot voxel (3000
+points on one 2 x 2 x 2 block) included.
+
 Two checks of the data path on the card close the file, exact both:
 ``device_prefetch`` against the pageable route, and a checkpoint moved
 between the card and the CPU.
@@ -45,7 +51,8 @@ import numpy as np
 import pytest
 import torch
 
-from helpers_torch_plan import k2_in_plan_order, k4_in_plan_order
+from helpers_torch_plan import (gather_bwd_in_plan_order,
+                                k2_in_plan_order, k4_in_plan_order)
 from vfdepth_tpu_torch.ops.backproject_sample import (
     backproject_bwd_plan, backproject_bwd_plan_plain,
     backproject_grouped, backproject_grouped_bwd,
@@ -59,6 +66,7 @@ from vfdepth_tpu_torch.ops.sample3d import (sample3d_bwd_plan,
                                             sample3d_trilinear_bwd_bf16_plain,
                                             sample3d_trilinear_bwd_plain,
                                             sample3d_trilinear_plain)
+from vfdepth_tpu_torch.ops import sample3d as s3
 from vfdepth_tpu_torch.ops.warp import (warp_image_mask, warp_image_mask_maps,
                                         warp_image_mask_maps_plain)
 
@@ -762,6 +770,66 @@ def test_sample3d_vector_paths(c, dtype):
     assert (out[:, [10, 12]] == 0).all()
     view = torch.int16 if bf16 else torch.int32
     assert torch.equal(out.view(view), again.view(view))
+
+
+def _gather_inputs(seed, c, hot: bool):
+    rng = np.random.RandomState(seed)
+    shape = (2, 9, 10, 4, c)
+    vol = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        torch.bfloat16).cuda()
+    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords[:, :4] = [[-1, -1, -1], [1, 1, 1], [-1.002, 0, 0], [0, 1.002, 0]]
+    if hot:
+        coords[:, 100:3100] = rng.uniform(-1.0, -0.97, (2, 3000, 3))
+    coords[:, 10, 1] = np.nan
+    coords[:, 11, 0] = np.inf
+    coords[:, 12] = [40.0, -1e9, 3.0]
+    g = torch.from_numpy(rng.randn(2, 4001, c).astype(np.float32)).to(
+        torch.bfloat16).cuda()
+    return vol, torch.from_numpy(coords).cuda(), g, shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hot", [(64, False), (7, False), (64, True)])
+def test_gather_bf16_forward_matches_plain_bits(c, hot):
+    """Even C takes the 2-channel path, odd C the scalar one."""
+    _need_cuda()
+    vol, coords, _, _ = _gather_inputs(80 + c, c, hot)
+    out = s3.sample3d_gather(vol, coords)
+    again = s3.sample3d_gather(vol, coords)
+    ref = s3.sample3d_gather_plain(vol, coords)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    assert (out[:, 10:13] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hot", [(64, False), (7, False), (64, True)])
+def test_gather_bf16_backward_plan_and_bits(c, hot):
+    """The card's plan equals the plain plan, the kernel the plain version
+    and the tap-by-tap model bit for bit, a relaunch the same bits; the hot
+    block gives its voxels thousands of additions each."""
+    _need_cuda()
+    _, coords, g, shape = _gather_inputs(90 + c, c, hot)
+    order, start = s3.sample3d_gather_bwd_plan(coords, shape)
+    p_order, p_start = s3.sample3d_gather_bwd_plan_plain(coords, shape)
+    assert torch.equal(order, p_order) and torch.equal(start, p_start)
+    runs = start[1:] - start[:-1]
+    if hot:
+        assert int(runs.max()) > 1000
+    dvol = s3.sample3d_gather_bwd(g, coords, shape)
+    again = s3.sample3d_gather_bwd(g, coords, shape)
+    ref = s3.sample3d_gather_bwd_plain(g, coords, shape)
+    torch.cuda.synchronize()
+    bits = dvol.view(torch.int16)
+    assert torch.equal(bits, ref.view(torch.int16))
+    assert torch.equal(bits, again.view(torch.int16))
+    if not hot:
+        model = gather_bwd_in_plan_order(g.cpu(), coords.cpu(), shape)
+        assert torch.equal(dvol.cpu().view(torch.int16),
+                           model.view(torch.int16))
 
 
 @pytest.mark.cuda

@@ -68,8 +68,10 @@ from vfdepth_tpu.ops.pallas_sample import (_fwd_call_grouped,
 from vfdepth_tpu.ops.sample3d_packed import grid_sample_3d_packed
 from vfdepth_tpu.ops.warp_quad import warp_image_mask_quad
 from vfdepth_tpu_torch.config import get_config
+from vfdepth_tpu_torch.data import FakeDataset
 from vfdepth_tpu_torch.geometry.view_rendering import intensity_align
 from vfdepth_tpu_torch.ops import backproject_sample as tbs
+from vfdepth_tpu_torch.ops import sample3d as s3
 from vfdepth_tpu_torch.ops.backproject_sample import (
     BackprojectGrouped, backproject_grouped, backproject_grouped_bwd,
     backproject_grouped_plain)
@@ -99,7 +101,7 @@ def _bf16_np(x):
     (False, None, "packed_f32grad"), (False, "packed", "packed"),
     (False, "packed_f32grad", "packed_f32grad"), (False, "gather", "gather"),
     (True, None, "packed"), (True, "packed", "packed"),
-    (True, "packed_f32grad", "packed_f32grad")])
+    (True, "packed_f32grad", "packed_f32grad"), (True, "gather", "gather")])
 def test_sampler_3d_rule(mixed, sampler, want):
     """The JAX rule (training/model.py:177-182): bf16 updates for an
     explicit 'packed', in an f32 config too, and by default under mixed
@@ -114,17 +116,37 @@ def test_sampler_3d_rule(mixed, sampler, want):
     assert model.compute_dtype == (torch.bfloat16 if mixed else None)
 
 
-def test_mixed_precision_with_f32_updates_raises():
-    """Of the f32-update samplers under mixed precision, 'packed_f32grad'
-    builds and 'gather' (an XLA scatter of bf16 updates in the JAX
-    package, not a TPU kernel) still raises."""
+def test_mixed_precision_f32_update_and_gather_samplers_run(monkeypatch):
+    """Under mixed precision 'packed_f32grad' builds with f32 updates, and
+    'gather' (JAX's XLA gather and scatter of bf16 updates into the bf16
+    volume) builds and trains: one step's volume gradient comes from the
+    gather-bf16 backward, in bf16 (tests/test_torch_gather_bf16.py holds
+    both forms against JAX)."""
     cfg = get_config("configs/tiny_fake.yaml")
     cfg.set("mixed_precision", True)
     cfg.set("sampler_3d", "packed_f32grad")
     assert not VFDepthModel(cfg, device="cpu").depth_net.fusion_net.bf16_updates
     cfg.set("sampler_3d", "gather")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        VFDepthModel(cfg, device="cpu")
+    model = VFDepthModel(cfg, device="cpu")
+    assert model.depth_net.fusion_net.gather
+    batch = FakeDataset(num_samples=1, num_cams=cfg.num_cams,
+                        height=cfg.height, width=cfg.width,
+                        fusion_level=cfg.fusion_level).batch([0])
+    seen = []
+    real = s3.Sample3dGather.backward
+
+    def backward(ctx, g):
+        seen.append(g.dtype)
+        return real(ctx, g)
+    monkeypatch.setattr(s3.Sample3dGather, "backward",
+                        staticmethod(backward))
+    _, loss, _ = model(batch, step=0,
+                       noise=torch.zeros(model.noise_shape(batch)))
+    loss.backward()
+    assert seen == [torch.bfloat16]
+    assert np.isfinite(float(loss.detach()))
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
 VOL = (2, 5, 6, 4, 16)          # [B, y, x, z, C]

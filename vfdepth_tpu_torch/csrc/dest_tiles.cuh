@@ -24,14 +24,15 @@
 // the key n_keys and sorts past the end: it is never read.
 //
 // Sort. A stable least-significant-digit counting sort in 8-bit digits
-// (two passes for up to 65,535 keys): per block of 2048 items a digit
-// histogram (shared-memory integer atomics: the counts do not depend on
-// their order), an exclusive scan of the histograms in (digit, block) order,
-// and a stable scatter that ranks each item among the block's items of its
-// digit in item order (__match_any_sync within a warp, warp counts in
-// shared memory across warps). Within a key, items keep their index order,
-// so the plan is the same on every run; ops/dest_tiles.py computes the same
-// plan with bincount, cumsum and a stable argsort.
+// (two passes for up to 65,535 keys, three up to 2^24 - 1): per block of
+// 2048 items a digit histogram (shared-memory integer atomics: the counts
+// do not depend on their order), an exclusive scan of the histograms in
+// (digit, block) order, and a stable scatter that ranks each item among
+// the block's items of its digit in item order (__match_any_sync within a
+// warp, warp counts in shared memory across warps). Within a key, items
+// keep their index order, so the plan is the same on every run;
+// ops/dest_tiles.py computes the same plan with bincount, cumsum and a
+// stable argsort.
 //
 // Work. A tile of L contributions is walked in ceil(L / chunk) chunks, chunk
 // = max(256, 2 * ceil(mean L)) so no block walks more than about twice the
@@ -321,14 +322,14 @@ inline int64_t workspace_ints(int64_t n, int64_t n_keys) {
   return 4 * n + hist + ceil_div(hist, kTile);
 }
 
-// The plan from keys[0, n) (each in [0, n_keys], n_keys = dead): order
-// [n] (item indices by key, stable; the live ones first), start
-// [n_keys + 1], and the tile work (tile_work_kernel); `ws` holds
-// workspace_ints(n, n_keys) ints.
-inline int plan(const int* keys, int n, const Grid& g, int* ws, int* order,
-                int* start, int* chunk_off, int* slot_off, int* params,
-                int max_slots, cudaStream_t s) {
-  const int n_keys = g.n_keys();
+// Stable sort of keys[0, n) (each in [0, n_keys], n_keys = dead) into
+// order [n] (item indices by key, stable; the live ones first) and start
+// [n_keys + 1] (the first sorted position of each key; start[n_keys] is the
+// live count); `ws` holds workspace_ints(n, n_keys) ints. The sort alone
+// is also the plan of the gather-bf16 backward (sample3d_bwd.cu), whose
+// keys are voxels, not tiles.
+inline int sort_keys(const int* keys, int n, int n_keys, int* ws, int* order,
+                     int* start, cudaStream_t s) {
   if (n <= 0 || n_keys <= 0) return (int)cudaErrorInvalidValue;
   const int nb = ceil_div(n, kTile);
   int* k0 = ws;
@@ -353,6 +354,17 @@ inline int plan(const int* keys, int n, const Grid& g, int* ws, int* order,
   }
   key_starts_kernel<<<ceil_div(n_keys + 1, 256), 256, 0, s>>>(cur_k, n,
                                                               n_keys, start);
+  return (int)cudaGetLastError();
+}
+
+// The plan from keys[0, n) (each in [0, n_keys], n_keys = dead): order
+// and start (sort_keys) and the tile work (tile_work_kernel); `ws` holds
+// workspace_ints(n, n_keys) ints.
+inline int plan(const int* keys, int n, const Grid& g, int* ws, int* order,
+                int* start, int* chunk_off, int* slot_off, int* params,
+                int max_slots, cudaStream_t s) {
+  const int err = sort_keys(keys, n, g.n_keys(), ws, order, start, s);
+  if (err != 0) return err;
   tile_work_kernel<<<1, kPlanThreads, 0, s>>>(g, start, chunk_off, slot_off,
                                               params, max_slots);
   return (int)cudaGetLastError();

@@ -45,6 +45,10 @@
 // volume: its rows are read as bf16, combined in f32, and the output is
 // rounded once to bf16, `_combine_kernel` :101-111 with the out dtype of
 // :141).
+//
+// A fourth entry, vf_sample3d_gather_bf16, is not a port of a TPU kernel:
+// it is `sampler_3d: gather` on a bf16 volume, JAX's XLA gather in its
+// literal bf16 arithmetic (see its kernel below).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -195,6 +199,73 @@ sample3d_trilinear_vec_kernel(const T* __restrict__ vol,
   }
 }
 
+// ---------------------------------------------------------- gather-bf16
+// `sampler_3d: gather` on a bf16 volume: the counterpart of the XLA gather
+// grid_sample_3d (vfdepth_tpu/ops/grid_sample.py:188-235), not of a TPU
+// kernel, in its literal bf16 arithmetic (the tap rule is gather_point in
+// sample3d_taps.cuh): the fractions rounded to bf16, 1 - w and each
+// product of three weights rounded, weight * valid, vals * weight rounded,
+// and the 8 taps summed in JAX's order (dx fastest), each addition rounded.
+// Every bf16 operand is exact in f32, so an f32 product or sum rounded to
+// bf16 is XLA's bf16 operation. One warp per point, its lanes over
+// channels (V adjacent ones each: 2 where C is even and the rows are
+// 4-byte aligned); each lane recomputes the point's 8 taps. A simple
+// kernel, not a tuned one.
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+sample3d_gather_bf16_kernel(const __nv_bfloat16* __restrict__ vol,
+                            const float* __restrict__ coords,
+                            __nv_bfloat16* __restrict__ out, int64_t nb,
+                            int h, int w, int d, int c, int64_t n) {
+  const int64_t pt = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (pt >= nb * n) return;
+  const GatherPoint p = gather_point(coords + pt * 3, h, w, d);
+  float a[3][2];                       // per axis: (1 - w, w), bf16 values
+  for (int k = 0; k < 3; ++k) {
+    const float wk = round_bf16(p.f[k]);
+    a[k][0] = round_bf16(__fsub_rn(1.0f, wk));
+    a[k][1] = wk;
+  }
+  const int64_t vol0 = pt / n * (int64_t)h * w * d;
+  int64_t row[8];
+  float wt[8];
+  for (int t = 0; t < 8; ++t) {
+    int vox;
+    const bool valid = gather_tap(p, t, h, w, d, vox);
+    const float wgt = round_bf16(__fmul_rn(
+        round_bf16(__fmul_rn(a[0][t & 1], a[1][(t >> 1) & 1])),
+        a[2][t >> 2]));
+    wt[t] = __fmul_rn(wgt, valid ? 1.0f : 0.0f);
+    row[t] = (vol0 + vox) * c;
+  }
+  for (int ch = lane * V; ch < c; ch += 32 * V) {
+    float acc[V];
+    for (int t = 0; t < 8; ++t) {
+      float v[V];
+      if constexpr (V == 2) {
+        const float2 f = bf16x2_float2(__ldg(
+            reinterpret_cast<const uint32_t*>(vol + row[t] + ch)));
+        v[0] = f.x;
+        v[1] = f.y;
+      } else {
+        v[0] = __bfloat162float(vol[row[t] + ch]);
+      }
+      for (int j = 0; j < V; ++j) {
+        const float term = round_bf16(__fmul_rn(v[j], wt[t]));
+        acc[j] = t == 0 ? term : round_bf16(__fadd_rn(acc[j], term));
+      }
+    }
+    __nv_bfloat16* dst = out + pt * c + ch;
+    for (int j = 0; j < V; ++j) dst[j] = __float2bfloat16_rn(acc[j]);
+  }
+}
+
 inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -254,4 +325,24 @@ extern "C" int vf_sample3d_trilinear_bf16(const __nv_bfloat16* vol,
                                           int64_t h, int64_t w, int64_t d,
                                           int64_t c, int64_t n, void* stream) {
   return launch(vol, coords, out, b, h, w, d, c, n, stream);
+}
+
+// the gather-bf16 form of `sampler_3d: gather` under mixed precision: vol
+// and out bf16, coords f32
+extern "C" int vf_sample3d_gather_bf16(const __nv_bfloat16* vol,
+                                       const float* coords,
+                                       __nv_bfloat16* out, int64_t b,
+                                       int64_t h, int64_t w, int64_t d,
+                                       int64_t c, int64_t n, void* stream) {
+  if (h < 1 || w < 1 || d < 1 || c < 1 || c > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = (b * n + kWarps - 1) / kWarps;
+  if (c % 2 == 0 && aligned(vol, 4) && aligned(out, 4))
+    sample3d_gather_bf16_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
+        vol, coords, out, b, (int)h, (int)w, (int)d, (int)c, n);
+  else
+    sample3d_gather_bf16_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
+        vol, coords, out, b, (int)h, (int)w, (int)d, (int)c, n);
+  return (int)cudaGetLastError();
 }

@@ -7,7 +7,10 @@
 // `packed_f32grad` form (f32 updates: vf_sample3d_trilinear_bwd, and
 // vf_sample3d_trilinear_bwd_f32upd_bf16 for a bf16 cotangent under mixed
 // precision) and its `packed` form (bf16 updates:
-// vf_sample3d_trilinear_bwd_bf16).
+// vf_sample3d_trilinear_bwd_bf16). Two more entries are not ports of a TPU
+// kernel: vf_sample3d_gather_bwd_plan and vf_sample3d_gather_bwd_bf16 are
+// the backward of `sampler_3d: gather` on a bf16 volume, JAX's XLA
+// scatter of bf16 updates into a bf16 volume (see their kernels below).
 //
 // What it computes: dvol[b, tap voxel, c] += w_tap(n) * g[b, n, c] for the
 // 8 clamped-base taps of every frustum point n, with exactly the forward's
@@ -381,6 +384,80 @@ int launch(const G* g, const float* coords, const int* order,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------- gather-bf16
+// `sampler_3d: gather` on a bf16 volume: the counterpart of the XLA scatter
+// of its backward `_gs3d_bwd` (vfdepth_tpu/ops/grid_sample.py:165-184), not
+// of a TPU kernel. Each tap of each point (item i = point * 8 + tap, tap
+// t = dx + 2 dy + 4 dz: gather_tap in sample3d_taps.cuh) adds the update
+// g[point] * w_t, formed in f32 and rounded once to bf16, into the bf16
+// dvol at its voxel, every addition rounded to bf16; a tap of weight 0
+// adds nothing and is dropped. The plan is tiles::sort_keys with one key
+// per tap, its voxel (b, y, x, z), so each voxel's taps sit together in
+// item order; then one warp per voxel sums them in that order, its lanes
+// over channels (2 each per 64), and writes the voxel once. The order is
+// fixed, so a relaunch gives the same bits; ops/sample3d.py
+// sample3d_gather_bwd_plain sums in the same order. A simple kernel, not a
+// tuned one: a hot voxel's taps are summed by one warp.
+
+__global__ void sample3d_gather_bwd_keys_kernel(
+    const float* __restrict__ coords, int total, int h, int w, int d, int n,
+    int n_keys, int* __restrict__ keys) {
+  const int pt = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= total) return;
+  const GatherPoint p = gather_point(coords + (int64_t)pt * 3, h, w, d);
+  const int vol0 = pt / n * h * w * d;
+  for (int t = 0; t < 8; ++t) {
+    int vox;
+    const bool valid = gather_tap(p, t, h, w, d, vox);
+    keys[(int64_t)pt * 8 + t] =
+        gather_weight_f32(p, t, valid) != 0.0f ? vol0 + vox : n_keys;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sample3d_gather_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                                const float* __restrict__ coords,
+                                const int* __restrict__ order,
+                                const int* __restrict__ start,
+                                __nv_bfloat16* __restrict__ dvol, int n_keys,
+                                int h, int w, int d, int c) {
+  const int key = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (key >= n_keys) return;
+  const int beg = start[key], end = start[key + 1];
+  __nv_bfloat16* dst = dvol + (int64_t)key * c;
+  for (int ch0 = 0; ch0 < c; ch0 += 64) {
+    const int ch[2] = {ch0 + 2 * lane, ch0 + 2 * lane + 1};
+    float acc[2] = {0.0f, 0.0f};       // bf16 values
+    for (int b0 = beg; b0 < end; b0 += 32) {
+      const int cnt = min(32, end - b0);
+      int pt = 0;
+      float wt = 0.0f;
+      if (lane < cnt) {                // lane j makes item j of the batch
+        const int item = order[b0 + lane];
+        pt = item >> 3;
+        const GatherPoint p = gather_point(coords + (int64_t)pt * 3, h, w, d);
+        int vox;
+        const bool valid = gather_tap(p, item & 7, h, w, d, vox);
+        wt = gather_weight_f32(p, item & 7, valid);
+      }
+#pragma unroll 4
+      for (int j = 0; j < cnt; ++j) {
+        const int pj = __shfl_sync(0xffffffffu, pt, j);
+        const float wj = __shfl_sync(0xffffffffu, wt, j);
+        const __nv_bfloat16* row = g + (int64_t)pj * c;
+        for (int k = 0; k < 2; ++k) {
+          if (ch[k] >= c) continue;
+          const float u = round_bf16(__fmul_rn(ld1(row + ch[k]), wj));
+          acc[k] = round_bf16(__fadd_rn(acc[k], u));
+        }
+      }
+    }
+    for (int k = 0; k < 2; ++k)
+      if (ch[k] < c) dst[ch[k]] = __float2bfloat16_rn(acc[k]);
+  }
+}
+
 }  // namespace
 
 // The plan of coords [b, n, 3] over output tiles of ty x tx voxel columns of
@@ -442,4 +519,40 @@ extern "C" int vf_sample3d_trilinear_bwd_bf16(
                              start, chunk_off, slot_off, params, partial,
                              static_cast<float*>(dvol), b, h, w, d, c, n, ty,
                              tx, stream);
+}
+
+// the gather-bf16 backward's plan: order [b*n*8] (taps by voxel, stable;
+// the live ones first) and start [b*h*w*d + 1]; ws holds b*n*8 keys and
+// then tiles::workspace_ints(b*n*8, b*h*w*d) ints
+extern "C" int vf_sample3d_gather_bwd_plan(const float* coords, int* ws,
+                                           int* order, int* start, int64_t b,
+                                           int64_t h, int64_t w, int64_t d,
+                                           int64_t n, void* stream) {
+  if (h < 1 || w < 1 || d < 1 || b * n < 1 || b * n * 8 >= INT32_MAX ||
+      b * h * w * d >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int pts = (int)(b * n), items = 8 * pts, n_keys = (int)(b * h * w * d);
+  sample3d_gather_bwd_keys_kernel<<<tiles::ceil_div(pts, 256), 256, 0,
+                                    s>>>(coords, pts, (int)h, (int)w, (int)d,
+                                         (int)n, n_keys, ws);
+  return tiles::sort_keys(ws, items, n_keys, ws + items, order, start, s);
+}
+
+// the gather-bf16 backward on that plan: g [b, n, c] bf16 -> dvol [b, h, w,
+// d, c] bf16, every voxel written once
+extern "C" int vf_sample3d_gather_bwd_bf16(
+    const __nv_bfloat16* g, const float* coords, const int* order,
+    const int* start, __nv_bfloat16* dvol, int64_t b, int64_t h, int64_t w,
+    int64_t d, int64_t c, int64_t n, void* stream) {
+  if (h < 1 || w < 1 || d < 1 || c < 1 || c > INT32_MAX ||
+      b * h * w * d >= INT32_MAX || n < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_keys = (int)(b * h * w * d);
+  constexpr int kWarps = kThreads / 32;
+  sample3d_gather_bwd_bf16_kernel<<<tiles::ceil_div(n_keys, kWarps),
+                                    kThreads, 0, s>>>(
+      g, coords, order, start, dvol, n_keys, (int)h, (int)w, (int)d, (int)c);
+  return (int)cudaGetLastError();
 }

@@ -93,3 +93,59 @@ __device__ __forceinline__ PointTaps point_taps(const float* coords,
   t.base = p.vox * c;
   return t;
 }
+
+// ------------------------------------------------------------------------
+// The tap rule of `sampler_3d: gather` under mixed precision, shared by its
+// forward (sample3d.cu) and backward (sample3d_bwd.cu): the XLA gather
+// `grid_sample_3d` (vfdepth_tpu/ops/grid_sample.py:188-235) and the taps
+// of its scatter `_trilinear_taps` (:111-143), not the clamped rule above.
+// Per axis, in f32: p = ((coord + 1) * 0.5) * (size - 1), the floor p0 and
+// the fraction p - p0; tap t = dx + 2*dy + 4*dz (JAX's order: dx fastest)
+// reads voxel p0 + (dx, dy, dz) where it lies inside the volume (per-tap
+// validity, no base clamp), else the voxel clipped into it times 0.
+// Non-finite coordinates become -2 (every tap invalid). The _rn intrinsics
+// keep nvcc from contracting a product and a sum into one rounding.
+
+struct GatherPoint {
+  float f[3];      // the f32 fraction per axis (x, y, z)
+  int i[3];        // the floor per axis, clamped to [-2, size + 1] (a floor
+                   // outside [-1, size] leaves both taps invalid either way)
+};
+
+__device__ __forceinline__ GatherPoint gather_point(const float* q, int h,
+                                                    int w, int d) {
+  float c[3] = {q[0], q[1], q[2]};
+  if (!(isfinite(c[0]) && isfinite(c[1]) && isfinite(c[2])))
+    c[0] = c[1] = c[2] = -2.0f;
+  const int size[3] = {w, h, d};
+  GatherPoint p;
+  for (int a = 0; a < 3; ++a) {
+    const float x = __fmul_rn(__fmul_rn(__fadd_rn(c[a], 1.0f), 0.5f),
+                              (float)(size[a] - 1));
+    const float x0 = floorf(x);
+    p.f[a] = __fsub_rn(x, x0);
+    p.i[a] = (int)fminf(fmaxf(x0, -2.0f), (float)(size[a] + 1));
+  }
+  return p;
+}
+
+// tap t of p: whether it lies inside the volume, and the flat yxz index
+// (y * w + x) * d + z of its voxel, clipped into the volume
+__device__ __forceinline__ bool gather_tap(const GatherPoint& p, int t, int h,
+                                           int w, int d, int& vox) {
+  const int x = p.i[0] + (t & 1), y = p.i[1] + ((t >> 1) & 1),
+            z = p.i[2] + (t >> 2);
+  vox = (min(max(y, 0), h - 1) * w + min(max(x, 0), w - 1)) * d +
+        min(max(z, 0), d - 1);
+  return x >= 0 && x < w && y >= 0 && y < h && z >= 0 && z < d;
+}
+
+// the scatter's f32 weight of tap t: ((X * Y) * Z) * valid, X = 1 - fx or
+// fx, and so on (`_trilinear_taps` :137-138)
+__device__ __forceinline__ float gather_weight_f32(const GatherPoint& p,
+                                                   int t, bool valid) {
+  const float x = t & 1 ? p.f[0] : __fsub_rn(1.0f, p.f[0]);
+  const float y = (t >> 1) & 1 ? p.f[1] : __fsub_rn(1.0f, p.f[1]);
+  const float z = t >> 2 ? p.f[2] : __fsub_rn(1.0f, p.f[2]);
+  return __fmul_rn(__fmul_rn(__fmul_rn(x, y), z), valid ? 1.0f : 0.0f);
+}

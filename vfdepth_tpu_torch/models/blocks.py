@@ -13,9 +13,18 @@ parameters stay f32, and each layer casts where flax does. A conv or dense
 layer casts its input, weight and bias to ``dtype`` (flax's
 ``promote_dtype``) and adds the bias after the product, in ``dtype``;
 BatchNorm takes its statistics and normalises in f32 and returns ``dtype``.
+
+Activation checkpointing (``tpu.remat``, ``training/model.py``) runs a
+train-mode forward a second time in the backward pass. BatchNorm moves its
+running statistics in place, so that recompute runs under
+``recomputing()``: it normalises with the batch statistics, as the first
+forward did, and leaves the running statistics as the first forward left
+them (JAX's functional recompute discards its statistics).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -79,6 +88,21 @@ class Linear(nn.Linear):
                 + self.bias.to(self.dtype))
 
 
+_RECOMPUTING = contextvars.ContextVar("bn_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The block is a checkpoint's recompute of a train-mode forward:
+    BatchNorm normalises with the batch statistics, whatever its mode, and
+    leaves its running statistics alone."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` on
     NCHW tensors.
@@ -100,14 +124,17 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        if not self.training:
+        recompute = _RECOMPUTING.get()
+        if not (self.training or recompute):
             y = super().forward(x)
         else:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-                self.running_var.mul_(0.9).add_(var, alpha=0.1)
-                self.num_batches_tracked.add_(1)
+            if not recompute:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x, dim=(0, 2, 3),
+                                               unbiased=False)
+                    self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+                    self.running_var.mul_(0.9).add_(var, alpha=0.1)
+                    self.num_batches_tracked.add_(1)
             y = F.batch_norm(x, None, None, self.weight, self.bias,
                              training=True, eps=self.eps)
         return y if self.dtype is None else y.to(self.dtype)

@@ -10,8 +10,10 @@ Ported: ``_project_cam_points``, the grouped back-projection (kernel K1,
 backward K2) for rigs whose two overlap groups are equal, the ungrouped one
 (kernel K1b, backward K2b: the 3-camera rig), ``fuse_depth`` and
 ``pose_voxel_to_bev`` in both forms, ``project_voxel_into_image`` (kernel
-K3, backward K4 in the update dtype ``sampler_3d`` names), ``BEVFold`` and
-``augment_extrinsics`` (the depth-synthesis branch's random rotation).
+K3, backward K4 in the update dtype ``sampler_3d`` names; ``gather`` on a
+bf16 volume: the gather-bf16 forms of K3 and K4, ``Sample3dGather``),
+``BEVFold`` and ``augment_extrinsics`` (the depth-synthesis branch's
+random rotation).
 
 ``dtype`` is the compute dtype (``models/blocks.py``). Under mixed
 precision the back-projected features, the voxel volume and the frustum
@@ -37,7 +39,7 @@ from ..ops.backproject_sample import (sample_backproject_grouped_raw,
                                       sample_backproject_raw)
 from ..ops import ties
 from ..ops.resize import resize_bilinear
-from ..ops.sample3d import Sample3dTrilinear
+from ..ops.sample3d import Sample3dGather, Sample3dTrilinear
 
 
 def _reflect_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -240,8 +242,10 @@ class VFNet(nn.Module):
         self.overlap_groups = tuple(map(tuple, overlap_groups))
         # the frustum sampler's backward (K4) sums its updates in bf16 for
         # 'packed' (the JAX package's bf16 scatter updates), in f32 otherwise
-        # ('gather' is the same function up to summation order)
+        # ('gather' is the same function up to summation order); 'gather'
+        # on a bf16 volume is JAX's bf16 XLA gather and scatter instead
         self.bf16_updates = sampler_3d == "packed"
+        self.gather = sampler_3d == "gather"
         self.voxel_str_p = tuple(voxel_str_p)
         self.voxel_unit_size = tuple(voxel_unit_size)
         self.voxel_size = tuple(voxel_size)
@@ -365,9 +369,12 @@ class VFNet(nn.Module):
         b, c = voxel_feat.shape[0], voxel_feat.shape[-1]
         vz, vy, vx = self.vol_dims
         vol = voxel_feat.reshape(b, vy, vx, vz, c).contiguous()
-        sampled = Sample3dTrilinear.apply(
-            vol, self.frustum_coords(inv_k, extrinsics), plain,
-            self.bf16_updates)
+        coords = self.frustum_coords(inv_k, extrinsics)
+        if self.gather and vol.dtype == torch.bfloat16:
+            sampled = Sample3dGather.apply(vol, coords, plain)
+        else:
+            sampled = Sample3dTrilinear.apply(vol, coords, plain,
+                                              self.bf16_updates)
         feat2d = sampled.reshape(b * inv_k.shape[1], self.img_h, self.img_w,
                                  self.proj_d_bins * c)
         return self.reduce_dim_1(self.reduce_dim_0(feat2d.permute(0, 3, 1, 2)))

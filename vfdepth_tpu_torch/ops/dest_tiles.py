@@ -106,13 +106,21 @@ def _exclusive(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
 
 
+def sort_plain(keys: torch.Tensor, n_keys: int):
+    """``tiles::sort_keys`` in plain PyTorch: keys [n] in [0, n_keys]
+    (n_keys = dead) -> (order [n], the item indices by key, stable; start
+    [n_keys + 1], the first position of each key, start[-1] the live
+    count), int64 on the keys' device."""
+    keys = keys.long()
+    order = torch.argsort(keys, stable=True)
+    counts = torch.bincount(keys, minlength=n_keys + 1)[:n_keys]
+    return order, _exclusive(counts)
+
+
 def plan_plain(keys: torch.Tensor, grid: Grid) -> Plan:
     """The plan of ``csrc/dest_tiles.cuh`` from keys [n] (in [0, n_keys],
     n_keys = dead), in plain PyTorch on the keys' device."""
-    keys = keys.long()
-    order = torch.argsort(keys, stable=True)
-    counts = torch.bincount(keys, minlength=grid.n_keys + 1)[:grid.n_keys]
-    start = _exclusive(counts)
+    order, start = sort_plain(keys, grid.n_keys)
     _, lens = grid.runs(start)
     totals = lens.sum(1)
     nt = grid.n_tiles

@@ -37,6 +37,16 @@ to [0, size-2] and both tap weights are rederived from the clamp offset
 (``_kernel_axis_weights``), so every tap read is in bounds; non-finite
 coordinates give zeros. Taps combine in the TPU kernel's order (tap t =
 dz*4 + dx*2 + dy: dy fastest, dz slowest).
+
+``sampler_3d: gather`` under mixed precision is not a TPU kernel in the
+JAX package but its plain XLA gather ``grid_sample_3d`` on the bf16 volume
+and the scatter of its VJP ``_gs3d_bwd`` (``vfdepth_tpu/ops/
+grid_sample.py``). ``Sample3dGather`` ties their two CUDA forms together:
+``sample3d_gather`` (``csrc/sample3d.cu``) in JAX's literal bf16
+arithmetic, with per-tap validity and no base clamp, and
+``sample3d_gather_bwd`` (``csrc/sample3d_bwd.cu``), each update rounded
+once to bf16 and summed into the bf16 voxel in item order, every addition
+rounded; each has a plain version with the same roundings and order.
 """
 from __future__ import annotations
 
@@ -427,3 +437,277 @@ class Sample3dTrilinear(torch.autograd.Function):
             bwd = (sample3d_trilinear_bwd_plain if plain
                    else sample3d_trilinear_bwd)
         return bwd(g.contiguous(), coords, vol_shape), None, None, None
+
+
+# --------------------------------------------------------------------------
+# 'gather' under mixed precision: JAX's plain XLA trilinear gather and
+# scatter on a bf16 volume (vfdepth_tpu/ops/grid_sample.py grid_sample_3d
+# :188-235 and its custom VJP _gs3d_bwd :165-184), not a TPU kernel.
+
+def _gather_axis(coord: torch.Tensor, size: int):
+    """Per axis of ``grid_sample_3d``: the f32 fraction of the pixel
+    coordinate and its floor as an index, clamped to [-2, size + 1] (a
+    floor outside [-1, size] makes both taps invalid either way, and the
+    clamp keeps the int cast defined)."""
+    p = (coord + 1.0) * 0.5 * (size - 1)
+    p0 = torch.floor(p)
+    return p - p0, torch.clamp(p0, -2.0, size + 1.0).long()
+
+
+def _gather_taps(crd: torch.Tensor, h: int, w: int, d: int):
+    """Points [n, 3] (x, y, z) -> per axis (f32 fraction, floor index);
+    non-finite points become -2.0 on every axis, as JAX's do."""
+    finite = torch.isfinite(crd).all(dim=-1, keepdim=True)
+    crd = torch.where(finite, crd, -2.0)
+    return (_gather_axis(crd[:, 0], w), _gather_axis(crd[:, 1], h),
+            _gather_axis(crd[:, 2], d))
+
+
+def _gather_tap_index(ix, iy, iz, dx, dy, dz, h, w, d):
+    """(valid, flat yxz voxel index, clipped where not valid) of one tap."""
+    x, y, z = ix + dx, iy + dy, iz + dz
+    valid = ((x >= 0) & (x < w) & (y >= 0) & (y < h) & (z >= 0) & (z < d))
+    idx = ((y.clamp(0, h - 1) * w + x.clamp(0, w - 1)) * d
+           + z.clamp(0, d - 1))
+    return valid, idx
+
+
+# JAX's tap order: (dx, dy, dz) = 000, 100, 010, 110, 001, 101, 011, 111
+_GATHER_TAPS = [(dx, dy, dz) for dz in (0, 1) for dy in (0, 1)
+                for dx in (0, 1)]
+
+
+def sample3d_gather_plain(vol: torch.Tensor,
+                          coords: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the gather-bf16 forward: ``grid_sample_3d``
+    on a bf16 yxz volume [B, H, W, D, C] at coords [B, N, 3] f32 -> [B, N,
+    C] bf16, in JAX's literal bf16 arithmetic: the fractions rounded to
+    bf16, ``1 - w`` and each product of three weights rounded, zeros
+    padding by per-tap validity (no base clamp; an invalid tap reads its
+    clipped voxel times 0), ``vals * w`` rounded, the 8 taps summed in
+    JAX's order, each addition rounded."""
+    nb, h, w, d, c = vol.shape
+    n = coords.shape[1]
+    rows = vol.reshape(nb, h * w * d, c)
+    out = vol.new_empty(nb, n, c)
+    for b in range(nb):
+        for s in range(0, n, _POINT_CHUNK):
+            axes = _gather_taps(coords[b, s:s + _POINT_CHUNK], h, w, d)
+            wts = [f.to(torch.bfloat16) for f, _ in axes]
+            pairs = [(1 - wt, wt) for wt in wts]
+            (ix, iy, iz) = (i for _, i in axes)
+            acc = None
+            for dx, dy, dz in _GATHER_TAPS:
+                wgt = pairs[0][dx] * pairs[1][dy] * pairs[2][dz]
+                valid, idx = _gather_tap_index(ix, iy, iz, dx, dy, dz, h, w,
+                                               d)
+                term = rows[b, idx] * (wgt * valid.to(wgt.dtype))[:, None]
+                acc = term if acc is None else acc + term
+            out[b, s:s + _POINT_CHUNK] = acc
+    return out
+
+
+def sample3d_gather(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """The gather-bf16 forward (``sample3d_gather_plain``'s function):
+    vol [B, H, W, D, C] bf16, coords [B, N, 3] f32 -> [B, N, C] bf16.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``vf_sample3d_gather_bf16`` (``sample3d_gather.launches_bf16`` counts
+    its launches) or raise.
+    """
+    if vol.dim() != 5 or coords.dim() != 3 or coords.shape[-1] != 3 \
+            or coords.shape[0] != vol.shape[0]:
+        raise ValueError(f"expected vol [B, H, W, D, C] and coords [B, N, 3], "
+                         f"got {tuple(vol.shape)} and {tuple(coords.shape)}")
+    nb, h, w, d, c = vol.shape
+    if vol.dtype != torch.bfloat16:
+        raise TypeError(f"vol must be bfloat16, got {vol.dtype}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if coords.device != vol.device:
+        raise ValueError(f"coords on {coords.device}, vol on {vol.device}")
+    if vol.device.type == "cpu":
+        return sample3d_gather_plain(vol, coords)
+    _check_cuda((("vol", vol), ("coords", coords)))
+    n = coords.shape[1]
+    out = torch.empty(nb, n, c, device=vol.device, dtype=vol.dtype)
+    fn = _build.function("sample3d", "vf_sample3d_gather_bf16", _FWD_ARGS)
+    with torch.cuda.device(vol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(vol.data_ptr(), coords.data_ptr(), out.data_ptr(), nb, h, w,
+                 d, c, n, stream)
+    if err != 0:
+        raise RuntimeError(f"sample3d_gather launch failed: CUDA error {err}")
+    sample3d_gather.launches_bf16 += 1
+    return out
+
+
+sample3d_gather.launches_bf16 = 0
+
+
+def _gather_bwd_items(coords: torch.Tensor, vol_shape):
+    """``_trilinear_taps`` (grid_sample.py:111-143) of every point: the f32
+    weight of each tap (0 where the tap is not valid) and its plan key,
+    the voxel index in the batch's volumes (n_keys = B*H*W*D where the
+    weight is 0: the tap adds nothing). Items are tap t of point n of
+    frameset b at b*N*8 + n*8 + t, t in JAX's order -> (weights [B*N*8]
+    f32, keys [B*N*8] int64)."""
+    nb, h, w, d, _ = vol_shape
+    n = coords.shape[1]
+    n_vox = h * w * d
+    wts = torch.empty(nb, n, 8, dtype=torch.float32, device=coords.device)
+    keys = torch.empty(nb, n, 8, dtype=torch.int64, device=coords.device)
+    for b in range(nb):
+        for s in range(0, n, _POINT_CHUNK):
+            (fx, ix), (fy, iy), (fz, iz) = _gather_taps(
+                coords[b, s:s + _POINT_CHUNK], h, w, d)
+            pairs = [(1 - f, f) for f in (fx, fy, fz)]
+            for t, (dx, dy, dz) in enumerate(_GATHER_TAPS):
+                valid, idx = _gather_tap_index(ix, iy, iz, dx, dy, dz, h, w,
+                                               d)
+                wgt = (pairs[0][dx] * pairs[1][dy] * pairs[2][dz]
+                       * valid.to(torch.float32))
+                wts[b, s:s + _POINT_CHUNK, t] = wgt
+                keys[b, s:s + _POINT_CHUNK, t] = torch.where(
+                    wgt != 0, b * n_vox + idx, nb * n_vox)
+    return wts.reshape(-1), keys.reshape(-1)
+
+
+def sample3d_gather_bwd_plan_plain(coords: torch.Tensor, vol_shape):
+    """The gather-bf16 backward's plan in plain PyTorch: (order, start) of
+    ``dest_tiles.sort_plain`` over its items' keys (``_gather_bwd_items``),
+    int32 on coords' device: each voxel's live taps in item order."""
+    nb, h, w, d, _ = vol_shape
+    _, keys = _gather_bwd_items(coords, vol_shape)
+    order, start = dest_tiles.sort_plain(keys, nb * h * w * d)
+    return order.int(), start.int()
+
+
+def sample3d_gather_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
+                              vol_shape) -> torch.Tensor:
+    """Plain PyTorch version of the gather-bf16 backward, ``_gs3d_bwd`` on a
+    bf16 cotangent: g [B, N, C] bf16, coords [B, N, 3] -> dvol
+    ``vol_shape`` bf16. Each update ``g * w`` is formed in f32 and rounded
+    once to bf16; each voxel sums its updates into bf16 in the plan's order
+    (item order: point, then tap), every addition rounded; zero-weight taps
+    add nothing and are dropped. The additions run rank by rank: the r-th
+    update of every voxel that has one, for r = 0, 1, ..."""
+    nb, h, w, d, c = vol_shape
+    n_keys = nb * h * w * d
+    wts, keys = _gather_bwd_items(coords, vol_shape)
+    order, start = dest_tiles.sort_plain(keys, n_keys)
+    counts = start[1:] - start[:-1]
+    g_rows = g.reshape(-1, c)
+    acc = torch.zeros(n_keys, c, dtype=torch.bfloat16, device=g.device)
+    active = torch.nonzero(counts).reshape(-1)
+    r = 0
+    while active.numel():
+        item = order[start[active] + r]
+        upd = (g_rows[item // 8].float() * wts[item][:, None]).to(
+            torch.bfloat16)
+        acc[active] = (acc[active].float() + upd.float()).to(torch.bfloat16)
+        r += 1
+        active = active[counts[active] > r]
+    return acc.reshape(tuple(vol_shape))
+
+
+def sample3d_gather_bwd_plan(coords: torch.Tensor, vol_shape):
+    """The gather-bf16 backward's plan built on the card
+    (``vf_sample3d_gather_bwd_plan``): (order [B*N*8], start [B*H*W*D + 1])
+    int32, equal element for element to ``sample3d_gather_bwd_plan_plain``.
+    coords [B, N, 3] f32 on a CUDA device."""
+    _check_cuda((("coords", coords),))
+    nb, h, w, d, _ = vol_shape
+    n = coords.shape[1]
+    items, n_keys = nb * n * 8, nb * h * w * d
+    if items >= 2 ** 31:
+        raise ValueError(f"gather-bf16 backward: {items} taps exceed the "
+                         f"plan's int32 indices")
+    ints = dict(dtype=torch.int32, device=coords.device)
+    order = torch.empty(items, **ints)
+    start = torch.empty(n_keys + 1, **ints)
+    blocks = -(-items // 2048)
+    ws = torch.empty(5 * items + 256 * blocks + -(-256 * blocks // 2048),
+                     **ints)
+    fn = _build.function("sample3d_bwd", "vf_sample3d_gather_bwd_plan",
+                         [_P] * 4 + [_I64] * 5 + [_P])
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(coords.data_ptr(), ws.data_ptr(), order.data_ptr(),
+                 start.data_ptr(), nb, h, w, d, n, stream)
+    if err != 0:
+        raise RuntimeError(f"sample3d_gather_bwd_plan launch failed: CUDA "
+                           f"error {err}")
+    return order, start
+
+
+def _gather_bwd_launch(g, coords, vol_shape, order, start) -> torch.Tensor:
+    """The gather-bf16 backward kernel on the plan (order, start) of
+    ``sample3d_gather_bwd_plan(coords, vol_shape)`` -> dvol bf16, each
+    voxel written once."""
+    nb, h, w, d, c = vol_shape
+    n = g.shape[1]
+    if order.shape != (nb * n * 8,) or start.shape != (nb * h * w * d + 1,) \
+            or order.dtype != torch.int32 or start.dtype != torch.int32:
+        raise ValueError("the plan does not fit the cotangent and volume")
+    dvol = torch.empty(tuple(vol_shape), device=g.device, dtype=g.dtype)
+    fn = _build.function("sample3d_bwd", "vf_sample3d_gather_bwd_bf16",
+                         [_P] * 5 + [_I64] * 6 + [_P])
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), coords.data_ptr(), order.data_ptr(),
+                 start.data_ptr(), dvol.data_ptr(), nb, h, w, d, c, n, stream)
+    if err != 0:
+        raise RuntimeError(f"vf_sample3d_gather_bwd_bf16 launch failed: CUDA "
+                           f"error {err}")
+    return dvol
+
+
+def sample3d_gather_bwd(g: torch.Tensor, coords: torch.Tensor,
+                        vol_shape) -> torch.Tensor:
+    """Volume gradient of ``sample3d_gather``
+    (``sample3d_gather_bwd_plain``'s function): g [B, N, C] bf16,
+    coords [B, N, 3] f32 -> dvol [B, H, W, D, C] bf16.
+
+    CPU tensors take the plain version; CUDA tensors build the plan
+    (``sample3d_gather_bwd_plan``) and launch the kernel
+    (``sample3d_gather_bwd.launches_bf16`` counts launches) or raise.
+    """
+    _check_bwd(g, coords, vol_shape)
+    if g.dtype != torch.bfloat16:
+        raise TypeError(f"g must be bfloat16, got {g.dtype}")
+    if g.device.type == "cpu":
+        return sample3d_gather_bwd_plain(g, coords, vol_shape)
+    _check_cuda((("g", g), ("coords", coords)))
+    dvol = _gather_bwd_launch(g, coords, vol_shape,
+                              *sample3d_gather_bwd_plan(coords, vol_shape))
+    sample3d_gather_bwd.launches_bf16 += 1
+    return dvol
+
+
+sample3d_gather_bwd.launches_bf16 = 0
+
+
+class Sample3dGather(torch.autograd.Function):
+    """``sampler_3d: gather`` on a bf16 volume: the gather-bf16 forward and
+    backward (``plain`` runs their plain versions on any device); only
+    the volume gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, vol, coords, plain: bool = False):
+        if vol.dtype != torch.bfloat16:
+            raise TypeError(f"Sample3dGather takes a bf16 volume, got "
+                            f"{vol.dtype}")
+        fwd = sample3d_gather_plain if plain else sample3d_gather
+        out = fwd(vol, coords)
+        ctx.save_for_backward(coords)
+        ctx.args = (tuple(vol.shape), plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        vol_shape, plain = ctx.args
+        bwd = (sample3d_gather_bwd_plain if plain
+               else sample3d_gather_bwd)
+        return bwd(g.contiguous(), coords, vol_shape), None, None

@@ -11,11 +11,10 @@ checkpoints go to ``<log_dir>/<config name>/models/weights_<epoch>``.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 from typing import Optional
 
-REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from .models.torchvision_init import find_resnet_weights
 
 
 def parse_args(argv=None):
@@ -27,19 +26,6 @@ def parse_args(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions)")
     return parser.parse_args(argv)
-
-
-def find_resnet_weights(num_layers: int = 18) -> Optional[str]:
-    """The pretrained-weights file an ImageNet encoder init would read, or
-    None (a copy of ``vfdepth_tpu/models/torchvision_init.py``'s): the
-    ``VFDEPTH_RESNET_WEIGHTS`` file, else the repository's
-    ``assets/weights/resnet<N>_imagenet.npz``."""
-    env = os.environ.get("VFDEPTH_RESNET_WEIGHTS", "")
-    if env:
-        return env if os.path.isfile(env) else None
-    default = os.path.join(REPO_ROOT, "assets", "weights",
-                           f"resnet{num_layers}_imagenet.npz")
-    return default if os.path.isfile(default) else None
 
 
 def check_init_strategy(cfg):

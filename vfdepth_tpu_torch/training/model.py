@@ -47,7 +47,24 @@ package does: 'packed' sums bf16 updates (K4's bf16-update form, in an f32
 config too), 'packed_f32grad' f32 ones (of a bf16 cotangent too, under
 mixed precision), 'gather' f32 ones in an f32 config (the same function up
 to summation order), and None means 'packed' under mixed precision and
-'packed_f32grad' otherwise.
+'packed_f32grad' otherwise. Under mixed precision 'gather' is JAX's plain
+XLA trilinear gather on the bf16 volume, every product and tap sum rounded
+to bf16, and its backward an XLA scatter of bf16 updates into a bf16
+volume: the port's ``ops/sample3d.py Sample3dGather`` computes both with
+the same roundings (the gather-bf16 forms of K3 and K4).
+
+``tpu.remat`` checkpoints the nets' train-mode calls as the JAX package's
+``jax.checkpoint`` does (False, True or 'all', 'depth_net', 'pose_net'):
+each call JAX's ``_apply`` wraps (the merged path's ``encode_aggregate``,
+``pose_from_backprojection`` and ``decode_from_backprojection``, and each
+net's whole forward elsewhere) runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so its
+activations are recomputed in the backward pass instead of kept; the
+merged back-projection between them is not recomputed, as in JAX. The
+recompute runs in ``models/blocks.py recomputing()`` (checkpoint's
+``context_fn``): BatchNorm normalises with the same batch statistics and
+does not move its running statistics a second time. Serving and the eval
+step never checkpoint (JAX remats only under ``train=True``).
 
 ``training.aug_depth: true`` adds the depth-synthesis branch (with the
 fusion depth net): each camera's extrinsics are rotated at random
@@ -60,14 +77,16 @@ along the rotated frusta (kernel K3 again, backward K4 again), and
 neighbours' and the camera's own depths into the rotated views
 (``warp_depth``) for the depth-synthesis loss.
 
-Not ported yet (raises ``NotImplementedError``): ``sampler_3d: gather``
-under mixed precision with the fusion depth net (JAX's backward is an XLA
-scatter of bf16 updates into a bf16 volume, not a TPU kernel). Config
-keys that name TPU alternates of one
-function map onto the port's one implementation (the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors): ``tpu.sampler_2d``,
-``tpu.warp_op`` and ``tpu.warp_window`` (the port's warps are dense; the
-JAX windows give the same loss by construction).
+``model.weights_init: true`` loads ImageNet ResNet weights into every
+encoder (the depth net's of one image, the pose net's of two) from a local
+file (``models/torchvision_init.py``); with none, the encoders stay random
+and a warning says so, as in the JAX package.
+
+Config keys that name TPU alternates of one function map onto the port's
+one implementation (the CUDA kernel for CUDA tensors, its plain version
+for CPU tensors): ``tpu.sampler_2d``, ``tpu.warp_op`` and
+``tpu.warp_window`` (the port's warps are dense; the JAX windows give the
+same loss by construction).
 """
 from __future__ import annotations
 
@@ -76,6 +95,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..device import resolve_device
@@ -87,6 +107,8 @@ from ..models import (FusedDepthNet, FusedPoseNet, MonoDepthNet, MonoPoseNet,
                       backproject_features, backproject_features_grouped,
                       grouped_backprojection_ok, pack_cam_feat,
                       unpack_cam_feat)
+from ..models.blocks import recomputing
+from ..models.torchvision_init import load_resnet_encoder_params
 from ..models.vfnet import augment_extrinsics
 from ..ops.resize import resize_bilinear
 from ..weights import init_random
@@ -95,6 +117,13 @@ _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
 _SAMPLERS_3D = (None, "packed", "packed_f32grad", "gather")
 _WARP_OPS = (None, "auto", "mxu", "quad")
 _NETS = ("fusion", "fsm")
+_REMATS = (None, False, True, "all", "depth_net", "pose_net")
+
+
+def _recompute_contexts():
+    """``checkpoint``'s context_fn: nothing around the forward, BatchNorm's
+    recompute mode around the recompute."""
+    return contextlib.nullcontext(), recomputing()
 
 
 def loss_config_from(cfg: Config) -> LossConfig:
@@ -149,6 +178,10 @@ class VFDepthModel(nn.Module):
         # one back-projection for both nets where both are fusion nets
         # (_can_merge_backproject)
         self.merge_backproject = bool(cfg.get("merge_backprojection", True))
+        # activation checkpointing of the nets' train-mode calls
+        self.remat = cfg.get("remat", False)
+        if self.remat not in _REMATS:
+            raise ValueError(f"unknown remat {self.remat!r}")
         if cfg.get("sampler_2d") not in _SAMPLERS_2D:
             raise ValueError(f"unknown sampler_2d {cfg.get('sampler_2d')!r}")
         if cfg.get("sampler_3d") not in _SAMPLERS_3D:
@@ -162,12 +195,6 @@ class VFDepthModel(nn.Module):
         self.groups = tuple(map(tuple, cfg.overlap_groups))
         # K1 where the two overlap groups split the rig equally, else K1b
         self.grouped = grouped_backprojection_ok(self.groups, cfg.num_cams)
-        if (self.compute_dtype is not None and self.sampler_3d == "gather"
-                and cfg.depth_model == "fusion"):
-            raise NotImplementedError(
-                "mixed precision with sampler_3d 'gather' (an XLA scatter of "
-                "bf16 updates into the bf16 volume) is not ported; 'packed' "
-                "and 'packed_f32grad' are (ROADMAP A5)")
 
         self.scales = tuple(cfg.scales)
         self.height, self.width = cfg.height, cfg.width
@@ -212,14 +239,38 @@ class VFDepthModel(nn.Module):
         else:
             self.pose_net = MonoPoseNet(cfg.num_layers,
                                         dtype=self.compute_dtype)
-        # weights_init (ImageNet encoders) needs a weight file the repository
-        # does not hold; the JAX package skips it in that case too
         init_random(self, torch.Generator().manual_seed(seed))
+        if cfg.get("weights_init", False):
+            # ImageNet encoders from a local weight file (JAX init :370-380)
+            for net, n_imgs in ((self.depth_net, 1), (self.pose_net, 2)):
+                load_resnet_encoder_params(net.encoder, cfg.num_layers,
+                                           n_imgs)
         self.to(self.device)
         # [cams, 2] neighbour indices, -1 = none (not a buffer: no state)
         self.rel_cam = torch.as_tensor(cfg.rel_cam_array,
                                        device=self.device).long()
         self.eval()
+
+    def _remat_for(self, net: nn.Module) -> bool:
+        """Whether ``net``'s train-mode calls are checkpointed (JAX
+        ``_remat_for``): every net for True or 'all', the named one for
+        'depth_net' / 'pose_net'."""
+        if not self.remat:
+            return False
+        if self.remat is True or self.remat == "all":
+            return True
+        return self.remat == ("depth_net" if net is self.depth_net
+                              else "pose_net")
+
+    def _call(self, net: nn.Module, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, a call of ``net``; in train mode, where
+        ``_remat_for(net)``, under activation checkpointing, its BatchNorm
+        recompute in ``recomputing()`` (``models/blocks.py``)."""
+        if self.training and torch.is_grad_enabled() \
+                and self._remat_for(net):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_recompute_contexts, **kwargs)
+        return fn(*args, **kwargs)
 
     @contextlib.contextmanager
     def _bn_mode(self, train: bool):
@@ -269,9 +320,12 @@ class VFDepthModel(nn.Module):
         # batch for all pairs, as in the JAX package)
         curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"] for f in ctx])
         nxts = torch.cat([x[f"color_aug/{0 if f < 0 else f}/0"] for f in ctx])
-        pose_feats = self.pose_net.encode_aggregate(curs, nxts, n_ctx=n_ctx)
-        dfeats, depth_feats = self.depth_net.encode_aggregate(
-            x["color_aug/0/0"])
+        pose_feats = self._call(self.pose_net,
+                                self.pose_net.encode_aggregate, curs, nxts,
+                                n_ctx=n_ctx)
+        dfeats, depth_feats = self._call(self.depth_net,
+                                         self.depth_net.encode_aggregate,
+                                         x["color_aug/0/0"])
 
         # ONE back-projection for both nets: their projected coordinates are
         # identical, so the feature maps concatenate on channels
@@ -292,10 +346,12 @@ class VFDepthModel(nn.Module):
         feat_pose = torch.cat([feat[..., :cp], feat[..., -1:]], dim=-1)
         feat_depth = feat[..., cp:]
 
-        axisangle, translation = self.pose_net.pose_from_backprojection(
-            feat_pose, count, n_ctx=n_ctx, grouped=self.grouped)
+        axisangle, translation = self._call(
+            self.pose_net, self.pose_net.pose_from_backprojection, feat_pose,
+            count, n_ctx=n_ctx, grouped=self.grouped)
         skips = [dfeats[i] for i in range(self.fusion_level)]
-        disps = self.depth_net.decode_from_backprojection(
+        disps = self._call(
+            self.depth_net, self.depth_net.decode_from_backprojection,
             feat_depth, count, skips, x[fik], x["extrinsics"],
             extrinsics_aug=extrinsics_aug, grouped=self.grouped,
             plain=self.plain_samplers)
@@ -344,11 +400,12 @@ class VFDepthModel(nn.Module):
                        torch.cat([n for _, n in pairs]), len(ctx))]
         if isinstance(self.pose_net, MonoPoseNet):
             # every camera alone: the cameras packed into the batch
-            outs = [self.pose_net(pack_cam_feat(c), pack_cam_feat(n))
+            outs = [self._call(self.pose_net, self.pose_net,
+                               pack_cam_feat(c), pack_cam_feat(n))
                     for c, n, _ in passes]
         else:
-            outs = [self.pose_net(c, n, *calib, n_ctx=k,
-                                  plain=self.plain_samplers)
+            outs = [self._call(self.pose_net, self.pose_net, c, n, *calib,
+                               n_ctx=k, plain=self.plain_samplers)
                     for c, n, k in passes]
         # per-frame passes stack group-major, as one batched pass returns
         return self._cam_t_cam(torch.cat([o[0] for o in outs]),
@@ -365,14 +422,14 @@ class VFDepthModel(nn.Module):
         images = x["color_aug/0/0"]
         if isinstance(self.depth_net, MonoDepthNet):
             b, cams = images.shape[:2]
-            out = self.depth_net(pack_cam_feat(images))
+            out = self._call(self.depth_net, self.depth_net,
+                             pack_cam_feat(images))
             return {k: unpack_cam_feat(v, b, cams) for k, v in out.items()}
         lev = self.fusion_level + 1
-        return self.depth_net(images, x["mask"], x[f"K/{lev}"],
-                              x[f"inv_K/{lev}"], x["extrinsics"],
-                              x["extrinsics_inv"],
-                              extrinsics_aug=extrinsics_aug,
-                              plain=self.plain_samplers)
+        return self._call(self.depth_net, self.depth_net, images, x["mask"],
+                          x[f"K/{lev}"], x[f"inv_K/{lev}"], x["extrinsics"],
+                          x["extrinsics_inv"], extrinsics_aug=extrinsics_aug,
+                          plain=self.plain_samplers)
 
     def _can_merge_backproject(self) -> bool:
         # an instance-level predict_pose override must keep routing through

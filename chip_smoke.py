@@ -187,7 +187,27 @@ Phases (any failure exits non-zero):
     ``weights_init`` (``run_weights_init``: ``ddad_surround_fusion.yaml``
     and ``ddad_baseline.yaml`` with ``VFDEPTH_RESNET_WEIGHTS`` naming a
     seeded synthetic torchvision ResNet-18 ``.pth``: every encoder tensor
-    against the file, one request and one step from each).
+    against the file, one request and one step from each);
+15. the warp windows (``tpu.warp_window``, the JAX package's default),
+    after the gather paths of 14: the 6-camera step on ``FakeDataset``'s
+    "nuscenes" rig (thin overlap strips, so the windows engage) in f32 and
+    bf16 at batch 2 (``focal_length_scale`` 100, so that the random init's
+    depths put pixels in the overlaps) and in bf16 at batch 1 (the bench's
+    cell, the production scale 300), the windows
+    sized by ``create_train_state`` from the first batch and the dataset's
+    rigs (their sizes, the origins' range and the overflow printed); K5 on
+    the warm-up step's three windowed calls (both slots' pixels in one
+    launch) against its plain version, timed beside its bound (the K5 /
+    K5-bf16 row's ``window`` entry); 3 windowed steps (K5 4 a step) and,
+    from the same state and batches, 3 dense ones, step 1 held windowed
+    against dense where the overflow is 0 (loss and every gradient); a
+    profiled windowed step; a forced overflow (boxes of
+    ``WINDOW_FORCED_HW``) through ``Trainer.learn``: two checkpoints with
+    ``warp_window_overflow`` > 0, then the fall-back to dense warps; and
+    ``python -m vfdepth_tpu_torch.bench`` with ``BENCH_STEPS=3``, its JSON
+    line checked for the root bench's keys and finite values. The reader
+    paths of 12 size the windows as ``Trainer.learn`` does and say whether
+    they engage on the fixtures' rig.
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -3283,6 +3303,7 @@ def run_reader_paths(cfgs, device, dataset, paths):
     rig_err = float(abs(ext - fixture_rig(cfgs[0].num_cams)[1]).max())
     check(rig_err < 1e-5, f"{dataset}: the read rig differs by {rig_err}")
     loader = BatchLoader(ds, b, shuffle=True, num_workers=2)
+    rigs = ds.rig_calibrations()
     runs = []
     for cfg in cfgs:
         check(cfg.batch_size == b and cfg.height == cfgs[0].height,
@@ -3290,20 +3311,30 @@ def run_reader_paths(cfgs, device, dataset, paths):
         model = VFDepthModel(cfg, device=device, seed=0)
         runs.append(dict(
             label=f"{dataset} reader {cfg.depth_model} training",
-            model=model, per_step=per_step_launches(cfg),
-            opt=create_train_state(model,
-                                   steps_per_epoch=loader.steps_per_epoch),
+            model=model, per_step=per_step_launches(cfg), opt=None,
             gen=torch.Generator(device).manual_seed(0), losses=[],
-            counts=[], total=launches()))
+            overflows=[], counts=[], total=launches()))
     step, t0 = 0, time.perf_counter()
     while step < READER_STEPS:
         loader.set_epoch(step)
         for batch in device_prefetch(loader, size=2, device=device):
             for run in runs:
+                if run["opt"] is None:
+                    # the warp windows sized as Trainer.learn sizes them:
+                    # over the first batch's rig and the dataset's scenes
+                    model = run["model"]
+                    run["opt"] = create_train_state(
+                        model, steps_per_epoch=loader.steps_per_epoch,
+                        batch=batch, rigs=rigs)
+                    hw = (model.warp_window_hw if model.warp_window
+                          else "off (the 90% rule)")
+                    print(f"{run['label']}: warp windows {hw}", flush=True)
                 reset_counts()
                 logs = train_step(run["model"], run["opt"], batch, step,
                                   run["gen"])
                 run["losses"].append(logs["total_loss"].item())
+                ov = logs.get("warp_window_overflow")
+                run["overflows"].append(None if ov is None else ov.item())
                 counts = read_counts()
                 run["counts"].append(counts)
                 run["total"] = {k: run["total"][k] + n
@@ -3322,8 +3353,8 @@ def run_reader_paths(cfgs, device, dataset, paths):
               f"{run['per_step']}")
         paths[label] = dict(launches=run["total"], ms=[])
         print(f"{label}: {READER_STEPS} steps at batch {b} from {len(ds)} "
-              f"samples, losses {[round(v, 6) for v in run['losses']]}",
-              flush=True)
+              f"samples, losses {[round(v, 6) for v in run['losses']]}, "
+              f"warp window overflow {run['overflows']}", flush=True)
     print(f"{dataset} readers: {READER_STEPS} batches read and trained on "
           f"by {len(runs)} models in {wall:.1f} ms wall (the reads "
           f"included)", flush=True)
@@ -3791,6 +3822,318 @@ def check_gather_forms(calls):
     return rows
 
 
+# ------------------------------------------------------ the warp windows
+
+# (mixed precision, batch, focal_length_scale): the 6-camera step on
+# FakeDataset's "nuscenes" rig, whose thin overlap strips make the windows
+# engage. At the production scale (300) the random init's depths (~5 m)
+# put no pixel in any overlap, so the overlap losses are 0 and windowed
+# against dense would hold nothing; at 100 (depths ~14 m) they are not, and
+# the comparison reads the windowed warps' gradients. The last cell is the
+# bench's.
+WINDOW_CELLS = ((False, 2, 100.0), (True, 2, 100.0), (True, 1, 300.0))
+# windowed against dense, step 1 from the same state and batch with the
+# overflow 0: the windows warp every pixel that can see a neighbour, so
+# only the coordinates' rounding (the window's grid offset by its origin)
+# and cuDNN's run-to-run spread (1.9e-5 in relative L2 between two f32
+# runs, root PERF.md "PR 11") part them; bf16 parts like two bf16 runs
+WINDOW_LOSS_RTOL = 1e-5
+WINDOW_GRAD_RTOL = 1e-3        # relative L2 norm, per parameter
+# boxes too small for the "nuscenes" rig's overlaps: every step overflows
+WINDOW_FORCED_HW = (64, 128)
+
+
+def _window_summary(win, model) -> str:
+    """Sizes, the origins' range per kind and slot, and the overflow."""
+    parts = [f"sizes spatial {model.warp_window_hw[0]}, spatio-temporal "
+             f"{model.warp_window_hw[1]}"]
+    for kind, org in (("spatial", win.spatio_origin),
+                      ("spatio-temporal", win.st_origin)):
+        if org is None:
+            parts.append(f"{kind} dense")
+            continue
+        for slot in range(org.shape[-2]):
+            o = org[..., slot, :].reshape(-1, 2)
+            parts.append(f"{kind} slot {slot} y0 in [{o[:, 0].min().item()}"
+                         f", {o[:, 0].max().item()}], x0 in "
+                         f"[{o[:, 1].min().item()}, {o[:, 1].max().item()}]")
+    parts.append(f"overflow {win.overflow.item():.0f} px")
+    return "; ".join(parts)
+
+
+def time_k5_windowed(key, row, calls, label):
+    """K5 on the windowed calls of one step (``capture_k5``: the overlap
+    warps' coordinates are the windows' pixels, both slots in one launch):
+    each against its plain version, then timed alone and back to back
+    beside its bound; kept in ``key``'s row under ``window``."""
+    from vfdepth_tpu_torch.ops.warp import (warp_image_mask_maps,
+                                            warp_image_mask_maps_plain)
+    check(len(calls) == 4, f"{label}: {len(calls)} K5 calls in a step, "
+                           f"expected 4")
+    full = calls[0][2].shape[1]
+    windowed = [c for c in calls if c[2].shape[1] < full]
+    check(len(windowed) == 3, f"{label}: {len(windowed)} windowed K5 calls, "
+                              f"expected 3 (spatial, 2 spatio-temporal)")
+    tol = BF16_STEP if key.endswith("bf16") else K5_TOL
+    times, streams, bounds, errs = [], [], [], []
+    for img, mask, coords in windowed:
+        got = warp_image_mask_maps(img, mask, coords)
+        ref = warp_image_mask_maps_plain(img, mask, coords)
+        torch.cuda.synchronize()
+        errs.append(max((a.float() - r.float()).abs().max().item()
+                        for a, r in zip(got, ref)))
+        times.append(time_ms(lambda: warp_image_mask_maps(img, mask, coords)))
+        streams.append(stream_ms(lambda: warp_image_mask_maps(img, mask,
+                                                              coords)))
+        bounds.append(bound(nbytes(img, mask, coords, *got),
+                            coords.shape[0] * coords.shape[1] * 3 * 11)[0])
+        del got, ref
+    check(max(errs) <= tol, f"{label}: K5 on the windows differs from its "
+                            f"plain version: {max(errs)} > {tol}")
+    entry = dict(points=[c[2].shape[1] for c in windowed],
+                 dense_points=full, call_ms=times, stream_ms=streams,
+                 bound_ms=bounds, max_abs_err=max(errs))
+    row.setdefault("window", {})[label] = entry
+    row["max_abs_err"] = max(row["max_abs_err"], max(errs))
+    print(f"{key} on {label}'s windows ({entry['points']} target pixels "
+          f"a call against {full} dense; against plain: max_abs_err "
+          f"{max(errs):.3e}, tol {tol:.1e}): per call "
+          f"{[round(t, 4) for t in times]} ms, back to back "
+          f"{[round(t, 4) for t in streams]} ms, bound "
+          f"{[round(b, 4) for b in bounds]} ms", flush=True)
+
+
+def run_windowed_path(cfg, device, label, per_step, row, key, paths):
+    """The 6-camera step with the warp windows on the "nuscenes" rig:
+    windows sized by ``create_train_state`` from the first batch, a
+    warm-up step (K5's windowed calls captured, held and timed), then 3
+    windowed steps, the state restored, and the same 3 steps dense (step
+    1's loss and gradients held against the windowed step 1; where the
+    focal-length scale is below the production 300, the overlap losses
+    must be above 0 for it). Returns (windowed ms, dense ms)."""
+    from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
+                                            train_step)
+    b = cfg.batch_size
+    bf16 = cfg.get("mixed_precision", False)
+    loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
+                            if bf16 else (WINDOW_LOSS_RTOL, WINDOW_GRAD_RTOL))
+    t0 = time.perf_counter()
+    model = VFDepthModel(cfg, device=device, seed=0)
+    ds = _dataset(cfg, b * (N_STEPS + 1), "nuscenes")
+    batches = [ds.batch(list(range(i * b, (i + 1) * b)))
+               for i in range(N_STEPS + 1)]
+    opt = create_train_state(model, batch=batches[0],
+                             rigs=ds.rig_calibrations())
+    check(model.warp_window and model.warp_window_hw is not None,
+          f"{label}: the windows did not engage on the nuscenes rig")
+    hw = model.warp_window_hw
+    seen = []
+    real_windows = model._windows
+
+    def recording(*args, **kwargs):
+        win = real_windows(*args, **kwargs)
+        seen.append(win)
+        return win
+    model._windows = recording
+
+    def noise_gen(step):
+        return torch.Generator(device).manual_seed(1000 + step)
+    calls = capture_k5(lambda: train_step(model, opt, batches[0], 0,
+                                          noise_gen(0)))
+    torch.cuda.synchronize()
+    print(f"{label} set-up (model, data, windows, warm-up step): "
+          f"{time.perf_counter() - t0:.1f} s; {_window_summary(seen[-1], model)}",
+          flush=True)
+    time_k5_windowed(key, row, calls, label)
+    del calls
+    params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt0 = copy.deepcopy(opt.state_dict())
+
+    def run(tag):
+        reset_counts()
+        ms, overflows = [], []
+        for step in range(1, N_STEPS + 1):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs = train_step(model, opt, batches[step], step,
+                              noise_gen(step))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            delta = {k: n - before[k] for k, n in read_counts().items()}
+            check(delta == per_step, f"{label} {tag} step {step}: kernel "
+                                     f"launches {delta}, expected {per_step}")
+            if step == 1:
+                out = (logs["total_loss"].item(), _grads(model),
+                       logs["spatio_loss"].item(),
+                       logs["spatio_tempo_loss"].item())
+            ov = logs.get("warp_window_overflow")
+            overflows.append(None if ov is None else ov.item())
+            print(f"{label} {tag} step {step}: {ms[-1]:.2f} ms, loss "
+                  f"{logs['total_loss'].item():.6f}, spatio "
+                  f"{logs['spatio_loss'].item():.6f}, spatio-temporal "
+                  f"{logs['spatio_tempo_loss'].item():.6f}, overflow "
+                  f"{overflows[-1]}", flush=True)
+        return ms, out, overflows, read_counts()
+
+    ms_w, (loss_w, grads_w, sp_w, st_w), ov_w, counts = run("windowed")
+    if cfg.focal_length_scale < 300:
+        check(sp_w > 0 and st_w > 0, f"{label}: overlap losses {sp_w}, "
+                                     f"{st_w}: nothing to compare")
+    paths[f"{label} windowed training"] = dict(launches=counts, ms=ms_w)
+    check(all(v is not None and math.isfinite(v) for v in ov_w),
+          f"{label}: overflow {ov_w}")
+    distinct = dict.fromkeys(_window_summary(w, model)
+                             for w in seen[-N_STEPS:])
+    print(f"{label}: windows of the timed steps: {' | '.join(distinct)}",
+          flush=True)
+    model.load_state_dict(params0)
+    opt.load_state_dict(opt0)
+    model.warp_window_hw = None                       # dense from here
+    ms_d, (loss_d, grads_d, _, _), ov_d, _ = run("dense")
+    check(ov_d == [None] * N_STEPS, f"{label}: the dense steps logged an "
+                                     f"overflow {ov_d}")
+    model.warp_window_hw = hw
+    if ov_w[0] == 0.0:
+        worst, worst_name = 0.0, ""
+        for name, g in grads_d.items():
+            rel = ((grads_w[name] - g).norm()
+                   / g.norm().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, worst_name = rel, name
+        print(f"{label} step 1 windowed vs dense: loss {loss_w:.8f} vs "
+              f"{loss_d:.8f} (rel {abs(loss_w - loss_d) / abs(loss_d):.2e}, "
+              f"tol {loss_rtol:.0e}); worst gradient relative L2 difference "
+              f"{worst:.2e} ({worst_name}; tol {grad_rtol:.0e})", flush=True)
+        check(abs(loss_w - loss_d) <= loss_rtol * abs(loss_d),
+              f"{label} step 1: windowed loss {loss_w} vs dense {loss_d}")
+        check(worst <= grad_rtol, f"{label} step 1: {worst_name} differs "
+                                  f"by {worst} (relative L2) from dense")
+    else:
+        print(f"{label} step 1 overflowed ({ov_w[0]} px): windowed and "
+              f"dense differ by design; not compared", flush=True)
+    print(f"{label}: windowed ms {[round(m, 3) for m in ms_w]} (median "
+          f"{statistics.median(ms_w):.3f}), dense ms "
+          f"{[round(m, 3) for m in ms_d]} (median "
+          f"{statistics.median(ms_d):.3f})", flush=True)
+    del grads_w, grads_d, params0, opt0
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    profile(f"{label} windowed step", lambda: train_step(
+        model, opt, batches[0], N_STEPS + 1, noise_gen(N_STEPS + 1)))
+    del model, opt
+    torch.cuda.empty_cache()
+    return ms_w, ms_d
+
+
+def run_window_fallback(device, tmp, paths):
+    """A forced overflow: the bench's bf16 batch-1 model with boxes of
+    ``WINDOW_FORCED_HW`` through ``Trainer.learn`` for 3 steps, each a log
+    checkpoint: the first two log ``warp_window_overflow`` > 0, the second
+    turns the windows off, the third is dense."""
+    from vfdepth_tpu_torch import presets
+    from vfdepth_tpu_torch.data import BatchLoader
+    from vfdepth_tpu_torch.training import Trainer, VFDepthModel
+    cfg = presets.build_config(batch_size=1, mixed_precision=True)
+    for key, value in (("warp_window_hw", list(WINDOW_FORCED_HW)),
+                       ("num_fake_samples", 3), ("num_epochs", 1),
+                       ("log_frequency", 1), ("early_phase", 1000),
+                       ("late_log_frequency", 1000),
+                       ("log_path", str(tmp / "log")),
+                       ("save_weights_root", str(tmp / "models"))):
+        cfg.set(key, value)
+    model = VFDepthModel(cfg, device=device, seed=0)
+    trainer = Trainer(cfg, model, use_tb=False)
+    notes, real_note = [], trainer._note_warp_overflow
+
+    def note(overflow):
+        was = model.warp_window
+        fell = real_note(overflow)
+        notes.append((overflow, was, fell, model.warp_window))
+        return fell
+    trainer._note_warp_overflow = note
+    loader = BatchLoader(_dataset(cfg, 3, "nuscenes"), 1, shuffle=False,
+                         num_workers=0)
+    reset_counts()
+    t = time.perf_counter()
+    trainer.learn(loader)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+    paths["6-camera bf16 window fallback trainer"] = dict(launches=counts,
+                                                          ms=[wall / 3])
+    print(f"window fallback: Trainer.learn, 3 steps with boxes "
+          f"{WINDOW_FORCED_HW} on the nuscenes rig: checkpoints "
+          f"(overflow, windows on before, fell back, on after) {notes}; "
+          f"{wall:.1f} ms", flush=True)
+    check(len(notes) == 3, f"window fallback: {len(notes)} checkpoints")
+    check(notes[0][0] > 0 and notes[0][1] and not notes[0][2],
+          f"window fallback: first checkpoint {notes[0]}")
+    check(notes[1][0] > 0 and notes[1][2] and not notes[1][3],
+          f"window fallback: second checkpoint {notes[1]}")
+    check(notes[2][0] == 0.0 and not notes[2][3],
+          f"window fallback: third checkpoint {notes[2]}")
+    check(model.warp_window_hw is None, "window fallback: sizes kept")
+    check(counts["K5-bf16"] == 12, f"window fallback: K5-bf16 launched "
+                                   f"{counts['K5-bf16']} times, expected 12")
+    del model, trainer
+    torch.cuda.empty_cache()
+
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "extra")
+BENCH_EXTRA_KEYS = ("step_ms", "mfu_pct_bf16_peak", "even_rig_samples_per_sec",
+                    "batch2_samples_per_sec")
+
+
+def run_bench_cli():
+    """``python -m vfdepth_tpu_torch.bench`` with ``BENCH_STEPS=3``: its
+    JSON line must carry the root bench's keys, with finite values."""
+    env = dict(os.environ, BENCH_STEPS="3")
+    for k in [k for k in env if k.startswith("BENCH_") and k != "BENCH_STEPS"]:
+        del env[k]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vfdepth_tpu_torch.bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t
+    for line in proc.stderr.splitlines()[-12:]:
+        print(f"  bench: {line}", flush=True)
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    check(all(k in result for k in BENCH_KEYS), f"bench keys {sorted(result)}")
+    extra = result["extra"]
+    check(all(k in extra for k in BENCH_EXTRA_KEYS),
+          f"bench extra keys {sorted(extra)}")
+    numbers = [result["value"], result["vs_baseline"]] + [
+        extra[k] for k in BENCH_EXTRA_KEYS]
+    check(all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+              for v in numbers), f"bench numbers {numbers}")
+    print(f"bench (python -m vfdepth_tpu_torch.bench, BENCH_STEPS=3, "
+          f"{wall:.1f} s): {line}", flush=True)
+    return result
+
+
+def run_windows(device, rows, paths, tmp):
+    """The warp-window phase: each of ``WINDOW_CELLS``, the forced
+    overflow through the trainer, then the bench."""
+    from vfdepth_tpu_torch import presets
+    for mp, b, fls in WINDOW_CELLS:
+        cfg = presets.build_config(batch_size=b, mixed_precision=mp)
+        cfg.set("focal_length_scale", fls)
+        key = "K5-bf16" if mp else "K5"
+        per_step = (launches(**{"K1-bf16": 1, "K2-bf16": 1, "K3-bf16": 1,
+                                "K4-bf16": 1, "K5-bf16": 4}) if mp else
+                    launches(K1=1, K2=1, K3=1, K4=1, K5=4))
+        label = (f"6-camera{' bf16' if mp else ''} nuscenes batch {b}"
+                 f"{'' if fls == 300 else f' scale {fls:g}'}")
+        run_windowed_path(cfg, device, label, per_step, rows[key], key,
+                          paths)
+    run_window_fallback(device, tmp / "window_fallback", paths)
+    run_bench_cli()
+
+
 def profile(label, fn, top: int = 14):
     """``fn`` once more under ``torch.profiler``: device time by kernel
     (self time, summed over launches), and the device's busy time as the
@@ -4011,6 +4354,11 @@ def main() -> int:
           k3k4_calls=gather_calls, sampler="Sample3dGather")
     rows.update(check_gather_forms(gather_calls))
     del gather_calls
+    # the warp windows (the JAX package's default) on the "nuscenes" rig:
+    # f32 and bf16 at batch 2, the bench's bf16 batch-1 cell, windowed
+    # against dense, a forced overflow through the trainer, then the bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_windows_") as wtmp:
+        run_windows(device, rows, paths, Path(wtmp))
     # activation checkpointing: each remat value against the plain step,
     # with its step time and peak memory
     run_remat(device, paths)

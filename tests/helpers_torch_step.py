@@ -6,8 +6,8 @@ weights, batch and tie-break noise, for the step parity tests of the port
 The JAX step is ``forward(train=True)`` + ``jax.grad`` under ``jax.jit``;
 its noise comes from the same key splits as ``forward`` / ``total_loss`` and
 is handed to the port, which runs the plain versions of its kernels on the
-CPU (on a fixed 4 threads: the CPU convolutions round differently on one
-thread than on several, and the auto-mask sees it).
+CPU (on a fixed ``PORT_THREADS``, 2: the CPU convolutions round
+differently on one thread than on several, and the auto-mask sees it).
 """
 import numpy as np
 import jax
@@ -18,6 +18,7 @@ from vfdepth_tpu.training.model import VFDepthModel as JaxModel
 from vfdepth_tpu_torch.training import VFDepthModel
 from vfdepth_tpu_torch.weights import (_leaves, _to_torch_layout, _torch_name,
                                        load_flax_params)
+from helpers_torch_threads import PORT_THREADS
 
 MASKED_LOGS = ("reproj_loss", "amask_cover", "spatio_tempo_loss", "total_loss")
 
@@ -74,10 +75,11 @@ def jax_step(jm, params, stats, jbatch, step: int = 3,
 
 
 def port_step(model, batch, noise, step: int = 3):
-    """The port's training forward and backward on the CPU, on a fixed 4
-    threads: (scalar logs, auto-mask); the gradients stay on ``model``."""
+    """The port's training forward and backward on the CPU, on a fixed
+    ``PORT_THREADS`` threads: (scalar logs, auto-mask); the gradients stay
+    on ``model``."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     try:
         _, loss, tlogs = model(batch, step=step,
                                noise=torch.from_numpy(np.array(noise)))

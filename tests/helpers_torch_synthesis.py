@@ -19,7 +19,8 @@ def aug_configs(**over):
     """``presets.tiny_config(aug_depth=True)`` for (JAX, the port), with
     ``focal_length_scale`` 10 (metric depths ~15-25 m, inside [min_depth,
     max_depth], so the consistency loss sees real pixels) and
-    ``tpu.warp_window`` off (the port's warps are dense)."""
+    ``tpu.warp_window`` off on both sides (the synthesis tests hold dense
+    warps; tests/test_torch_warp_window.py holds the windows)."""
     cfgs = (jax_presets.tiny_config(aug_depth=True, **over),
             presets.tiny_config(aug_depth=True, **over))
     for cfg in cfgs:

@@ -34,6 +34,7 @@ from helpers_torch_plan import k2_in_plan_order, k4_in_plan_order
 from vfdepth_tpu_torch.ops import backproject_sample as bp
 from vfdepth_tpu_torch.ops import dest_tiles
 from vfdepth_tpu_torch.ops import sample3d as s3
+from helpers_torch_threads import port_threads  # noqa: F401
 
 SHAPE = (2, 7, 9, 4, 6)      # [B, H(y), W(x), D(z), C]
 

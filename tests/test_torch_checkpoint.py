@@ -19,6 +19,7 @@ from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                         load_checkpoint, save_checkpoint,
                                         train_step)
 from vfdepth_tpu_torch.training import checkpoint as ckpt
+from helpers_torch_threads import port_threads  # noqa: F401
 
 STEPS = 2
 

@@ -46,6 +46,7 @@ from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                         load_checkpoint)
 from vfdepth_tpu_torch.training.trainer import Trainer
 from vfdepth_tpu_torch.utils.metrics import METRIC_NAMES
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 ROOT = Path(__file__).resolve().parent.parent

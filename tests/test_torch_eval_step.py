@@ -37,6 +37,7 @@ from vfdepth_tpu.training.model import VFDepthModel as JaxModel
 from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.training import VFDepthModel, eval_step
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import PORT_THREADS, port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"
@@ -91,7 +92,7 @@ def pair():
     load_flax_params(model, np_params, np_stats)
     before = {k: v.clone() for k, v in model.named_buffers()}
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     try:
         with torch.no_grad():
             got, _, tlogs = model(batch, noise=torch.from_numpy(noise.copy()),

@@ -29,6 +29,7 @@ from test_torch_fsm_model import MOTION, fsm_cfgs, jax_predict, yawed_batch
 from vfdepth_tpu.training.model import VFDepthModel as JaxModel
 from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 STEP = 3

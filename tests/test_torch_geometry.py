@@ -21,6 +21,7 @@ from vfdepth_tpu.geometry import se3 as jse3
 from vfdepth_tpu_torch.geometry import pose as tpose
 from vfdepth_tpu_torch.geometry import projection as tproj
 from vfdepth_tpu_torch.geometry import se3 as tse3
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -14,6 +14,7 @@ from vfdepth_tpu_torch import presets
 from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.data import FakeDataset
 from vfdepth_tpu_torch.training.model import VFDepthModel
+from helpers_torch_threads import port_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "vfdepth_tpu_torch"

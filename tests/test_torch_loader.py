@@ -17,6 +17,7 @@ from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.data import BatchLoader, FakeDataset, device_prefetch
 from vfdepth_tpu_torch.data.factory import construct_dataset
 from vfdepth_tpu_torch.training import VFDepthModel
+from helpers_torch_threads import port_threads  # noqa: F401
 
 DS = dict(num_samples=9, num_cams=3, height=32, width=64, fusion_level=2)
 

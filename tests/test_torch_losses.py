@@ -23,6 +23,7 @@ from vfdepth_tpu.losses import primitives as jprim
 from vfdepth_tpu_torch.geometry.view_rendering import RenderOutputs
 from vfdepth_tpu_torch.losses import composite as tcomp
 from vfdepth_tpu_torch.losses import primitives as tprim
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 B, CAMS, H, W = 2, 3, 16, 24

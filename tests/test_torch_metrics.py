@@ -8,6 +8,7 @@ import pytest
 
 from vfdepth_tpu.utils import metrics as jax_metrics
 from vfdepth_tpu_torch.utils import metrics
+from helpers_torch_threads import port_threads  # noqa: F401
 
 
 def _same(a, b):

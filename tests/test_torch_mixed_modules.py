@@ -60,6 +60,7 @@ from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
 
 from test_torch_models import _carry, _nchw, _nhwc, _np_tree
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 BF = jnp.bfloat16

@@ -83,6 +83,7 @@ from vfdepth_tpu_torch.ops.warp import warp_image_mask, warp_image_mask_maps
 from vfdepth_tpu_torch.training.model import VFDepthModel
 
 from test_torch_ops import _raw_inputs
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 BF = jnp.bfloat16

@@ -23,6 +23,7 @@ from vfdepth_tpu.training.model import VFDepthModel as JaxModel
 from vfdepth_tpu_torch.config import get_config
 from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"

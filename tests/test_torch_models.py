@@ -27,6 +27,7 @@ from vfdepth_tpu_torch.models import resnet as tresnet
 from vfdepth_tpu_torch.models import vfnet as tvfnet
 from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"

@@ -14,6 +14,7 @@ import pytest
 
 from vfdepth_tpu import native as jnative
 from vfdepth_tpu_torch import native
+from helpers_torch_threads import port_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -51,6 +51,7 @@ from vfdepth_tpu_torch.ops.sample3d import (Sample3dTrilinear,
                                             sample3d_trilinear_bwd,
                                             sample3d_trilinear_bwd_plain,
                                             sample3d_trilinear_plain)
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

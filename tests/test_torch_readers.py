@@ -25,6 +25,7 @@ from vfdepth_tpu.data.nuscenes import NuScenesDataset as JaxNuScenes
 from vfdepth_tpu_torch import presets
 from vfdepth_tpu_torch.data import DDADDataset, NuScenesDataset
 from vfdepth_tpu_torch.data.factory import construct_dataset
+from helpers_torch_threads import port_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 JITTER = (0.2, 0.2, 0.2, 0.05)

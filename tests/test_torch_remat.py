@@ -36,6 +36,7 @@ from vfdepth_tpu_torch.training.model import VFDepthModel
 
 from helpers_torch_step import (check_batchnorm, check_gradients, check_logs,
                                 step_pair)
+from helpers_torch_threads import PORT_THREADS, port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"
@@ -79,7 +80,7 @@ def _run(remat, layout):
         return real(bn, x)
 
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     blocks.BatchNorm.forward = counted
     try:
         _, loss, logs = model(batch, step=3, noise=noise, aug_u=aug_u)

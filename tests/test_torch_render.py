@@ -24,6 +24,7 @@ from vfdepth_tpu.config import get_config as jax_get_config
 from vfdepth_tpu_torch.geometry import pose as tpose
 from vfdepth_tpu_torch.geometry import projection as tproj
 from vfdepth_tpu_torch.geometry import view_rendering as tvr
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 H, W = 32, 48

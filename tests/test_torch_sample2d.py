@@ -32,6 +32,7 @@ import torch
 from vfdepth_tpu.ops.grid_sample import grid_sample_2d
 from vfdepth_tpu.ops import pallas_sample as jps
 from vfdepth_tpu_torch.ops import backproject_sample as tbs
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

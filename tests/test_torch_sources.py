@@ -23,6 +23,7 @@ import re
 from pathlib import Path
 
 import pytest
+from helpers_torch_threads import port_threads  # noqa: F401
 
 PKG = Path(__file__).resolve().parent.parent / "vfdepth_tpu_torch"
 OPS, CSRC = PKG / "ops", PKG / "csrc"

@@ -73,6 +73,7 @@ from vfdepth_tpu_torch.losses import composite as port_composite
 from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                         train_step)
 from vfdepth_tpu_torch.weights import load_flax_params, load_optax_adam_state
+from helpers_torch_threads import PORT_THREADS, port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 STEP = 3
@@ -205,7 +206,7 @@ def step_pair(shared):
     load_optax_adam_state(opt, model,
                           jax.tree_util.tree_map(np.asarray, state))
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     try:
         # the auto-mask of the port's step, as the log sees it
         captured = {}
@@ -285,7 +286,7 @@ def pinned_pair(shared):
             JaxModel(jcfg), params, stats, jbatch, STEP)
         model = _port(tcfg, params, stats)
         threads = torch.get_num_threads()
-        torch.set_num_threads(4)
+        torch.set_num_threads(PORT_THREADS)
         try:
             _, loss, tlogs = model(batch, step=STEP,
                                    noise=torch.from_numpy(np.array(noise)),
@@ -326,7 +327,7 @@ def bf16_steps(shared, step_pair):
     np.testing.assert_array_equal(noise, step_pair["noise"])
     model = _port(tcfg, params, stats)
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     try:
         _, loss, tlogs = model(batch, step=STEP,
                                noise=torch.from_numpy(np.array(noise)),

@@ -45,6 +45,7 @@ from vfdepth_tpu_torch.losses import depth_synthesis_loss
 from vfdepth_tpu_torch.models.vfnet import augment_extrinsics
 from vfdepth_tpu_torch.ops.grid_sample import grid_sample_2d
 from vfdepth_tpu_torch.utils.visualize import aug_depth_params
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 AUG_YAML = "configs/ddad/ddad_surround_fusion_augdepth.yaml"

@@ -50,6 +50,7 @@ from vfdepth_tpu_torch.training import synthesis
 from vfdepth_tpu_torch.training import trainer as trainer_module
 from vfdepth_tpu_torch.training.trainer import Trainer
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import PORT_THREADS, port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 # one view of each segment of the 767-view sweep: (index, roll, pitch, yaw)
@@ -256,7 +257,7 @@ def learn_runs(tmp_path_factory):
         return aug
 
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     trainer_module.train_step = recording_step
     try:
         Trainer(tcfg, model, use_tb=False).learn(

@@ -52,6 +52,7 @@ from vfdepth_tpu_torch.geometry import view_rendering as tvr
 from vfdepth_tpu_torch.models.vfnet import backproject_features
 from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 FRAMES = (0, -1, 1)

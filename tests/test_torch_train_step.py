@@ -13,8 +13,8 @@ and by the auto-mask, a discrete comparison of two photometric losses:
 SSIM amplifies the ~1e-6 f32 differences of the warped images to ~3e-5 in
 the loss, and a few pixels lie that close to a tie (3 of 36,864 here;
 which ones depends on every rounding, so the port runs its CPU
-convolutions on a fixed 4 threads). Bounds, with room for the XLA side's
-own rounding on another machine:
+convolutions on a fixed 2 threads, ``PORT_THREADS``). Bounds, with room
+for the XLA side's own rounding on another machine:
 
 * the auto-masks agree on all but 12 pixels (0.03%; measured 3);
 * loss and scalar logs: 2e-5 of their magnitude, 1e-3 for the four that
@@ -52,6 +52,7 @@ from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
 from vfdepth_tpu_torch.training.step import lr_at
 from vfdepth_tpu_torch.weights import (_leaves, _to_torch_layout, _torch_name,
                                        load_flax_params, load_optax_adam_state)
+from helpers_torch_threads import PORT_THREADS, port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"
@@ -130,7 +131,7 @@ def step_pair():
     # (a few auto-mask pixels flip between the two): a fixed count keeps
     # the comparison the same on every machine
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     try:
         _, loss, tlogs = model(batch, step=STEP,
                                noise=torch.from_numpy(np.array(noise)))

@@ -6,14 +6,14 @@ batch 2 (4 steps an epoch), 2 epochs, ``scheduler_step_size`` 1 (the rate
 drops tenfold at the epoch boundary), ``log_frequency`` 2 (validation at
 steps 0, 2, 4, 5 and 6 on a 2-batch loader, so its iterator cycles twice)
 and ``save_frequency`` 1, logs and checkpoints redirected into a temporary
-directory; ``tpu.warp_window`` off on the JAX side (the port's warps are
-dense; ``tests/test_torch_warp_window.py`` holds the windows against
-them). Both start from the flax init with a pose-head bias of a real
+directory; ``tpu.warp_window`` off on both sides (on the tiny config's
+even rig the windows would cover the image and turn themselves off;
+``tests/test_torch_warp_window.py`` holds the windows of both packages). Both start from the flax init with a pose-head bias of a real
 ego-motion (``helpers_torch_step.with_motion``: at the init the auto-mask is
 a coin toss), and the port gets the JAX run's per-step tie-break noise
 through ``learn``'s ``noise_fn``. The JAX run happens once, in a module
-fixture; the port runs its CPU convolutions on a fixed 4 threads, as the
-step tests do.
+fixture; the port runs its CPU convolutions on a fixed 2 threads
+(``PORT_THREADS``), as the step tests do.
 
 Compared:
 * the rate of every step: the JAX optimizer's StepLR at the same update
@@ -64,6 +64,7 @@ from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
 from vfdepth_tpu_torch.training import trainer as trainer_module
 from vfdepth_tpu_torch.training.trainer import Trainer
 from vfdepth_tpu_torch.weights import load_flax_params
+from helpers_torch_threads import PORT_THREADS, port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"
@@ -188,7 +189,7 @@ def runs(tmp_path_factory):
         return noise
 
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(PORT_THREADS)
     trainer_module.train_step = recording_step
     try:
         opt = Trainer(tcfg, model, use_tb=False).learn(

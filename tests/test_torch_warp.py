@@ -24,6 +24,7 @@ from vfdepth_tpu.ops.warp_mxu import warp_image_mask_mxu
 from vfdepth_tpu.ops.warp_quad import warp_image_mask_quad
 from vfdepth_tpu_torch.ops.warp import (warp_image_mask, warp_image_mask_maps,
                                         warp_image_mask_maps_plain)
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 H, W = 32, 48

@@ -39,6 +39,7 @@ from vfdepth_tpu_torch.models.resnet import ResnetEncoder
 from vfdepth_tpu_torch.training.model import VFDepthModel
 
 from helpers_torch_step import by_port_name
+from helpers_torch_threads import port_threads  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 TINY = "configs/tiny_fake.yaml"

@@ -73,6 +73,33 @@ def project_coords(depth: torch.Tensor, transform: torch.Tensor,
     return reproject(k, backproject(inv_k, depth), transform, h, w)
 
 
+def project_coords_window(depth_box: torch.Tensor, origin: torch.Tensor,
+                          transform: torch.Tensor, inv_k: torch.Tensor,
+                          k: torch.Tensor, norm_h: int,
+                          norm_w: int) -> torch.Tensor:
+    """``project_coords`` on a window of the target image: depth_box [...,
+    Hb, Wb, 1] holds the target pixels from ``origin`` [..., 2] (y0, x0,
+    integers) on. The same arithmetic as the dense version, with the pixel
+    grid offset by the origin and the normalisation against the full source
+    size ``norm_h`` x ``norm_w``. Returns [..., Hb, Wb, 2]."""
+    hb, wb = depth_box.shape[-3], depth_box.shape[-2]
+    dtype = depth_box.dtype
+    grid = pixel_grid_homo(hb, wb).to(depth_box.device, dtype)  # [3, P]
+    off = torch.stack([origin[..., 1], origin[..., 0],
+                       torch.zeros_like(origin[..., 0])], dim=-1).to(dtype)
+    grid_full = grid + off[..., :, None]                        # [..., 3, P]
+    rays = torch.matmul(inv_k[..., :3, :3], grid_full)
+    pts = rays * depth_box.reshape(depth_box.shape[:-3] + (1, hb * wb))
+    pts_h = torch.cat([pts, torch.ones_like(pts[..., :1, :])], dim=-2)
+    proj = torch.matmul(k, transform)[..., :3, :]
+    pts2d = torch.matmul(proj, pts_h)
+    xy = pts2d[..., :2, :] / (pts2d[..., 2:3, :] + 1e-7)
+    scale = torch.tensor([2.0 / (norm_w - 1), 2.0 / (norm_h - 1)],
+                         dtype=xy.dtype, device=xy.device)
+    xy = (xy * scale[:, None] - 1.0).transpose(-1, -2)
+    return xy.reshape(xy.shape[:-2] + (hb, wb, 2))
+
+
 def voxel_points_homo(voxel_str_p: Sequence[float],
                       voxel_unit_size: Sequence[float],
                       voxel_size: Sequence[int]) -> torch.Tensor:

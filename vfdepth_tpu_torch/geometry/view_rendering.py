@@ -1,5 +1,5 @@
 """Differentiable view rendering, every camera and neighbour at once (port
-of ``vfdepth_tpu/geometry/view_rendering.py``, its dense path).
+of ``vfdepth_tpu/geometry/view_rendering.py``).
 
 Images are channels-last with the camera axis explicit, as in the JAX
 package. Every warp of one call goes through ONE launch of the image warp
@@ -7,11 +7,20 @@ package. Every warp of one call goes through ONE launch of the image warp
 spatio-temporal warps of each context frame, 4 calls per step with frames
 (0, -1, 1).
 
-The JAX package can restrict the overlap warps to windows
-(``tpu.warp_window``, ``geometry/warp_window.py``); by construction a window
-covers every target pixel with a nonzero value, mask or gradient, so the
-windowed loss equals the dense one. The port runs the dense warps for every
-value of that key.
+With ``windows`` (``geometry/warp_window.py``; the JAX package's default
+``tpu.warp_window: true``, sized by ``VFDepthModel.configure_warp_window``)
+the spatial and spatio-temporal warps run only inside each camera pair's
+windows, two slots per pair: each slot's depth box is sliced from the
+target depth (``_slice_boxes``), its coordinates projected with the full
+source size (``project_coords_window``), both slots' coordinates warped by
+one K5 launch (concatenated along the point axis), and each slot pasted
+into a zero canvas in slot order (``_paste_boxes``: where two windows
+overlap the later slot's values, and its gradient, win, as
+``dynamic_update_slice`` leaves them). Where the windows hold every pixel
+with a nonzero value, mask or gradient (overflow 0) this equals the dense
+warp; where a window overflowed, the pixels outside it keep the canvas's
+zeros, so the windowed loss differs from the dense one there. The K5
+launches stay 4 a step.
 
 The depth-synthesis branch (``aug_depth``) warps depth, not colour:
 ``warp_depth`` samples each source's depth, expressed in the rotated
@@ -22,7 +31,8 @@ coordinates and nearest ties differ, and K5 gives no source gradient).
 Under mixed precision the colours arrive as bf16 (``training/model.py``):
 the warps take bf16 sources and masks and return bf16 images and masks
 (K5's bf16 form), and ``intensity_align`` takes its statistics in f32 and
-returns the warped image's dtype, as in the JAX package.
+returns the warped image's dtype, as in the JAX package. Coordinates stay
+f32.
 """
 from __future__ import annotations
 
@@ -30,8 +40,9 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
-from .projection import backproject, project_coords
+from .projection import backproject, project_coords, project_coords_window
 from .se3 import invert_pose
+from .warp_window import BoxHW, WarpWindows
 from ..ops import ties
 from ..ops.grid_sample import grid_sample_2d
 from ..ops.warp import warp_image_mask
@@ -63,6 +74,99 @@ def warp_image(src_img: torch.Tensor, src_mask: torch.Tensor,
     in_bounds = ((coords >= -1.0) & (coords <= 1.0)).all(
         dim=-1, keepdim=True).to(src_img.dtype)
     return img_w, in_bounds * mask_w
+
+
+def _box_index(origin: torch.Tensor, h: int, w: int, box_h: int,
+               box_w: int) -> torch.Tensor:
+    """Flat pixel indices [n, box_h * box_w] of each box of ``origin`` [...,
+    2] (y0, x0), the start clamped so the box stays in the image, as
+    ``jax.lax.dynamic_slice`` / ``dynamic_update_slice`` clamp it."""
+    if box_h > h or box_w > w:
+        raise ValueError(f"window {box_h}x{box_w} exceeds the image {h}x{w}")
+    org = origin.reshape(-1, 2).long()
+    y0 = org[:, 0].clamp(0, h - box_h)
+    x0 = org[:, 1].clamp(0, w - box_w)
+    iy = torch.arange(box_h, device=org.device)
+    ix = torch.arange(box_w, device=org.device)
+    rows = (y0[:, None] + iy) * w                          # [n, box_h]
+    return (rows[:, :, None] + (x0[:, None] + ix)[:, None, :]).reshape(
+        org.shape[0], box_h * box_w)
+
+
+def _slice_boxes(img: torch.Tensor, index: torch.Tensor, box_h: int,
+                 box_w: int) -> torch.Tensor:
+    """img [*lead, H, W, C] -> the windows [*lead, box_h, box_w, C] at
+    ``index`` (``_box_index``; a gather: the gradient reaches ``img``)."""
+    lead, (h, w, c) = img.shape[:-3], img.shape[-3:]
+    flat = img.reshape(-1, h * w, c)
+    out = torch.gather(flat, 1, index[..., None].expand(-1, -1, c))
+    return out.reshape(lead + (box_h, box_w, c))
+
+
+def _paste_boxes(canvas: torch.Tensor, boxes: torch.Tensor,
+                 index: torch.Tensor) -> torch.Tensor:
+    """Overwrite each window of ``canvas`` [*lead, H, W, C] with ``boxes``
+    [*lead, Hb, Wb, C] at ``index`` (``_box_index``): one non-accumulating
+    write (out of place), so a later paste's values and gradient replace an
+    earlier one's where they overlap."""
+    h, w, c = canvas.shape[-3:]
+    hb, wb = boxes.shape[-3], boxes.shape[-2]
+    out = canvas.reshape(-1, h * w, c).scatter(
+        1, index[..., None].expand(-1, -1, c), boxes.reshape(-1, hb * wb, c))
+    return out.reshape(canvas.shape)
+
+
+def warp_image_window(src_img: torch.Tensor, src_mask: torch.Tensor,
+                      tar_depth: torch.Tensor, tar_inv_k: torch.Tensor,
+                      src_k: torch.Tensor, transform: torch.Tensor,
+                      origin: torch.Tensor, box_hw: BoxHW,
+                      plain: bool = False):
+    """``warp_image`` inside each element's windows, pasted into a zero
+    canvas.
+
+    ``origin`` [*lead, n_slot, 2] (y0, x0) per slot, ``box_hw[slot]`` the
+    slot's static size. Every window computes the dense value of each pixel
+    it covers (non-finite coordinates give image 2.0 and mask 0; the mask
+    is 0 outside [-1, 1]); the slots go through one K5 launch, their
+    coordinates concatenated, and are pasted in slot order. Returns
+    (warped image, warped mask) [*lead, H, W, 3|1] in the image's dtype.
+    """
+    h, w, c = src_img.shape[-3:]
+    lead = src_img.shape[:-3]
+    n_slot = origin.shape[-2]
+    coords, index = [], []
+    for slot in range(n_slot):
+        box_h, box_w = box_hw[slot]
+        org = origin[..., slot, :]
+        index.append(_box_index(org, h, w, box_h, box_w))
+        dep_box = _slice_boxes(tar_depth, index[slot], box_h, box_w)
+        crd = project_coords_window(dep_box, org, transform, tar_inv_k,
+                                    src_k, h, w)
+        coords.append(crd.reshape(-1, box_h * box_w, 2))
+    img_b, mask_b = warp_image_mask(
+        src_img.reshape(-1, h, w, c).contiguous(),
+        src_mask.to(src_img.dtype).reshape(-1, h, w, 1).contiguous(),
+        torch.cat(coords, dim=1).contiguous(), plain=plain)
+
+    img_w = src_img.new_zeros(lead + (h, w, c))
+    mask_w = src_img.new_zeros(lead + (h, w, 1))
+    start = 0
+    for slot in range(n_slot):
+        box_h, box_w = box_hw[slot]
+        crd = coords[slot]
+        part = slice(start, start + crd.shape[1])
+        start += crd.shape[1]
+        finite = torch.isfinite(crd).all(dim=-1, keepdim=True)
+        img_s = torch.where(finite, img_b[:, part], 2.0)
+        mask_s = mask_b[:, part] * finite.to(mask_b.dtype)
+        in_bounds = ((crd >= -1.0) & (crd <= 1.0)).all(
+            dim=-1, keepdim=True).to(src_img.dtype)
+        mask_s = in_bounds * mask_s
+        img_w = _paste_boxes(img_w, img_s.reshape(lead + (box_h, box_w, c)),
+                             index[slot])
+        mask_w = _paste_boxes(
+            mask_w, mask_s.reshape(lead + (box_h, box_w, 1)), index[slot])
+    return img_w, mask_w
 
 
 def warp_depth(src_depth: torch.Tensor, src_mask: torch.Tensor,
@@ -169,6 +273,7 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
                  extrinsics_aug: Optional[torch.Tensor] = None,
                  depth_aug: Optional[torch.Tensor] = None,
                  min_depth: float = 1.5, max_depth: float = 200.0,
+                 windows: Optional[WarpWindows] = None,
                  plain: bool = False) -> RenderOutputs:
     """Render every warped view the losses need for one scale.
 
@@ -179,9 +284,12 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
     (-1 = none). ``aug_depth`` adds the depth-synthesis warps: each
     camera's neighbours' depths and its own, warped into its rotated view
     (``extrinsics_aug``, [b, cams, 4, 4]) at that view's depth
-    ``depth_aug`` [b, cams, H, W, 1] by ``warp_depth``. ``plain`` runs the
-    warp kernel's plain version on any device. (The JAX function's window
-    arguments have no counterpart: the port's warps are dense.)
+    ``depth_aug`` [b, cams, H, W, 1] by ``warp_depth``. ``windows``
+    (``compute_windows``) restricts the spatial warps to its
+    ``spatio_origin`` windows and the spatio-temporal ones to its
+    ``st_origin`` windows, each kind where it is given, dense otherwise
+    (``warp_image_window``). ``plain`` runs the warp kernel's plain version
+    on any device.
     """
     if aug_depth and (extrinsics is None or extrinsics_aug is None
                       or depth_aug is None):
@@ -209,9 +317,15 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
         nbr_k = k[:, rel_idx]
         depn, invkn = _bcast(depth, n_nbr), _bcast(inv_k, n_nbr)
 
-        def overlap_for(frame_colors, pose):
-            w_img, w_mask = warp_image(frame_colors[:, rel_idx], nbr_mask,
-                                       depn, invkn, nbr_k, pose, plain=plain)
+        def overlap_for(frame_colors, pose, origin=None, box_hw=None):
+            if origin is not None:
+                w_img, w_mask = warp_image_window(
+                    frame_colors[:, rel_idx], nbr_mask, depn, invkn, nbr_k,
+                    pose, origin, box_hw, plain=plain)
+            else:
+                w_img, w_mask = warp_image(frame_colors[:, rel_idx],
+                                           nbr_mask, depn, invkn, nbr_k,
+                                           pose, plain=plain)
             w_mask = w_mask * nbr_valid_f.to(w_mask.dtype)
             if do_intensity_align:
                 w_img = intensity_align(_bcast(colors[0], n_nbr),
@@ -220,8 +334,14 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
             return ((w_img * nbr_valid_f.to(w_img.dtype)).sum(dim=2),
                     w_mask.sum(dim=2))
 
-        outs = [overlap_for(colors[0], spatio_pose)]
-        outs += [overlap_for(colors[f], spatio_tempo_pose[:, :, fi])
+        sp_win = windows is not None and windows.spatio_origin is not None
+        st_win = windows is not None and windows.st_origin is not None
+        outs = [overlap_for(colors[0], spatio_pose,
+                            windows.spatio_origin if sp_win else None,
+                            windows.spatio_hw if sp_win else None)]
+        outs += [overlap_for(colors[f], spatio_tempo_pose[:, :, fi],
+                             windows.st_origin[:, :, fi] if st_win else None,
+                             windows.st_hw if st_win else None)
                  for fi, f in enumerate(ctx_ids)]
         overlap_img = torch.stack([o[0] for o in outs], dim=2)
         overlap_mask = torch.stack([o[1] for o in outs], dim=2)

@@ -82,17 +82,30 @@ encoder (the depth net's of one image, the pose net's of two) from a local
 file (``models/torchvision_init.py``); with none, the encoders stay random
 and a warning says so, as in the JAX package.
 
+``tpu.warp_window: true`` (the default) warps the spatial and
+spatio-temporal views inside windows, as the JAX package does:
+``configure_warp_window(batch, rigs)`` sizes static boxes on the host over
+the rigs' calibrations (``geometry/warp_window.py``; off by the 90%-area
+rule, or with neither overlap loss), or ``tpu.warp_window_hw`` gives them;
+each ``forward`` then places the boxes from the batch's rig, the predicted
+ego-motion and, in ``tpu.st_window_mode: 'actual'``, the predicted depth
+(one set a step, or one per scale in 'actual' mode with several scales),
+and logs ``warp_window_overflow``. While it is 0 the windowed loss equals
+the dense one; above 0 a window truncated its warp and the loss differs
+(``training/trainer.py`` then falls back to dense warps after two log
+checkpoints in a row). Until windows are sized the warps are dense.
+
 Config keys that name TPU alternates of one function map onto the port's
 one implementation (the CUDA kernel for CUDA tensors, its plain version
-for CPU tensors): ``tpu.sampler_2d``, ``tpu.warp_op`` and
-``tpu.warp_window`` (the port's warps are dense; the JAX windows give the
-same loss by construction).
+for CPU tensors): ``tpu.sampler_2d`` and ``tpu.warp_op`` (K5 is the one
+warp).
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -102,6 +115,8 @@ from ..device import resolve_device
 from ..geometry import (distribute_pose, invert_pose, relative_cam_poses,
                         vec_to_matrix)
 from ..geometry.view_rendering import render_views
+from ..geometry.warp_window import (WarpWindows, compute_windows,
+                                    estimate_window_hw_multi, st_actual_hw)
 from ..losses import LossConfig, total_loss
 from ..models import (FusedDepthNet, FusedPoseNet, MonoDepthNet, MonoPoseNet,
                       backproject_features, backproject_features_grouped,
@@ -118,6 +133,14 @@ _SAMPLERS_3D = (None, "packed", "packed_f32grad", "gather")
 _WARP_OPS = (None, "auto", "mxu", "quad")
 _NETS = ("fusion", "fsm")
 _REMATS = (None, False, True, "all", "depth_net", "pose_net")
+_ST_WINDOW_MODES = ("actual", "interval", "dense")
+
+
+def _host(a) -> np.ndarray:
+    """A batch array or tensor (on any device) as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def _recompute_contexts():
@@ -209,6 +232,22 @@ class VFDepthModel(nn.Module):
             # only the fusion depth net has (JAX fails there too)
             raise ValueError("aug_depth needs the fusion depth net")
         self.intensity_align = bool(cfg.intensity_align)
+        # warp windows (JAX training/model.py:144-164): on by default, sized
+        # by configure_warp_window or given by tpu.warp_window_hw
+        self.warp_window = bool(cfg.get("warp_window", True))
+        self.st_window_mode = str(cfg.get("st_window_mode", "actual"))
+        if self.st_window_mode not in _ST_WINDOW_MODES:
+            raise ValueError(f"unknown st_window_mode "
+                             f"{self.st_window_mode!r}")
+        self.st_window_pad = int(cfg.get("st_window_pad", 64))
+        self.st_window_pad_v = int(cfg.get("st_window_pad_v", 16))
+        hw = cfg.get("warp_window_hw", None)   # [h, w] or [[h0, w0], [h1, w1]]
+        if hw and not isinstance(hw[0], (list, tuple)):
+            hw = (tuple(hw), tuple(hw))
+        hw = tuple(map(tuple, hw)) if hw else None
+        # (spatio_hw, st_hw), each ((H0, W0), (H1, W1)) or None (dense); an
+        # explicit size applies to both kinds
+        self.warp_window_hw = (hw, hw) if hw else None
         self.plain_samplers = False
         # the voxel keys only where a fusion net is built: the published fsm
         # configs (configs/*/*_baseline.yaml) have none, and the JAX
@@ -250,6 +289,79 @@ class VFDepthModel(nn.Module):
         self.rel_cam = torch.as_tensor(cfg.rel_cam_array,
                                        device=self.device).long()
         self.eval()
+
+    def configure_warp_window(self, batch: Mapping, rigs=None) -> None:
+        """Size the static warp windows on the host (JAX
+        ``configure_warp_window``): over every rig of ``batch`` (``K/0`` and
+        ``extrinsics``, numpy or tensors on any device, read once here) and
+        of ``rigs``, a list of (K [cams, 4, 4] at the train resolution,
+        extrinsics [cams, 4, 4]) pairs (``dataset.rig_calibrations()``),
+        identical rigs once. Does nothing when ``warp_window`` is off or
+        ``tpu.warp_window_hw`` set the sizes; turns the windows off with
+        neither overlap loss, and where the boxes would cover 90% of the
+        image or more (dense is cheaper there)."""
+        if not self.warp_window or self.warp_window_hw is not None:
+            return
+        if not (self.loss_cfg.spatio or self.loss_cfg.spatio_temporal):
+            self.warp_window = False
+            return
+        rel = np.asarray(self.cfg.rel_cam_array)
+        k_b, ext_b = _host(batch["K/0"]), _host(batch["extrinsics"])
+        rig_list = [(k_b[i], ext_b[i]) for i in range(k_b.shape[0])]
+        for k, ext in (rigs or []):
+            rig_list.append((_host(k), _host(ext)))
+        seen, uniq = set(), []
+        for k, ext in rig_list:
+            key = (k[:, :2].round(4).tobytes(), ext[:, :3].round(5).tobytes())
+            if key not in seen:
+                seen.add(key)
+                uniq.append((k, ext))
+        full = self.height * self.width
+
+        def sized(with_motion):
+            hw = estimate_window_hw_multi(
+                uniq, np.maximum(rel, 0), rel >= 0, self.height, self.width,
+                self.min_depth, self.max_depth, self.focal_length_scale,
+                with_motion=with_motion)
+            return None if sum(h * w for h, w in hw) >= 0.9 * full else hw
+
+        spatio_hw = sized(False) if self.loss_cfg.spatio else None
+        st_hw = None
+        if self.loss_cfg.spatio_temporal:
+            if self.st_window_mode == "actual":
+                base = spatio_hw if spatio_hw is not None else sized(False)
+                if base is not None:
+                    st_hw = st_actual_hw(base, self.height, self.width,
+                                         self.st_window_pad,
+                                         self.st_window_pad_v)
+                    if sum(h * w for h, w in st_hw) >= 0.9 * full:
+                        st_hw = None
+            elif self.st_window_mode == "interval":
+                st_hw = sized(True)
+        if spatio_hw is None and st_hw is None:
+            self.warp_window = False
+            return
+        self.warp_window_hw = (spatio_hw, st_hw)
+
+    def _windows(self, x: Mapping[str, torch.Tensor],
+                 spatio_pose: Optional[torch.Tensor],
+                 st_pose: Optional[torch.Tensor],
+                 depth: Optional[torch.Tensor] = None
+                 ) -> Optional[WarpWindows]:
+        """This step's windows (JAX ``_windows``), None where the warps
+        are dense. The poses and the depth enter without gradient."""
+        if not self.warp_window or self.warp_window_hw is None:
+            return None
+        if spatio_pose is None or st_pose is None:
+            return None
+        spatio_hw, st_hw = self.warp_window_hw
+        st_depth = (depth.detach() if self.st_window_mode == "actual"
+                    and depth is not None else None)
+        return compute_windows(
+            x["inv_K/0"], x["K/0"], spatio_pose.detach(), st_pose.detach(),
+            torch.clamp(self.rel_cam, min=0), self.rel_cam >= 0,
+            self.height, self.width, spatio_hw, st_hw, self.min_depth,
+            self.max_depth, self.focal_length_scale, st_depth=st_depth)
 
     def _remat_for(self, net: nn.Module) -> bool:
         """Whether ``net``'s train-mode calls are checkpointed (JAX
@@ -536,24 +648,39 @@ class VFDepthModel(nn.Module):
                       if disps_aug is not None else None)
         spatio_pose, st_pose = relative_cam_poses(
             x["extrinsics"], x["extrinsics_inv"], cam_t_cam, self.rel_cam)
+        # the 'actual' spatio-temporal windows follow each scale's depth:
+        # one set from the finest scale's, or one per scale with several
+        per_scale = self.st_window_mode == "actual" and len(self.scales) > 1
+        windows = (None if per_scale else self._windows(
+            x, spatio_pose, st_pose, depths[min(self.scales)]))
         # the warp sources in the compute dtype; the loss targets stay f32
         colors = {f: x[f"color/{f}/0"].to(self.compute_dtype or torch.float32)
                   for f in self.frame_ids}
-        rendered = {s: render_views(
-            colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
-            spatio_pose, st_pose, self.rel_cam, self.frame_ids,
-            do_intensity_align=self.intensity_align,
-            spatio=self.loss_cfg.spatio,
-            spatio_temporal=self.loss_cfg.spatio_temporal,
-            aug_depth=self.aug_depth, extrinsics=x["extrinsics"],
-            extrinsics_aug=ext_aug,
-            depth_aug=depths_aug[s] if depths_aug else None,
-            min_depth=self.min_depth, max_depth=self.max_depth,
-            plain=self.plain_samplers) for s in self.scales}
+        rendered, overflow = {}, None
+        for s in self.scales:
+            win = (self._windows(x, spatio_pose, st_pose, depths[s])
+                   if per_scale else windows)
+            if win is not None:
+                overflow = (win.overflow if overflow is None
+                            else torch.maximum(overflow, win.overflow))
+            rendered[s] = render_views(
+                colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
+                spatio_pose, st_pose, self.rel_cam, self.frame_ids,
+                do_intensity_align=self.intensity_align,
+                spatio=self.loss_cfg.spatio,
+                spatio_temporal=self.loss_cfg.spatio_temporal,
+                aug_depth=self.aug_depth, extrinsics=x["extrinsics"],
+                extrinsics_aug=ext_aug,
+                depth_aug=depths_aug[s] if depths_aug else None,
+                min_depth=self.min_depth, max_depth=self.max_depth,
+                windows=win, plain=self.plain_samplers)
         loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
                                 disps, depths, cam_t_cam, rendered,
                                 disps_aug=disps_aug, depths_aug=depths_aug,
                                 step=step)
+        if overflow is not None:
+            # > 0: a window truncated its warp this step (JAX :697-701)
+            logs["warp_window_overflow"] = overflow
         outputs = {"cam_T_cam": cam_t_cam}
         for s in self.scales:
             outputs[f"disp/{s}"] = disps[s]

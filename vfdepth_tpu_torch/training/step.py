@@ -78,14 +78,23 @@ def make_optimizer(model: VFDepthModel, learning_rate: float,
     return opt
 
 
-def create_train_state(model: VFDepthModel,
-                       steps_per_epoch: int = 0) -> torch.optim.Adam:
+def create_train_state(model: VFDepthModel, steps_per_epoch: int = 0,
+                       batch: Optional[Mapping] = None,
+                       rigs=None) -> torch.optim.Adam:
     """The optimizer for ``model`` as its config sets it up: the pose boost
     is active only under the cold-start schedule, and fades with its last
     ramp (the joint ramp [warm, warm+ramp] by default, the staggered
     spatio-temporal ramp [warm+ramp, warm+2*ramp] under
     ``cold_start_stagger_ramps``). The model holds the parameters and the
-    BatchNorm statistics; the caller counts steps from 0."""
+    BatchNorm statistics; the caller counts steps from 0.
+
+    Given an example ``batch`` (and the dataset's ``rigs``, (K, extrinsics)
+    pairs), the warp windows are sized first, on the host, as the JAX
+    ``create_train_state`` does (``VFDepthModel.configure_warp_window``);
+    without one the warps stay dense unless ``tpu.warp_window_hw`` sizes
+    them."""
+    if batch is not None:
+        model.configure_warp_window(batch, rigs=rigs)
     cfg = model.cfg
     warm = int(cfg.get("cold_start_warmup_steps", 0))
     ramp = int(cfg.get("cold_start_ramp_steps", 0))

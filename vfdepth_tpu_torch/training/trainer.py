@@ -8,11 +8,17 @@ full evaluation with metric and median-scaled depth metrics. Each step is
 with the StepLR schedule and the pose-LR boost of ``create_train_state``);
 training batches reach the card through ``data/loader.py device_prefetch``.
 
-Left out, each with its ROADMAP item:
-  * the mesh branches of the JAX ``_build_step`` and its process-0 rule
-    (A7): one device, one process, one ``train_step``;
-  * ``_note_warp_overflow``'s dense fallback (A8): the port's warps are
-    dense and log no overflow.
+The warp windows are sized over the first batch's rig and the dataset's
+``rig_calibrations()`` (``create_train_state``). A window that overflows
+truncates its warp, so the loss differs from the dense one; the loop keeps
+the running maximum of ``warp_window_overflow`` on the device between log
+checkpoints (no host sync a step), and ``_note_warp_overflow`` turns the
+windows off after two checkpoints in a row with overflow, as the JAX
+package does (there is nothing to recompile here: the next step is dense).
+
+Left out, with its ROADMAP item: the mesh branches of the JAX
+``_build_step`` and its process-0 rule (A3): one device, one process, one
+``train_step``.
 
 Randomness is explicit: ``learn``'s ``seed`` seeds the ``torch.Generator``
 (on the model's device) that draws each step's tie-break noise and, under
@@ -27,6 +33,7 @@ each batch from a generator seeded with its ``seed``; with
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -56,7 +63,7 @@ class Trainer:
         self.cfg = cfg
         self.model = model
         self.num_epochs = cfg.num_epochs
-        # one process, so no process-0 rule for logs and checkpoints (A7)
+        # one process, so no process-0 rule for logs and checkpoints (A3)
         self.logger = Logger(cfg, use_tb)
 
     # ------------------------------------------------------------------
@@ -70,8 +77,17 @@ class Trainer:
         boundary counts the loader's ``steps_per_epoch`` optimizer
         updates."""
         model = self.model
+        # the first batch (host arrays) and the dataset's per-scene rigs
+        # size the warp windows over the calibration spread
+        train_iter = iter(train_loader)
+        first = next(train_iter)
+        train_iter = itertools.chain([first], train_iter)
+        ds = getattr(train_loader, "dataset", None)
+        rigs = (ds.rig_calibrations() if hasattr(ds, "rig_calibrations")
+                else None)
         optimizer = create_train_state(
-            model, steps_per_epoch=train_loader.steps_per_epoch)
+            model, steps_per_epoch=train_loader.steps_per_epoch, batch=first,
+            rigs=rigs)
         step = 0
         if self.cfg.get("pretrain", False):
             saved_step = load_checkpoint(self.cfg.load_weights_dir, model,
@@ -87,12 +103,16 @@ class Trainer:
         prefetch_depth = self.cfg.get("prefetch_depth", 2)
 
         start_time = time.time()
+        # the running maximum of the overflow since the last log
+        # checkpoint, on the device (read only at checkpoints)
+        overflow_acc = None
         for epoch in range(self.num_epochs):
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             # uploads overlap the device's work on the current step
-            epoch_iter = device_prefetch(train_loader, size=prefetch_depth,
-                                         device=device)
+            epoch_iter = device_prefetch(
+                train_iter if epoch == 0 else train_loader,
+                size=prefetch_depth, device=device)
             for batch_idx, batch in enumerate(epoch_iter):
                 before = time.time()
                 noise = (noise_fn(step, model.noise_shape(batch))
@@ -101,9 +121,19 @@ class Trainer:
                          if aug_fn is not None else None)
                 logs = train_step(model, optimizer, batch, step, train_gen,
                                   noise=noise, aug_u=aug_u)
+                ov = logs.get("warp_window_overflow")
+                if ov is not None:
+                    overflow_acc = (ov if overflow_acc is None
+                                    else torch.maximum(overflow_acc, ov))
 
                 if self.logger.is_checkpoint(step):
                     logs = {k: float(v) for k, v in logs.items()}
+                    if overflow_acc is not None:
+                        # every step since the last checkpoint counts
+                        logs["warp_window_overflow"] = float(overflow_acc)
+                        overflow_acc = None
+                    self._note_warp_overflow(
+                        logs.get("warp_window_overflow", 0.0))
                     self.logger.log_time(
                         epoch, batch_idx, time.time() - before,
                         logs.get("total_loss", float("nan")), start_time)
@@ -135,6 +165,29 @@ class Trainer:
                 break
         self.logger.close()
         return optimizer
+
+    def _note_warp_overflow(self, overflow: float) -> bool:
+        """Count log checkpoints with ``warp_window_overflow`` > 0 (JAX
+        ``_note_warp_overflow``): each one warns (a window truncated its
+        warp, so that step's loss differs from the dense one); the second
+        in a row turns the windows off (``model.warp_window`` False,
+        ``warp_window_hw`` None) and returns True. A checkpoint without
+        overflow clears the count."""
+        if overflow and overflow > 0:
+            self._overflow_strikes = getattr(self, "_overflow_strikes", 0) + 1
+            print(f"WARNING: warp window overflow {overflow:.0f} px "
+                  f"(strike {self._overflow_strikes}) — a static warp "
+                  "window truncated real content this step")
+            if self._overflow_strikes >= 2 and self.model.warp_window:
+                print("WARNING: persistent warp-window overflow — "
+                      "falling back to dense warps")
+                self.model.warp_window = False
+                self.model.warp_window_hw = None
+                self._overflow_strikes = 0
+                return True
+        else:
+            self._overflow_strikes = 0
+        return False
 
     def _validate(self, val_loader, val_iter, generator: torch.Generator,
                   step: int):

@@ -208,6 +208,25 @@ Phases (any failure exits non-zero):
     line checked for the root bench's keys and finite values. The reader
     paths of 12 size the windows as ``Trainer.learn`` does and say whether
     they engage on the fixtures' rig.
+16. data parallelism (``vfdepth_tpu_torch/parallel/``), after the windows
+    of 15: ``python -m vfdepth_tpu_torch.train`` as ``torch.distributed.run``
+    starts a world of one (RANK 0, WORLD_SIZE 1, LOCAL_RANK 0, MASTER_ADDR /
+    MASTER_PORT on localhost) on ``configs/ddad/ddad_surround_fusion_ddp.yaml``
+    at full width on ``FakeDataset`` (its encoders from a seeded synthetic
+    ResNet-18 file), 2 steps: it must join an NCCL group, go through the
+    global BatchNorm, the global loss and the gradient average (its
+    collectives line), write ``weights_0`` and build no kernel; then two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device), spawned with a ``FileStore``, each cell of ``DP_CELLS`` (the
+    6-camera f32 step; the bench's cell: bf16, "nuscenes" rig, windows
+    sized over the global first batch) at batch 1 a rank from a carried
+    Adam state, held against one process's step at batch 2 from the same
+    weights, global batch and global noise: loss and logs within the step
+    tolerance, each gradient, parameter update and BatchNorm statistic
+    within the gradient tolerance (relative L2), the ranks' states bit
+    for bit, each rank's launches a step equal to one process's, the
+    windows equal; each rank's step time is printed as two ranks
+    time-sharing one card (no data-parallel speed).
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -4134,6 +4153,302 @@ def run_windows(device, rows, paths, tmp):
     run_bench_cli()
 
 
+# ------------------------------------------------ data parallelism
+
+DDP_CONFIG = ROOT / "configs" / "ddad" / "ddad_surround_fusion_ddp.yaml"
+DP_WORLD = 2
+DP_STEP = 3                 # the global step of the compared update
+DP_TIMED_STEPS = 2          # each rank's steps after the compared one
+DP_DEADLINE_S = 600         # the two ranks, both cells, start-up included
+DP_DEVICE = "cuda"          # the ranks' device ("cpu" rehearses the phase)
+# (label, mixed precision, FakeDataset rig, windows sized from the batch):
+# the 6-camera f32 step and the bench's cell (bf16, the "nuscenes" rig,
+# the production focal-length scale, windows on), each at batch 1 a rank
+DP_CELLS = (("6-camera f32", False, "even", False),
+            ("6-camera bf16 nuscenes (the bench's cell)", True, "nuscenes",
+             True))
+
+
+def dp_config(mp: bool):
+    """A cell's config at batch 1 (a rank's batch): the published yaml in
+    f32, the bench's cell (``presets.build_config``) in bf16."""
+    from vfdepth_tpu_torch import presets
+    from vfdepth_tpu_torch.config import get_config
+    if mp:
+        return presets.build_config(batch_size=1, mixed_precision=True)
+    cfg = get_config(str(CONFIG))
+    cfg.set("batch_size", 1)
+    return cfg
+
+
+def carry_adam_state(opt, model, seed: int = 0):
+    """A mid-run Adam state on every parameter (7 updates made, seeded
+    moments; tests/test_torch_parallel.py's), so that an update follows its
+    gradient smoothly: Adam's first step from zero moments is about
+    lr * sign(g), which a gradient entry near 0 flips."""
+    gen = torch.Generator().manual_seed(seed)
+    for _, p in model.named_parameters():
+        opt.state[p] = dict(
+            step=torch.tensor(7.0),
+            exp_avg=(1e-3 * torch.randn(p.shape, generator=gen)).to(p.device),
+            exp_avg_sq=(1e-8 * (0.5 + torch.rand(p.shape, generator=gen))
+                        ).to(p.device))
+
+
+def dp_cell_step(cell, device, rank: int = 0, world: int = 1):
+    """One cell's step from the seeded model (seed ``rank``: under a group
+    the set-up broadcast replaces rank 1's weights with rank 0's) and a
+    carried Adam state: the global batch's first ``world``-th for this
+    rank (all of it in one process), the global tie-break noise drawn from
+    one seed. Then ``DP_TIMED_STEPS`` more steps, timed. Returns the
+    results on the host."""
+    from vfdepth_tpu_torch.parallel import reduce_logs
+    from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
+                                            train_step)
+    label, mp, rig, windows = cell
+    cfg = dp_config(mp)
+    ds = _dataset(cfg, DP_WORLD, rig)
+    per = DP_WORLD // world
+    batch = ds.batch(list(range(rank * per, (rank + 1) * per)))
+    model = VFDepthModel(cfg, device=device, seed=rank)
+    opt = create_train_state(model, batch=batch if windows else None,
+                             rigs=ds.rig_calibrations() if windows else None)
+    carry_adam_state(opt, model)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    reset_counts()
+    logs = train_step(model, opt, batch, DP_STEP,
+                      torch.Generator(device).manual_seed(1000))
+    torch.cuda.synchronize()
+    out = dict(counts=read_counts(), logs=reduce_logs(logs),
+               windows=(model.warp_window, model.warp_window_hw),
+               before=before,
+               grads={k: p.grad.detach().cpu().clone()
+                      for k, p in model.named_parameters()},
+               state={k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}, ms=[])
+    for i in range(DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(model, opt, batch, DP_STEP + 1 + i,
+                   torch.Generator(device).manual_seed(1001 + i))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank: int, work: str):
+    """A rank of the two that share the card over gloo (NCCL refuses two
+    ranks on one device): every cell's step, saved to ``rank<r>.pt``. The
+    kernels are already built: ``_build`` finds their libraries."""
+    import hashlib
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from vfdepth_tpu_torch.parallel import (COUNTS,
+                                            maybe_initialize_distributed)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_WORLD))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK="0")
+    maybe_initialize_distributed(
+        DP_DEVICE, backend="gloo",
+        init_method=f"file://{Path(work) / 'store'}", timeout_s=DP_DEADLINE_S)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if DP_DEVICE == "cuda" else torch.device(DP_DEVICE))
+    results = []
+    for cell in DP_CELLS:
+        out = dp_cell_step(cell, device, rank, DP_WORLD)
+        digest = hashlib.sha256()
+        for k in sorted(out["state"]):
+            digest.update(out["state"][k].numpy().tobytes())
+        out["digest"] = digest.hexdigest()
+        if rank:
+            del out["state"], out["grads"], out["before"]
+        results.append(out)
+    results.append(dict(COUNTS))
+    dist.barrier()
+    torch.save(results, Path(work) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def run_two_ranks(device, paths, tmp: Path):
+    """Two ranks time-sharing the card over gloo, each cell's step at batch
+    1 a rank held against the single-process step at batch 2 from the same
+    weights, global batch and global noise: loss and logs within the step
+    tolerance, each gradient, each parameter's update (after Adam from a
+    carried state) and each BatchNorm statistic within the gradient
+    tolerance (relative L2); the ranks' states bit-identical; each rank's
+    launches a step equal to the single-process step's; the windows
+    equal."""
+    import torch.multiprocessing as mp
+    from vfdepth_tpu_torch.ops import _build
+    refs = []
+    for cell in DP_CELLS:
+        refs.append(dp_cell_step(cell, device))
+        print(f"{cell[0]} single-process step at batch {DP_WORLD}: loss "
+              f"{refs[-1]['logs']['total_loss']:.6f}, windows "
+              f"{refs[-1]['windows']}, step ms "
+              f"{[round(m, 3) for m in refs[-1]['ms']]}", flush=True)
+    built = set(_build.BUILD_DIR.iterdir())
+    t = time.perf_counter()
+    ctx = mp.spawn(dp_rank, args=(str(tmp),), nprocs=DP_WORLD, join=False)
+    deadline = time.monotonic() + DP_DEADLINE_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            check(False, f"two ranks: not done in {DP_DEADLINE_S} s")
+    wall = time.perf_counter() - t
+    check(set(_build.BUILD_DIR.iterdir()) == built,
+          "two ranks: a rank built a kernel")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+    counts = ranks[0][-1]
+    print(f"two ranks over gloo on one card: spawned, both cells run in "
+          f"{wall:.1f} s; rank 0's collectives by site {counts}", flush=True)
+    for site in ("broadcast", "batch_norm", "loss", "gradients", "logs"):
+        check(counts.get(site, 0) > 0, f"two ranks: no {site} collective")
+    for i, (cell, ref) in enumerate(zip(DP_CELLS, refs)):
+        label, mp_ = cell[0], cell[1]
+        loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
+                                if mp_ else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
+        got = [r[i] for r in ranks]
+        check(got[0]["digest"] == got[1]["digest"],
+              f"{label}: the ranks' states differ")
+        for r, out in enumerate(got):
+            check(out["counts"] == ref["counts"],
+                  f"{label} rank {r}: launches {out['counts']}, the "
+                  f"single-process step's {ref['counts']}")
+            check(out["windows"] == ref["windows"],
+                  f"{label} rank {r}: windows {out['windows']} vs "
+                  f"{ref['windows']}")
+            check(out["logs"] == got[0]["logs"],
+                  f"{label}: the ranks' reduced logs differ")
+        g = got[0]
+        log_err = {k: abs(g["logs"][k] - w) / max(abs(w), 1e-3)
+                   for k, w in ref["logs"].items()}
+        check(set(g["logs"]) == set(ref["logs"]), f"{label}: log keys")
+        check(all(math.isfinite(v) for v in g["logs"].values()),
+              f"{label}: logs {g['logs']}")
+        worst_log = max(log_err, key=log_err.get)
+        check(log_err[worst_log] <= loss_rtol,
+              f"{label}: log {worst_log} {g['logs'][worst_log]} vs "
+              f"{ref['logs'][worst_log]}")
+        params = set(g["grads"])
+        grad_err = {k: _rel_l2(g["grads"][k], w)
+                    for k, w in ref["grads"].items()}
+        upd_err = {k: _rel_l2(g["state"][k] - g["before"][k],
+                              ref["state"][k] - ref["before"][k])
+                   for k in params}
+        stat_err = {k: _rel_l2(g["state"][k], w)
+                    for k, w in ref["state"].items()
+                    if k.endswith(("running_mean", "running_var"))}
+        for what, errs in (("gradient", grad_err), ("update", upd_err),
+                           ("BatchNorm statistic", stat_err)):
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= grad_rtol, f"{label}: {what} of {worst} "
+                  f"differs by {errs[worst]} (relative L2)")
+        check(all(torch.equal(g["before"][k], ref["before"][k])
+                  for k in ref["before"]),
+              f"{label}: rank 0 did not start from the seeded weights")
+        for r, out in enumerate(got):
+            paths[f"{label} two ranks over gloo, rank {r}"] = dict(
+                launches=out["counts"], ms=out["ms"])
+        print(f"{label}, two ranks at batch 1 against one process at batch "
+              f"{DP_WORLD}: loss {g['logs']['total_loss']:.7f} vs "
+              f"{ref['logs']['total_loss']:.7f}; worst log {worst_log} "
+              f"{log_err[worst_log]:.2e} (tol {loss_rtol:.0e}); worst "
+              f"relative L2: gradient {max(grad_err.values()):.2e}, update "
+              f"{max(upd_err.values()):.2e}, BatchNorm statistic "
+              f"{max(stat_err.values()):.2e} (tol {grad_rtol:.0e}); ranks "
+              f"bit-identical; launches a step "
+              f"{({k: v for k, v in ref['counts'].items() if v})} on each "
+              f"rank; windows {g['windows']}", flush=True)
+        print(f"{label}: step ms of two ranks time-sharing one card over "
+              f"gloo (not a data-parallel speed): rank 0 "
+              f"{[round(m, 3) for m in got[0]['ms']]}, rank 1 "
+              f"{[round(m, 3) for m in got[1]['ms']]}; one process at "
+              f"batch {DP_WORLD} {[round(m, 3) for m in ref['ms']]}",
+              flush=True)
+    del refs, ranks
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_nccl_cli(tmp: Path):
+    """``python -m vfdepth_tpu_torch.train`` as ``torch.distributed.run``
+    starts a world of one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT): 2 steps of the published ``_ddp.yaml`` model at full width
+    on ``FakeDataset`` (its ``log_dir`` in ``tmp``), its encoders from a
+    seeded synthetic ResNet-18 file. The run must join an NCCL group, go
+    through the global BatchNorm and the global loss (its collectives
+    line), write ``weights_0`` and build no kernel."""
+    from vfdepth_tpu_torch.ops import _build
+    src = DDP_CONFIG.read_text()
+    for old, new in (("dataset: ddad", "dataset: fake"),
+                     ("log_dir: ./results/", f"log_dir: {tmp}/"),
+                     ("num_workers: 6", "num_workers: 2")):
+        check(old in src, f"{DDP_CONFIG.name} has no {old!r}")
+        src = src.replace(old, new)
+    cfg_file = tmp / "ddad_surround_fusion_ddp.yaml"
+    cfg_file.write_text(src)
+    resnet = tmp / "resnet18.pth"
+    synthetic_resnet18(resnet)
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               VFDEPTH_RESNET_WEIGHTS=str(resnet))
+    built = set(_build.BUILD_DIR.iterdir())
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "vfdepth_tpu_torch.train",
+                          "--config_file", str(cfg_file), "--max_steps", "2"],
+                         cwd=str(ROOT), env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t
+    print(f"NCCL world 1: python -m vfdepth_tpu_torch.train on "
+          f"{DDP_CONFIG.name} (fake data), 2 steps: exit {res.returncode} "
+          f"in {wall:.1f} s", flush=True)
+    if res.returncode != 0:
+        print(res.stdout[-3000:], res.stderr[-3000:], flush=True)
+    check(res.returncode == 0, f"the NCCL run exited {res.returncode}")
+    line = next((x for x in res.stdout.splitlines()
+                 if x.startswith("data parallel:")), "")
+    print(f"NCCL world 1: {line}", flush=True)
+    check("backend nccl, world 1" in line, "the run joined no NCCL group")
+    counts = json.loads(line.split("collectives ", 1)[1])
+    for site in ("batch_norm", "loss", "gradients", "logs", "broadcast"):
+        check(counts.get(site, 0) > 0, f"NCCL world 1: no {site} collective")
+    check((tmp / "ddad_surround_fusion_ddp" / "models" / "weights_0").is_dir(),
+          "NCCL world 1: no weights_0 written")
+    check(set(_build.BUILD_DIR.iterdir()) == built,
+          "NCCL world 1: the run built a kernel")
+
+
+def run_data_parallel(device, paths):
+    """The data-parallel phases: a torchrun-style NCCL world of one through
+    the training command line, then two ranks sharing the card over
+    gloo."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        (tmp / "cli").mkdir()
+        (tmp / "ranks").mkdir()
+        run_nccl_cli(tmp / "cli")
+        run_two_ranks(device, paths, tmp / "ranks")
+
+
 def profile(label, fn, top: int = 14):
     """``fn`` once more under ``torch.profiler``: device time by kernel
     (self time, summed over launches), and the device's busy time as the
@@ -4359,6 +4674,10 @@ def main() -> int:
     # against dense, a forced overflow through the trainer, then the bench
     with tempfile.TemporaryDirectory(prefix="chip_smoke_windows_") as wtmp:
         run_windows(device, rows, paths, Path(wtmp))
+    # data parallelism: an NCCL world of one through the training command
+    # line, then two ranks over gloo sharing the card, each cell held
+    # against the single-process step at the global batch
+    run_data_parallel(device, paths)
     # activation checkpointing: each remat value against the plain step,
     # with its step time and peak memory
     run_remat(device, paths)

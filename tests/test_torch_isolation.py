@@ -18,8 +18,8 @@ from helpers_torch_threads import port_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "vfdepth_tpu_torch"
-# the training slice's modules and the evaluation / training loop's, named
-# so a lost module fails loudly
+# the training slice's modules, the evaluation / training loop's and the
+# data parallelism's, named so a lost module fails loudly
 TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
                     "losses.composite", "ops.warp", "ops.ties",
                     "training.step", "utils.metrics", "utils.visualize",
@@ -27,7 +27,9 @@ TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
                     "data.loader", "training.checkpoint", "training.trainer",
                     "eval", "train", "data.depth_projection", "native",
                     "data.transforms", "data.ddad", "data.nuscenes",
-                    "ops.grid_sample", "training.synthesis")
+                    "ops.grid_sample", "training.synthesis",
+                    "parallel", "parallel.distributed",
+                    "parallel.data_parallel")
 # files outside both packages that import JAX: the JAX package's own entry
 # points and scripts, and the one converter that carries its checkpoints
 # into the port

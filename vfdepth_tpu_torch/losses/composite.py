@@ -9,6 +9,18 @@ from a ``torch.Generator``. Minima over context frames are ``torch.amin``,
 which splits a tied gradient as ``jnp.min`` does. Under ``aug_depth`` the
 depth-synthesis loss (consistency of the rotated view's depth with the
 warped depths, and its smoothness) joins each scale's sum.
+
+Data parallelism (``parallel/``): inside ``parallel.global_batch()``, as
+the training forward runs the loss under a process group, every reduction
+over the batch is the global batch's. The masked means sum their
+numerator and denominator over the ranks (``batch_sum``, a differentiable
+all-reduce of both: its backward sums the cotangents over the ranks, so
+after the gradient average each rank's share is the global masked mean's
+gradient; the masks carry no gradient either way). The cold-start priors
+take their batch means over the ranks (``batch_mean``). The plain batch
+means (smoothness, pose consistency, the synthesis smoothness) stay
+per rank: every rank holds the same batch size, so the ranks' mean of
+them is the global one, and ``parallel.reduce_logs`` averages the logs.
 """
 from __future__ import annotations
 
@@ -22,15 +34,17 @@ from .primitives import (_smoothness_maps, auto_mask, mean_normalized_disp,
                          photometric_loss)
 from ..geometry.se3 import matrix_to_euler_angles_xyz
 from ..ops import ties
+from ..parallel.data_parallel import batch_mean, batch_sum
 
 _EPSILON = 1e-5  # identity-loss tie-break noise scale
 
 
 def _percam_masked_mean(loss: torch.Tensor, mask: torch.Tensor
                         ) -> torch.Tensor:
-    """Masked mean per camera: [b, cams, H, W, 1] -> [cams]."""
-    num = (loss * mask).sum(dim=(0, 2, 3, 4))
-    den = mask.sum(dim=(0, 2, 3, 4))
+    """Masked mean per camera: [b, cams, H, W, 1] -> [cams], over the global
+    batch inside ``global_batch()``."""
+    num = batch_sum((loss * mask).sum(dim=(0, 2, 3, 4)))
+    den = batch_sum(mask.sum(dim=(0, 2, 3, 4)))
     return num / (den + 1e-8)
 
 
@@ -157,13 +171,14 @@ def depth_synthesis_loss(depth_aug: torch.Tensor, tform_depth: torch.Tensor,
     H, W, 1]. Consistency: |d_aug - d_warp| / (d_aug + d_warp) clipped to
     [0, 1], the masked mean over batch, sources and pixels. Smoothness: the
     plain (not edge-aware) first-order gradients of the mean-normalised
-    aug disparity. ``abs`` and the clip take JAX's derivative at ties.
+    aug disparity. ``abs`` and the clip take JAX's derivative at ties. The
+    consistency's sums are the global batch's inside ``global_batch()``.
     """
     da = depth_aug[:, :, None]
     con = ties.abs(da - tform_depth) / (da + tform_depth + 1e-8)
     con = ties.clip(con, 0.0, 1.0)
-    num = (con * tform_mask).sum(dim=(0, 2, 3, 4, 5))
-    den = tform_mask.sum(dim=(0, 2, 3, 4, 5))
+    num = batch_sum((con * tform_mask).sum(dim=(0, 2, 3, 4, 5)))
+    den = batch_sum(tform_mask.sum(dim=(0, 2, 3, 4, 5)))
     depth_con = num / (den + 1e-8)
 
     nd = mean_normalized_disp(disp_aug)
@@ -261,11 +276,11 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
     total = (cam_loss / float(len(cfg.scales))).mean()
     if ramp is not None:
         prior_scale = 1.0 - st_ramp
-        t_norm = torch.linalg.norm(cam_t_cam[..., :3, 3].float(),
-                                   dim=-1).mean()
+        t_norm = batch_mean(torch.linalg.norm(cam_t_cam[..., :3, 3].float(),
+                                              dim=-1).mean())
         pose_prior = (F.relu(cfg.pose_prior_floor - t_norm)
                       + F.relu(t_norm - cfg.pose_prior_ceil))
-        disp_anchor = (torch.log(disps[0].float() + 1e-3).mean()
+        disp_anchor = (batch_mean(torch.log(disps[0].float() + 1e-3).mean())
                        - math.log(0.5)) ** 2
         prior = prior_scale * (cfg.pose_prior_coeff * pose_prior
                                + cfg.disp_anchor_coeff * disp_anchor)

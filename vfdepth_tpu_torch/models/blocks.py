@@ -20,6 +20,11 @@ running statistics in place, so that recompute runs under
 ``recomputing()``: it normalises with the batch statistics, as the first
 forward did, and leaves the running statistics as the first forward left
 them (JAX's functional recompute discards its statistics).
+
+Under a process group (data parallelism, ``parallel/``), BatchNorm in train
+mode, and in its recompute, normalises with the GLOBAL batch's statistics,
+as JAX's BatchNorm over a batch sharded across devices does: see
+``BatchNorm``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import ties
+from ..parallel.distributed import all_reduce_sum, is_active
 
 
 def pack_cam_feat(x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +121,15 @@ class BatchNorm(nn.BatchNorm2d):
     running statistics as flax does: ``ra = 0.9 ra + 0.1 batch`` with the
     BIASED batch variance, where ``nn.BatchNorm2d`` would take the unbiased
     one.
+
+    With a process group active, train mode takes the statistics of the
+    global batch (every rank's): the per-channel sum, sum of squares and
+    count in f32, summed over the ranks by a differentiable all-reduce,
+    then ``var = max(E[x^2] - E[x]^2, 0)`` as flax's ``_compute_stats``
+    has it. The running statistics move with them, identically on every
+    rank. A recompute all-reduces again (every rank recomputes the same
+    blocks in the same order) and moves nothing; eval mode holds no
+    collective.
     """
 
     def __init__(self, num_features: int,
@@ -127,17 +142,37 @@ class BatchNorm(nn.BatchNorm2d):
         recompute = _RECOMPUTING.get()
         if not (self.training or recompute):
             y = super().forward(x)
+        elif is_active():
+            y = self._global_batch_norm(x, recompute)
         else:
             if not recompute:
                 with torch.no_grad():
                     var, mean = torch.var_mean(x, dim=(0, 2, 3),
                                                unbiased=False)
-                    self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-                    self.running_var.mul_(0.9).add_(var, alpha=0.1)
-                    self.num_batches_tracked.add_(1)
+                    self._move_running(mean, var)
             y = F.batch_norm(x, None, None, self.weight, self.bias,
                              training=True, eps=self.eps)
         return y if self.dtype is None else y.to(self.dtype)
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+        self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        self.num_batches_tracked.add_(1)
+
+    def _global_batch_norm(self, x: torch.Tensor,
+                           recompute: bool) -> torch.Tensor:
+        count = x.new_full((x.shape[1],), x.numel() / x.shape[1])
+        stats = all_reduce_sum(torch.stack(
+            [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]),
+            "batch_norm")
+        mean = stats[0] / stats[2]
+        var = torch.clamp(stats[1] / stats[2] - mean * mean, min=0.0)
+        if not recompute:
+            with torch.no_grad():
+                self._move_running(mean, var)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * inv[:, None, None]
+                + self.bias[:, None, None])
 
 
 def batch_norm(num_features: int,

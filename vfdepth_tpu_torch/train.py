@@ -3,14 +3,28 @@
 
     python -m vfdepth_tpu_torch.train --config_file <yaml> [--max_steps N]
 
-Runs ``Trainer.learn`` on one device (the CUDA card unless ``--cpu`` is
-given), with a shuffled ``BatchLoader`` over the config's training set and,
-where the config has one, an unshuffled one over its validation set;
-checkpoints go to ``<log_dir>/<config name>/models/weights_<epoch>``.
+Runs ``Trainer.learn`` on the CUDA card (on the CPU with ``--cpu``), with a
+shuffled ``BatchLoader`` over the config's training set and, where the
+config has one, an unshuffled one over its validation set; checkpoints go
+to ``<log_dir>/<config name>/models/weights_<epoch>``.
+
+Data-parallel, one process per card:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m vfdepth_tpu_torch.train --config_file <yaml>
+
+Each rank joins the launcher's process group (NCCL on the cards, gloo with
+``--cpu``; ``parallel.maybe_initialize_distributed``), computes on
+``cuda:LOCAL_RANK`` and reads its shard of every epoch's host-invariant
+permutation (seed 42), ``batch_size`` samples a step: the global batch is N
+times the config's ``batch_size``, as in the JAX package's multi-process
+run and the reference's DDP. Rank 0 prints, logs and writes the
+checkpoints. Without a launcher the run is one process with no group.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Optional
 
@@ -51,16 +65,28 @@ def check_init_strategy(cfg):
 
 
 def train(cfg, max_steps: Optional[int] = None, device=None):
+    """``Trainer.learn`` on ``cfg``; under a process group on this rank's
+    loader shard and card (``cuda:LOCAL_RANK``)."""
+    import torch
     from .data.factory import construct_dataset
     from .data.loader import BatchLoader
+    from .parallel import is_active, is_main_process, loader_shard
     from .training.model import VFDepthModel
     from .training.trainer import Trainer
 
     check_init_strategy(cfg)
+    if device is None and is_active():
+        # the card maybe_initialize_distributed set for this rank
+        device = torch.device("cuda", torch.cuda.current_device())
     model = VFDepthModel(cfg, device=device)
+    shard_index, num_shards = loader_shard()
     train_ds = construct_dataset(cfg, "train")
+    # the shuffle seed is the same on every rank: each takes its own
+    # contiguous slice of one permutation, so the shards partition the
+    # epoch (the reference's DistributedSampler + set_epoch)
     train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
-                               num_workers=cfg.get("num_workers", 2), seed=42)
+                               num_workers=cfg.get("num_workers", 2), seed=42,
+                               shard_index=shard_index, num_shards=num_shards)
     try:
         val_ds = construct_dataset(cfg, "val")
         val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False,
@@ -68,16 +94,29 @@ def train(cfg, max_steps: Optional[int] = None, device=None):
     except (FileNotFoundError, ValueError):
         val_loader = None
 
-    trainer = Trainer(cfg, model, use_tb=True)
+    trainer = Trainer(cfg, model, use_tb=is_main_process())
     return trainer.learn(train_loader, val_loader, max_steps=max_steps)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch.distributed as dist
     from .config import get_config
+    from .parallel import COUNTS, maybe_initialize_distributed
 
-    cfg = get_config(args.config_file, mode="train")
-    train(cfg, max_steps=args.max_steps, device="cpu" if args.cpu else None)
+    device = "cpu" if args.cpu else None
+    rank, world = maybe_initialize_distributed(device)
+    try:
+        cfg = get_config(args.config_file, mode="train")
+        train(cfg, max_steps=args.max_steps, device=device)
+        if dist.is_initialized() and rank == 0:
+            # which global reductions the run went through, by code path
+            counts = json.dumps(dict(sorted(COUNTS.items())))
+            print(f"data parallel: backend {dist.get_backend()}, world "
+                  f"{world}; collectives {counts}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -95,6 +95,13 @@ the dense one; above 0 a window truncated its warp and the loss differs
 (``training/trainer.py`` then falls back to dense warps after two log
 checkpoints in a row). Until windows are sized the warps are dense.
 
+Under a process group (data parallelism, ``parallel/``) the training
+forward's BatchNorm and loss reduce over the global batch (``forward``
+runs its loss inside ``parallel.global_batch()``), and
+``configure_warp_window`` sizes the boxes over the global first batch, so
+every rank warps the same windows; ``predict`` and ``forward(...,
+train=False)`` hold no collective.
+
 Config keys that name TPU alternates of one function map onto the port's
 one implementation (the CUDA kernel for CUDA tensors, its plain version
 for CPU tensors): ``tpu.sampler_2d`` and ``tpu.warp_op`` (K5 is the one
@@ -126,6 +133,7 @@ from ..models.blocks import recomputing
 from ..models.torchvision_init import load_resnet_encoder_params
 from ..models.vfnet import augment_extrinsics
 from ..ops.resize import resize_bilinear
+from ..parallel.data_parallel import gather_batch, global_batch
 from ..weights import init_random
 
 _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
@@ -299,14 +307,18 @@ class VFDepthModel(nn.Module):
         identical rigs once. Does nothing when ``warp_window`` is off or
         ``tpu.warp_window_hw`` set the sizes; turns the windows off with
         neither overlap loss, and where the boxes would cover 90% of the
-        image or more (dense is cheaper there)."""
+        image or more (dense is cheaper there). Under a process group
+        ``batch`` is this rank's, and the boxes are sized over the global
+        batch (every rank's, gathered in one collective), so every rank
+        sizes the same boxes and turns them off alike."""
         if not self.warp_window or self.warp_window_hw is not None:
             return
         if not (self.loss_cfg.spatio or self.loss_cfg.spatio_temporal):
             self.warp_window = False
             return
         rel = np.asarray(self.cfg.rel_cam_array)
-        k_b, ext_b = _host(batch["K/0"]), _host(batch["extrinsics"])
+        k_b, ext_b = (_host(gather_batch(torch.as_tensor(batch[key]).to(
+            self.device))) for key in ("K/0", "extrinsics"))
         rig_list = [(k_b[i], ext_b[i]) for i in range(k_b.shape[0])]
         for k, ext in (rigs or []):
             rig_list.append((_host(k), _host(ext)))
@@ -674,10 +686,11 @@ class VFDepthModel(nn.Module):
                 depth_aug=depths_aug[s] if depths_aug else None,
                 min_depth=self.min_depth, max_depth=self.max_depth,
                 windows=win, plain=self.plain_samplers)
-        loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
-                                disps, depths, cam_t_cam, rendered,
-                                disps_aug=disps_aug, depths_aug=depths_aug,
-                                step=step)
+        with global_batch(train):
+            loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
+                                    disps, depths, cam_t_cam, rendered,
+                                    disps_aug=disps_aug,
+                                    depths_aug=depths_aug, step=step)
         if overflow is not None:
             # > 0: a window truncated its warp this step (JAX :697-701)
             logs["warp_window_overflow"] = overflow

@@ -12,6 +12,16 @@ linearly to exactly 1.0. ``count`` is the number of updates already made,
 as optax counts. The schedule's numbers ride in each parameter group, so
 the optimizer alone carries them.
 
+Under a process group (data parallelism, ``parallel/``) each rank runs
+``train_step`` on its slice of the global batch: ``create_train_state``
+broadcasts rank 0's parameters and BatchNorm statistics, the tie-break
+draws are the global batch's (every rank draws them from the same seed and
+takes its slice), the BatchNorm statistics and the loss's masked means are
+the global batch's, and the gradients are averaged over the ranks before
+Adam. The step then computes what JAX's sharded step computes over the
+global batch; ``parallel.reduce_logs`` turns a rank's logs into the global
+batch's.
+
 The epoch loop around these steps is ``training/trainer.py``.
 """
 from __future__ import annotations
@@ -21,6 +31,8 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from .model import VFDepthModel
+from ..parallel.data_parallel import (average_gradients, broadcast_model,
+                                      global_shape, local_slice)
 
 
 def make_lr_schedule(learning_rate: float, scheduler_step_size: int,
@@ -92,7 +104,9 @@ def create_train_state(model: VFDepthModel, steps_per_epoch: int = 0,
     pairs), the warp windows are sized first, on the host, as the JAX
     ``create_train_state`` does (``VFDepthModel.configure_warp_window``);
     without one the warps stay dense unless ``tpu.warp_window_hw`` sizes
-    them."""
+    them. Under a process group every rank takes rank 0's parameters and
+    BatchNorm statistics first."""
+    broadcast_model(model)
     if batch is not None:
         model.configure_warp_window(batch, rigs=rigs)
     cfg = model.cfg
@@ -107,20 +121,28 @@ def create_train_state(model: VFDepthModel, steps_per_epoch: int = 0,
                           boost_fade_steps=max(ramp, 1))
 
 
-def _draw_noise(model: VFDepthModel, batch: Mapping,
-                generator: torch.Generator) -> torch.Tensor:
-    return torch.randn(model.noise_shape(batch), generator=generator,
-                       device=generator.device)
+def noise_shape(model: VFDepthModel, batch: Mapping) -> Tuple[int, ...]:
+    """The tie-break noise of the global batch (``model.noise_shape`` with
+    its batch axis, 1, over every rank's batch)."""
+    return global_shape(model.noise_shape(batch), 1)
 
 
-def _draw_aug(model: VFDepthModel, batch: Mapping,
+def aug_shape(model: VFDepthModel, batch: Mapping) -> Tuple[int, ...]:
+    """The rotated views' draw of the global batch (batch axis 0)."""
+    return global_shape(model.aug_shape(batch), 0)
+
+
+def _draw_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def _draw_aug(model: VFDepthModel, shape,
               generator: torch.Generator) -> Optional[torch.Tensor]:
     """The depth-synthesis rotation's uniform draw (after the noise), None
     without ``aug_depth``."""
     if not model.aug_depth:
         return None
-    return torch.rand(model.aug_shape(batch), generator=generator,
-                      device=generator.device)
+    return torch.rand(shape, generator=generator, device=generator.device)
 
 
 def _scalars(logs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -134,20 +156,27 @@ def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
                ) -> Dict[str, torch.Tensor]:
     """Forward, loss, backward and one Adam update at global step ``step``
     (the number of updates made before it). The identity tie-break noise
-    is ``noise`` where given (``model.noise_shape(batch)``), else drawn from
-    ``generator`` (on its device); under ``aug_depth`` the rotated views'
-    draw likewise ``aug_u`` (``model.aug_shape(batch)``) or, after the
-    noise, ``generator``. Returns the scalar logs, detached, on the
-    model's device."""
+    is ``noise`` where given (``noise_shape(model, batch)``), else drawn
+    from ``generator`` (on its device); under ``aug_depth`` the rotated
+    views' draw likewise ``aug_u`` (``aug_shape(model, batch)``) or, after
+    the noise, ``generator``. Both are the global batch's: under a process
+    group ``batch`` is this rank's slice of it, the generator is seeded
+    alike on every rank, and each rank takes its slice of the draws (the
+    noise's batch axis is 1, the rotations' 0); then the gradients are
+    averaged over the ranks. Returns this rank's scalar logs, detached, on
+    the model's device."""
     for group in optimizer.param_groups:
         group["lr"] = lr_at(group, step)
     optimizer.zero_grad(set_to_none=True)
     if noise is None:
-        noise = _draw_noise(model, batch, generator)
+        noise = _draw_noise(noise_shape(model, batch), generator)
     if aug_u is None:
-        aug_u = _draw_aug(model, batch, generator)
-    _, loss, logs = model(batch, step=step, noise=noise, aug_u=aug_u)
+        aug_u = _draw_aug(model, aug_shape(model, batch), generator)
+    _, loss, logs = model(batch, step=step, noise=local_slice(noise, 1),
+                          aug_u=None if aug_u is None
+                          else local_slice(aug_u, 0))
     loss.backward()
+    average_gradients(model.parameters())
     optimizer.step()
     return _scalars(logs)
 
@@ -161,8 +190,9 @@ def eval_step(model: VFDepthModel, batch: Mapping,
     and, under ``aug_depth``, the rotated views' draw are drawn from
     ``generator``; ``return_renders`` adds the warped views for the image
     panels (``VFDepthModel.forward``)."""
-    noise = _draw_noise(model, batch, generator)
+    noise = _draw_noise(model.noise_shape(batch), generator)
     outputs, _, logs = model(batch, noise=noise,
-                             aug_u=_draw_aug(model, batch, generator),
+                             aug_u=_draw_aug(model, model.aug_shape(batch),
+                                             generator),
                              train=False, return_renders=return_renders)
     return outputs, _scalars(logs)

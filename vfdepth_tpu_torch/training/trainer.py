@@ -1,4 +1,4 @@
-"""Host-side training / evaluation loop on one device (port of
+"""Host-side training / evaluation loop (port of
 ``vfdepth_tpu/training/trainer.py``, the reference's ``VFDepthTrainer``).
 
 The epoch / step loop with the reference's logging cadence, periodic
@@ -16,18 +16,28 @@ checkpoints (no host sync a step), and ``_note_warp_overflow`` turns the
 windows off after two checkpoints in a row with overflow, as the JAX
 package does (there is nothing to recompile here: the next step is dense).
 
-Left out, with its ROADMAP item: the mesh branches of the JAX
-``_build_step`` and its process-0 rule (A3): one device, one process, one
-``train_step``.
+Data parallelism (the JAX ``_build_step``'s 1-D data mesh and its
+process-0 rule): under a process group (``parallel/``), one rank a card,
+each rank runs ``learn`` on its loader shard and ``train_step`` computes
+the global batch's step (``training/step.py``). Only rank 0 prints, logs
+(TensorBoard), validates and draws the image panels, which hold no
+collective, and writes the checkpoints, which every rank then waits for at
+a barrier. At each log checkpoint the ranks' scalar logs are reduced to
+the global batch's (``parallel.reduce_logs``: one sum, one maximum), the
+overflow's running maximum among them, before ``_note_warp_overflow``, so
+every rank falls back to dense warps at the same step; between log
+checkpoints there is no host sync. ``pretrain`` loads the same files on
+every rank. The camera-axis mesh (``tpu.cam_parallel_size`` > 1 with at
+least that many ranks, ROADMAP A3b) is not ported and raises.
 
 Randomness is explicit: ``learn``'s ``seed`` seeds the ``torch.Generator``
 (on the model's device) that draws each step's tie-break noise and, under
 ``aug_depth``, the rotated views' uniform draw after it; validation and the
 image panels draw from a generator of their own, so the training draws do
-not depend on the log cadence. ``noise_fn(step, shape)`` and
-``aug_fn(step, shape)``, where given, supply each step's draws instead (how
-a test hands in the JAX package's). ``evaluate`` draws the rotated views of
-each batch from a generator seeded with its ``seed``; with
+not depend on the log cadence. ``noise_fn(step, shape)`` and ``aug_fn(step,
+shape)``, where given, supply each step's draws instead (how a test hands
+in the JAX package's), of the global batch's shape. ``evaluate`` draws the
+rotated views of each batch from a generator seeded with its ``seed``; with
 ``syn_visualize`` it renders the depth-synthesis sweep
 (``training/synthesis.py``) at batch ``syn_idx`` and stops there.
 """
@@ -39,11 +49,15 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .model import VFDepthModel
-from .step import create_train_state, eval_step, train_step
+from .step import (aug_shape, create_train_state, eval_step, noise_shape,
+                   train_step)
 from ..data.loader import device_prefetch
+from ..parallel.data_parallel import reduce_logs
+from ..parallel.distributed import is_active, is_main_process, rank_world
 from ..utils.logger import Logger
 from ..utils.metrics import METRIC_NAMES, compute_depth_metrics
 
@@ -63,8 +77,14 @@ class Trainer:
         self.cfg = cfg
         self.model = model
         self.num_epochs = cfg.num_epochs
-        # one process, so no process-0 rule for logs and checkpoints (A3)
-        self.logger = Logger(cfg, use_tb)
+        cam_par = int(cfg.get("cam_parallel_size", 1) or 1)
+        if cam_par > 1 and rank_world()[1] >= cam_par:
+            raise NotImplementedError(
+                f"tpu.cam_parallel_size {cam_par}: camera-axis model "
+                "parallelism is not ported yet (ROADMAP A3b)")
+        # rank 0 logs, validates and writes checkpoints
+        self.is_main = is_main_process()
+        self.logger = Logger(cfg, use_tb and self.is_main)
 
     # ------------------------------------------------------------------
     def learn(self, train_loader, val_loader=None, seed: int = 42,
@@ -115,9 +135,9 @@ class Trainer:
                 size=prefetch_depth, device=device)
             for batch_idx, batch in enumerate(epoch_iter):
                 before = time.time()
-                noise = (noise_fn(step, model.noise_shape(batch))
+                noise = (noise_fn(step, noise_shape(model, batch))
                          if noise_fn is not None else None)
-                aug_u = (aug_fn(step, model.aug_shape(batch))
+                aug_u = (aug_fn(step, aug_shape(model, batch))
                          if aug_fn is not None else None)
                 logs = train_step(model, optimizer, batch, step, train_gen,
                                   noise=noise, aug_u=aug_u)
@@ -127,17 +147,21 @@ class Trainer:
                                     else torch.maximum(overflow_acc, ov))
 
                 if self.logger.is_checkpoint(step):
-                    logs = {k: float(v) for k, v in logs.items()}
                     if overflow_acc is not None:
                         # every step since the last checkpoint counts
-                        logs["warp_window_overflow"] = float(overflow_acc)
+                        logs["warp_window_overflow"] = overflow_acc
                         overflow_acc = None
+                    # the global batch's logs, the overflow's maximum over
+                    # the ranks among them: every rank notes the same
+                    logs = reduce_logs(logs)
                     self._note_warp_overflow(
                         logs.get("warp_window_overflow", 0.0))
-                    self.logger.log_time(
-                        epoch, batch_idx, time.time() - before,
-                        logs.get("total_loss", float("nan")), start_time)
-                    self.logger.log_scalars("train", logs, step)
+                    if self.is_main:
+                        self.logger.log_time(
+                            epoch, batch_idx, time.time() - before,
+                            logs.get("total_loss", float("nan")),
+                            start_time)
+                        self.logger.log_scalars("train", logs, step)
                     # train-batch panels (the reference logs its full panel
                     # set from the training batch): one more forward, with
                     # BatchNorm in eval mode, only where a writer takes them
@@ -146,7 +170,7 @@ class Trainer:
                                              return_renders=True)
                         self.logger.log_images("train", _numpy(batch),
                                                _numpy(p_out), step)
-                    if val_iter is not None:
+                    if val_iter is not None and self.is_main:
                         val_iter = self._validate(val_loader, val_iter,
                                                   eval_gen, step)
                 step += 1
@@ -158,9 +182,13 @@ class Trainer:
             # last epoch too
             save_freq = max(int(self.cfg.get("save_frequency", 1) or 1), 1)
             if (epoch + 1) % save_freq == 0 or epoch == self.num_epochs - 1:
-                save_checkpoint(self.cfg.save_weights_root, epoch, model,
-                                optimizer, step)
-            print("-" * 110)
+                if self.is_main:
+                    save_checkpoint(self.cfg.save_weights_root, epoch, model,
+                                    optimizer, step)
+                if is_active():
+                    dist.barrier()
+            if self.is_main:
+                print("-" * 110)
             if max_steps is not None and step >= max_steps:
                 break
         self.logger.close()
@@ -175,12 +203,14 @@ class Trainer:
         overflow clears the count."""
         if overflow and overflow > 0:
             self._overflow_strikes = getattr(self, "_overflow_strikes", 0) + 1
-            print(f"WARNING: warp window overflow {overflow:.0f} px "
-                  f"(strike {self._overflow_strikes}) — a static warp "
-                  "window truncated real content this step")
+            if self.is_main:
+                print(f"WARNING: warp window overflow {overflow:.0f} px "
+                      f"(strike {self._overflow_strikes}) — a static warp "
+                      "window truncated real content this step")
             if self._overflow_strikes >= 2 and self.model.warp_window:
-                print("WARNING: persistent warp-window overflow — "
-                      "falling back to dense warps")
+                if self.is_main:
+                    print("WARNING: persistent warp-window overflow — "
+                          "falling back to dense warps")
                 self.model.warp_window = False
                 self.model.warp_window_hw = None
                 self._overflow_strikes = 0

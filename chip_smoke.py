@@ -4159,7 +4159,7 @@ DDP_CONFIG = ROOT / "configs" / "ddad" / "ddad_surround_fusion_ddp.yaml"
 DP_WORLD = 2
 DP_STEP = 3                 # the global step of the compared update
 DP_TIMED_STEPS = 2          # each rank's steps after the compared one
-DP_DEADLINE_S = 600         # the two ranks, both cells, start-up included
+DP_DEADLINE_S = 600         # a world's ranks, all its cells, start-up included
 DP_DEVICE = "cuda"          # the ranks' device ("cpu" rehearses the phase)
 # (label, mixed precision, FakeDataset rig, windows sized from the batch):
 # the 6-camera f32 step and the bench's cell (bf16, the "nuscenes" rig,
@@ -4167,6 +4167,11 @@ DP_DEVICE = "cuda"          # the ranks' device ("cpu" rehearses the phase)
 DP_CELLS = (("6-camera f32", False, "even", False),
             ("6-camera bf16 nuscenes (the bench's cell)", True, "nuscenes",
              True))
+# the camera-axis worlds, (data, cam, cells): each rank runs its cameras
+# of its data shard's batch, which is the global batch of DP_WORLD samples
+# split over the data shards, so every cell is held against the same
+# single-process step as the two data-parallel ranks
+CAM_WORLDS = ((1, 2, DP_CELLS), (2, 2, DP_CELLS[1:]))
 
 
 def dp_config(mp: bool):
@@ -4195,33 +4200,45 @@ def carry_adam_state(opt, model, seed: int = 0):
                         ).to(p.device))
 
 
-def dp_cell_step(cell, device, rank: int = 0, world: int = 1):
+def dp_cell_step(cell, device, rank: int = 0, world: int = 1, grid=None):
     """One cell's step from the seeded model (seed ``rank``: under a group
-    the set-up broadcast replaces rank 1's weights with rank 0's) and a
-    carried Adam state: the global batch's first ``world``-th for this
-    rank (all of it in one process), the global tie-break noise drawn from
+    the set-up broadcast replaces the other ranks' weights with rank 0's)
+    and a carried Adam state: the global batch's first ``world``-th for
+    this rank (all of it in one process; under a camera-axis ``grid`` its
+    data shard's part, its cameras), the global tie-break noise drawn from
     one seed. Then ``DP_TIMED_STEPS`` more steps, timed. Returns the
-    results on the host."""
-    from vfdepth_tpu_torch.parallel import reduce_logs
+    results on the host, with the compared step's launches, collectives
+    by site and peak memory."""
+    from vfdepth_tpu_torch.parallel import COUNTS, reduce_logs
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
     label, mp, rig, windows = cell
     cfg = dp_config(mp)
     ds = _dataset(cfg, DP_WORLD, rig)
-    per = DP_WORLD // world
-    batch = ds.batch(list(range(rank * per, (rank + 1) * per)))
+    shard, shards = (grid.d, grid.data) if grid is not None else (rank, world)
+    per = DP_WORLD // shards
+    batch = ds.batch(list(range(shard * per, (shard + 1) * per)))
     model = VFDepthModel(cfg, device=device, seed=rank)
+    model.shard_cameras(grid)
     opt = create_train_state(model, batch=batch if windows else None,
                              rigs=ds.rig_calibrations() if windows else None)
     carry_adam_state(opt, model)
     before = {k: v.detach().cpu().clone()
               for k, v in model.state_dict().items()}
     reset_counts()
+    collectives = dict(COUNTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     logs = train_step(model, opt, batch, DP_STEP,
                       torch.Generator(device).manual_seed(1000))
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     out = dict(counts=read_counts(), logs=reduce_logs(logs),
-               windows=(model.warp_window, model.warp_window_hw),
+               collectives={k: v - collectives.get(k, 0)
+                            for k, v in COUNTS.items()
+                            if v != collectives.get(k, 0)},
+               peak_gib=peak, windows=(model.warp_window,
+                                       model.warp_window_hw),
                before=before,
                grads={k: p.grad.detach().cpu().clone()
                       for k, p in model.named_parameters()},
@@ -4239,28 +4256,32 @@ def dp_cell_step(cell, device, rank: int = 0, world: int = 1):
     return out
 
 
-def dp_rank(rank: int, work: str):
-    """A rank of the two that share the card over gloo (NCCL refuses two
-    ranks on one device): every cell's step, saved to ``rank<r>.pt``. The
-    kernels are already built: ``_build`` finds their libraries."""
+def dp_rank(rank: int, work: str, world: int = DP_WORLD, cam: int = 1,
+            cells=DP_CELLS):
+    """A rank of the ``world`` that share the card over gloo (NCCL refuses
+    two ranks on one device): every cell's step, saved to ``rank<r>.pt``.
+    With ``cam`` > 1 the ranks form the (world / cam, cam) camera-axis
+    grid. The kernels are already built: ``_build`` finds their
+    libraries."""
     import hashlib
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT))
-    from vfdepth_tpu_torch.parallel import (COUNTS,
+    from vfdepth_tpu_torch.parallel import (COUNTS, make_grid_2d,
                                             maybe_initialize_distributed)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_WORLD))
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK="0")
     maybe_initialize_distributed(
         DP_DEVICE, backend="gloo",
         init_method=f"file://{Path(work) / 'store'}", timeout_s=DP_DEADLINE_S)
     device = (torch.device("cuda", torch.cuda.current_device())
               if DP_DEVICE == "cuda" else torch.device(DP_DEVICE))
+    grid = make_grid_2d(world // cam, cam) if cam > 1 else None
     results = []
-    for cell in DP_CELLS:
-        out = dp_cell_step(cell, device, rank, DP_WORLD)
+    for cell in cells:
+        out = dp_cell_step(cell, device, rank, world, grid)
         digest = hashlib.sha256()
         for k in sorted(out["state"]):
             digest.update(out["state"][k].numpy().tobytes())
@@ -4279,106 +4300,168 @@ def _rel_l2(a, b) -> float:
             / b.float().norm().clamp_min(1e-30)).item()
 
 
-def run_two_ranks(device, paths, tmp: Path):
-    """Two ranks time-sharing the card over gloo, each cell's step at batch
-    1 a rank held against the single-process step at batch 2 from the same
-    weights, global batch and global noise: loss and logs within the step
-    tolerance, each gradient, each parameter's update (after Adam from a
-    carried state) and each BatchNorm statistic within the gradient
-    tolerance (relative L2); the ranks' states bit-identical; each rank's
-    launches a step equal to the single-process step's; the windows
-    equal."""
-    import torch.multiprocessing as mp
-    from vfdepth_tpu_torch.ops import _build
+def dp_refs(device):
+    """Each cell's single-process step at the global batch (DP_WORLD)."""
     refs = []
     for cell in DP_CELLS:
         refs.append(dp_cell_step(cell, device))
         print(f"{cell[0]} single-process step at batch {DP_WORLD}: loss "
               f"{refs[-1]['logs']['total_loss']:.6f}, windows "
               f"{refs[-1]['windows']}, step ms "
-              f"{[round(m, 3) for m in refs[-1]['ms']]}", flush=True)
+              f"{[round(m, 3) for m in refs[-1]['ms']]}, peak "
+              f"{refs[-1]['peak_gib']:.3f} GiB", flush=True)
+    return refs
+
+
+def spawn_ranks(tmp: Path, what: str, world: int, cam: int = 1,
+                cells=DP_CELLS):
+    """``world`` ranks of ``dp_rank`` over gloo on the card; their results
+    and the wall time. A rank must build no kernel."""
+    import torch.multiprocessing as mp
+    from vfdepth_tpu_torch.ops import _build
     built = set(_build.BUILD_DIR.iterdir())
     t = time.perf_counter()
-    ctx = mp.spawn(dp_rank, args=(str(tmp),), nprocs=DP_WORLD, join=False)
+    ctx = mp.spawn(dp_rank, args=(str(tmp), world, cam, cells),
+                   nprocs=world, join=False)
     deadline = time.monotonic() + DP_DEADLINE_S
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
             for proc in ctx.processes:
                 proc.kill()
-            check(False, f"two ranks: not done in {DP_DEADLINE_S} s")
+            check(False, f"{what}: not done in {DP_DEADLINE_S} s")
     wall = time.perf_counter() - t
     check(set(_build.BUILD_DIR.iterdir()) == built,
-          "two ranks: a rank built a kernel")
-    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
-             for r in range(DP_WORLD)]
+          f"{what}: a rank built a kernel")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(world)], wall
+
+
+def hold_cell(cell, ref, got, what, want_counts, paths):
+    """The ranks' step of ``cell`` against the single-process step ``ref``
+    at the same global batch, weights and noise: loss and logs within the
+    step tolerance, each gradient, each parameter's update (after Adam from
+    a carried state) and each BatchNorm statistic within the gradient
+    tolerance (relative L2); the ranks' states bit-identical and their
+    logs equal; each rank's launches ``want_counts``; the windows equal.
+    Each rank joins ``paths``."""
+    label, mp_ = cell[0], cell[1]
+    loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
+                            if mp_ else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
+    for r, out in enumerate(got):
+        check(out["digest"] == got[0]["digest"],
+              f"{label}, {what}: rank {r}'s state differs from rank 0's")
+        check(out["counts"] == want_counts,
+              f"{label}, {what} rank {r}: launches {out['counts']}, "
+              f"expected {want_counts}")
+        check(out["windows"] == ref["windows"],
+              f"{label}, {what} rank {r}: windows {out['windows']} vs "
+              f"{ref['windows']}")
+        check(out["logs"] == got[0]["logs"],
+              f"{label}, {what}: the ranks' reduced logs differ")
+    g = got[0]
+    log_err = {k: abs(g["logs"][k] - w) / max(abs(w), 1e-3)
+               for k, w in ref["logs"].items()}
+    check(set(g["logs"]) == set(ref["logs"]), f"{label}: log keys")
+    check(all(math.isfinite(v) for v in g["logs"].values()),
+          f"{label}: logs {g['logs']}")
+    worst_log = max(log_err, key=log_err.get)
+    check(log_err[worst_log] <= loss_rtol,
+          f"{label}, {what}: log {worst_log} {g['logs'][worst_log]} vs "
+          f"{ref['logs'][worst_log]}")
+    params = set(g["grads"])
+    grad_err = {k: _rel_l2(g["grads"][k], w)
+                for k, w in ref["grads"].items()}
+    upd_err = {k: _rel_l2(g["state"][k] - g["before"][k],
+                          ref["state"][k] - ref["before"][k])
+               for k in params}
+    stat_err = {k: _rel_l2(g["state"][k], w)
+                for k, w in ref["state"].items()
+                if k.endswith(("running_mean", "running_var"))}
+    for kind, errs in (("gradient", grad_err), ("update", upd_err),
+                       ("BatchNorm statistic", stat_err)):
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= grad_rtol, f"{label}, {what}: {kind} of "
+              f"{worst} differs by {errs[worst]} (relative L2)")
+    check(all(torch.equal(g["before"][k], ref["before"][k])
+              for k in ref["before"]),
+          f"{label}, {what}: rank 0 did not start from the seeded weights")
+    for r, out in enumerate(got):
+        paths[f"{label} {what}, rank {r}"] = dict(launches=out["counts"],
+                                                  ms=out["ms"])
+    print(f"{label}, {what} against one process at batch {DP_WORLD}: loss "
+          f"{g['logs']['total_loss']:.7f} vs {ref['logs']['total_loss']:.7f};"
+          f" worst log {worst_log} {log_err[worst_log]:.2e} (tol "
+          f"{loss_rtol:.0e}); worst relative L2: gradient "
+          f"{max(grad_err.values()):.2e}, update {max(upd_err.values()):.2e},"
+          f" BatchNorm statistic {max(stat_err.values()):.2e} (tol "
+          f"{grad_rtol:.0e}); ranks bit-identical; windows {g['windows']}",
+          flush=True)
+    for r, out in enumerate(got):
+        print(f"{label}, {what} rank {r}: launches "
+              f"{({k: v for k, v in out['counts'].items() if v})}, "
+              f"collectives {dict(sorted(out['collectives'].items()))}, "
+              f"step ms {[round(m, 3) for m in out['ms']]}, peak "
+              f"{out['peak_gib']:.3f} GiB", flush=True)
+    print(f"{label}, {what}: one process at batch {DP_WORLD}: step ms "
+          f"{[round(m, 3) for m in ref['ms']]}, peak {ref['peak_gib']:.3f} "
+          f"GiB (ranks time-share one card over gloo: not a multi-GPU "
+          f"speed)", flush=True)
+
+
+def run_two_ranks(device, paths, tmp: Path, refs):
+    """Two ranks time-sharing the card over gloo, each cell's step at batch
+    1 a rank held against the single-process step at batch 2
+    (``hold_cell``); each rank launches what the single-process step
+    launches."""
+    ranks, wall = spawn_ranks(tmp, "two ranks", DP_WORLD)
     counts = ranks[0][-1]
     print(f"two ranks over gloo on one card: spawned, both cells run in "
           f"{wall:.1f} s; rank 0's collectives by site {counts}", flush=True)
     for site in ("broadcast", "batch_norm", "loss", "gradients", "logs"):
         check(counts.get(site, 0) > 0, f"two ranks: no {site} collective")
     for i, (cell, ref) in enumerate(zip(DP_CELLS, refs)):
-        label, mp_ = cell[0], cell[1]
-        loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
-                                if mp_ else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
+        hold_cell(cell, ref, [r[i] for r in ranks], "two ranks over gloo",
+                  ref["counts"], paths)
+    del ranks
+    torch.cuda.empty_cache()
+
+
+def per_camera_launches(counts):
+    """A step's launches with its back-projection per camera: K1 / K2 (and
+    their bf16 forms) counted as K1b / K2b, as a rank of the camera-axis
+    grid back-projects its cameras."""
+    out = dict(counts)
+    for grouped, per_cam in (("K1", "K1b"), ("K2", "K2b")):
+        for tag in ("", "-bf16"):
+            out[per_cam + tag] += out[grouped + tag]
+            out[grouped + tag] = 0
+    return out
+
+
+def run_cam_world(device, paths, tmp: Path, refs, data: int, cam: int,
+                  cells):
+    """The (data, cam) camera-axis grid of data * cam ranks sharing the
+    card over gloo: each cell's step held against the single-process step
+    at the same global batch (``hold_cell``); every rank launches the
+    per-camera back-projection (K1b / K2b), K3, K4 and K5 as often as one
+    process launches K1 / K2, K3, K4 and K5, and takes two cam-group
+    all-reduces (the back-projection's group sums and count)."""
+    world = data * cam
+    what = f"(data {data}, cam {cam}) grid of {world} ranks over gloo"
+    ranks, wall = spawn_ranks(tmp, what, world, cam, cells)
+    print(f"{what} on one card: spawned, {len(cells)} cell(s) run in "
+          f"{wall:.1f} s; rank 0's collectives by site {ranks[0][-1]}",
+          flush=True)
+    for i, cell in enumerate(cells):
+        ref = refs[DP_CELLS.index(cell)]
         got = [r[i] for r in ranks]
-        check(got[0]["digest"] == got[1]["digest"],
-              f"{label}: the ranks' states differ")
         for r, out in enumerate(got):
-            check(out["counts"] == ref["counts"],
-                  f"{label} rank {r}: launches {out['counts']}, the "
-                  f"single-process step's {ref['counts']}")
-            check(out["windows"] == ref["windows"],
-                  f"{label} rank {r}: windows {out['windows']} vs "
-                  f"{ref['windows']}")
-            check(out["logs"] == got[0]["logs"],
-                  f"{label}: the ranks' reduced logs differ")
-        g = got[0]
-        log_err = {k: abs(g["logs"][k] - w) / max(abs(w), 1e-3)
-                   for k, w in ref["logs"].items()}
-        check(set(g["logs"]) == set(ref["logs"]), f"{label}: log keys")
-        check(all(math.isfinite(v) for v in g["logs"].values()),
-              f"{label}: logs {g['logs']}")
-        worst_log = max(log_err, key=log_err.get)
-        check(log_err[worst_log] <= loss_rtol,
-              f"{label}: log {worst_log} {g['logs'][worst_log]} vs "
-              f"{ref['logs'][worst_log]}")
-        params = set(g["grads"])
-        grad_err = {k: _rel_l2(g["grads"][k], w)
-                    for k, w in ref["grads"].items()}
-        upd_err = {k: _rel_l2(g["state"][k] - g["before"][k],
-                              ref["state"][k] - ref["before"][k])
-                   for k in params}
-        stat_err = {k: _rel_l2(g["state"][k], w)
-                    for k, w in ref["state"].items()
-                    if k.endswith(("running_mean", "running_var"))}
-        for what, errs in (("gradient", grad_err), ("update", upd_err),
-                           ("BatchNorm statistic", stat_err)):
-            worst = max(errs, key=errs.get)
-            check(errs[worst] <= grad_rtol, f"{label}: {what} of {worst} "
-                  f"differs by {errs[worst]} (relative L2)")
-        check(all(torch.equal(g["before"][k], ref["before"][k])
-                  for k in ref["before"]),
-              f"{label}: rank 0 did not start from the seeded weights")
-        for r, out in enumerate(got):
-            paths[f"{label} two ranks over gloo, rank {r}"] = dict(
-                launches=out["counts"], ms=out["ms"])
-        print(f"{label}, two ranks at batch 1 against one process at batch "
-              f"{DP_WORLD}: loss {g['logs']['total_loss']:.7f} vs "
-              f"{ref['logs']['total_loss']:.7f}; worst log {worst_log} "
-              f"{log_err[worst_log]:.2e} (tol {loss_rtol:.0e}); worst "
-              f"relative L2: gradient {max(grad_err.values()):.2e}, update "
-              f"{max(upd_err.values()):.2e}, BatchNorm statistic "
-              f"{max(stat_err.values()):.2e} (tol {grad_rtol:.0e}); ranks "
-              f"bit-identical; launches a step "
-              f"{({k: v for k, v in ref['counts'].items() if v})} on each "
-              f"rank; windows {g['windows']}", flush=True)
-        print(f"{label}: step ms of two ranks time-sharing one card over "
-              f"gloo (not a data-parallel speed): rank 0 "
-              f"{[round(m, 3) for m in got[0]['ms']]}, rank 1 "
-              f"{[round(m, 3) for m in got[1]['ms']]}; one process at "
-              f"batch {DP_WORLD} {[round(m, 3) for m in ref['ms']]}",
-              flush=True)
-    del refs, ranks
+            check(out["collectives"].get("cam_fusion") == 2,
+                  f"{cell[0]}, {what} rank {r}: collectives "
+                  f"{out['collectives']}")
+        hold_cell(cell, ref, got, what, per_camera_launches(ref["counts"]),
+                  paths)
+    del ranks
     torch.cuda.empty_cache()
 
 
@@ -4439,14 +4522,22 @@ def run_nccl_cli(tmp: Path):
 
 def run_data_parallel(device, paths):
     """The data-parallel phases: a torchrun-style NCCL world of one through
-    the training command line, then two ranks sharing the card over
-    gloo."""
+    the training command line, then two ranks sharing the card over gloo,
+    then the camera-axis grids (``CAM_WORLDS``), every world's cells held
+    against the same single-process steps."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp_dir:
         tmp = Path(tmp_dir)
         (tmp / "cli").mkdir()
-        (tmp / "ranks").mkdir()
         run_nccl_cli(tmp / "cli")
-        run_two_ranks(device, paths, tmp / "ranks")
+        refs = dp_refs(device)
+        (tmp / "ranks").mkdir()
+        run_two_ranks(device, paths, tmp / "ranks", refs)
+        for data, cam, cells in CAM_WORLDS:
+            work = tmp / f"cam_{data}x{cam}"
+            work.mkdir()
+            run_cam_world(device, paths, work, refs, data, cam, cells)
+        del refs
+        torch.cuda.empty_cache()
 
 
 def profile(label, fn, top: int = 14):

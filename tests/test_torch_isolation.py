@@ -28,7 +28,7 @@ TRAINING_MODULES = ("geometry.view_rendering", "losses.primitives",
                     "eval", "train", "data.depth_projection", "native",
                     "data.transforms", "data.ddad", "data.nuscenes",
                     "ops.grid_sample", "training.synthesis",
-                    "parallel", "parallel.distributed",
+                    "parallel", "parallel.distributed", "parallel.mesh",
                     "parallel.data_parallel")
 # files outside both packages that import JAX: the JAX package's own entry
 # points and scripts, and the one converter that carries its checkpoints

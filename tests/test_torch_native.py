@@ -6,7 +6,10 @@ outputs are equal, bit for bit, on f32 and uint8 frames, at a small size
 and at DDAD's native 1216x1936 -> 384x640. The port builds its library
 under the gitignored ``build/native/``, never beside the source, and
 raises when the build fails (the JAX package warns and falls back).
+JAX's side runs from the library ``helpers_jax_native`` builds (its own
+in-place build races under ``-n 6``).
 """
+import os
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +17,8 @@ import pytest
 
 from vfdepth_tpu import native as jnative
 from vfdepth_tpu_torch import native
+import helpers_jax_native
+from helpers_jax_native import jax_native  # noqa: F401
 from helpers_torch_threads import port_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -24,7 +29,7 @@ ROOT = Path(__file__).resolve().parent.parent
                                           ((2, 1216, 1936, 3), (384, 640)),
                                           ((1, 8, 8, 2), (8, 8))],
                          ids=["small", "ddad", "identity"])
-def test_resize_equals_jax(dtype, shape, out_hw):
+def test_resize_equals_jax(jax_native, dtype, shape, out_hw):
     rng = np.random.RandomState(0)
     imgs = rng.rand(*shape).astype(np.float32)
     if dtype == "uint8":
@@ -64,3 +69,13 @@ def test_library_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     src.write_text(native.SOURCE.read_text() + "\n// edited\n")
     monkeypatch.setattr(native, "SOURCE", src)
     assert native.library_path().name != first.name
+
+
+def test_jax_library_is_built_privately(jax_native):
+    """JAX's loader reads the helper's library: under the gitignored
+    ``build/jax_native/``, moved into place whole (no temporary file is
+    left), never the one JAX builds beside its source."""
+    path = helpers_jax_native.library()
+    assert path.parent == ROOT / "build" / "jax_native" and path.is_file()
+    assert jnative._LIB == str(path) and jnative.get_lib() is jax_native
+    assert not list(path.parent.glob(f"{path.name}.{os.getpid()}.tmp"))

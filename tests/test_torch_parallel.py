@@ -358,7 +358,8 @@ def test_training_loop(runs):
     0's do not, and both note the overflow's maximum at each checkpoint and
     fall back to dense warps at the second; only rank 0 validates and
     writes files; the ranks end bit-identical. ``tpu.cam_parallel_size``
-    2 on 2 ranks raises, naming ROADMAP A3b."""
+    3 on 2 ranks raises (a world not a multiple of it), naming ROADMAP
+    A3b."""
     files = runs["loop_files"]
     assert files[1] == []
     assert any(p.parts[0] == "models" for p in files[0]), files[0]

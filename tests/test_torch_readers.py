@@ -11,7 +11,9 @@ train mode (colour jitter on) and in val mode (off), over two epochs
 sample must be equal: the readers are copies, the native resize is built
 from the same source with the same flags, and the jitter draws from the
 same seeds. Depth caches are off (``cache_depth=False``), so neither
-package reads a file the other wrote.
+package reads a file the other wrote. JAX's resize runs from the library
+``helpers_jax_native`` builds (its in-place build races under ``-n 6``);
+each test first asserts that JAX's loader has it.
 """
 from pathlib import Path
 
@@ -25,7 +27,10 @@ from vfdepth_tpu.data.nuscenes import NuScenesDataset as JaxNuScenes
 from vfdepth_tpu_torch import presets
 from vfdepth_tpu_torch.data import DDADDataset, NuScenesDataset
 from vfdepth_tpu_torch.data.factory import construct_dataset
+from helpers_jax_native import jax_native  # noqa: F401
 from helpers_torch_threads import port_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 ROOT = Path(__file__).resolve().parent.parent
 JITTER = (0.2, 0.2, 0.2, 0.05)

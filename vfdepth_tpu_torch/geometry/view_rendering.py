@@ -274,7 +274,10 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
                  depth_aug: Optional[torch.Tensor] = None,
                  min_depth: float = 1.5, max_depth: float = 200.0,
                  windows: Optional[WarpWindows] = None,
-                 plain: bool = False) -> RenderOutputs:
+                 plain: bool = False,
+                 src_colors: Optional[Dict[int, torch.Tensor]] = None,
+                 src_mask: Optional[torch.Tensor] = None,
+                 src_k: Optional[torch.Tensor] = None) -> RenderOutputs:
     """Render every warped view the losses need for one scale.
 
     colors: frame id -> [b, cams, H, W, 3]; mask [b, cams, H, W, 1]; k /
@@ -290,6 +293,13 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
     ``st_origin`` windows, each kind where it is given, dense otherwise
     (``warp_image_window``). ``plain`` runs the warp kernel's plain version
     on any device.
+
+    ``src_colors`` / ``src_mask`` / ``src_k``, where given, are the
+    neighbours' side of the spatial and spatio-temporal warps: the whole
+    rig's [b, all cams, ...], which ``rel_cam``'s indices name, while the
+    other arguments (and ``rel_cam``'s rows) hold the target cameras only
+    (a rank of the camera-axis grid, ``parallel/mesh.py``). By default the
+    targets are the whole rig and their own sources.
     """
     if aug_depth and (extrinsics is None or extrinsics_aug is None
                       or depth_aug is None):
@@ -312,9 +322,10 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
 
     overlap_img = overlap_mask = None
     if spatio or spatio_temporal:
+        src_colors = colors if src_colors is None else src_colors
         n_nbr = rel_cam.shape[1]
-        nbr_mask = mask[:, rel_idx]
-        nbr_k = k[:, rel_idx]
+        nbr_mask = (mask if src_mask is None else src_mask)[:, rel_idx]
+        nbr_k = (k if src_k is None else src_k)[:, rel_idx]
         depn, invkn = _bcast(depth, n_nbr), _bcast(inv_k, n_nbr)
 
         def overlap_for(frame_colors, pose, origin=None, box_hw=None):
@@ -336,10 +347,10 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
 
         sp_win = windows is not None and windows.spatio_origin is not None
         st_win = windows is not None and windows.st_origin is not None
-        outs = [overlap_for(colors[0], spatio_pose,
+        outs = [overlap_for(src_colors[0], spatio_pose,
                             windows.spatio_origin if sp_win else None,
                             windows.spatio_hw if sp_win else None)]
-        outs += [overlap_for(colors[f], spatio_tempo_pose[:, :, fi],
+        outs += [overlap_for(src_colors[f], spatio_tempo_pose[:, :, fi],
                              windows.st_origin[:, :, fi] if st_win else None,
                              windows.st_hw if st_win else None)
                  for fi, f in enumerate(ctx_ids)]

@@ -152,7 +152,8 @@ def compute_windows(inv_k: torch.Tensor, k: torch.Tensor,
                     height: int, width: int, spatio_hw: Optional[BoxHW],
                     st_hw: Optional[BoxHW], min_depth: float,
                     max_depth: float, focal_length_scale: float,
-                    st_depth: Optional[torch.Tensor] = None) -> WarpWindows:
+                    st_depth: Optional[torch.Tensor] = None,
+                    src_k: Optional[torch.Tensor] = None) -> WarpWindows:
     """The windows of one step's spatial and spatio-temporal warps.
 
     inv_k / k [b, cams, 4, 4] (scale 0); spatio_pose [b, cams, n_nbr, 4, 4]
@@ -162,6 +163,10 @@ def compute_windows(inv_k: torch.Tensor, k: torch.Tensor,
     spatio-temporal masks from that depth (``_st_actual_include``); without
     it they bound a worst-case motion interval, per context frame. No
     gradient flows: origins are integers and the overflow a count.
+    ``src_k`` (the whole rig's, [b, all cams, 4, 4]), where given, holds
+    the sources ``rel_idx`` names while the rest holds the target cameras
+    only (a rank of the camera-axis grid); by default the sources are
+    ``k``'s.
     """
     with torch.no_grad():
         geo = torch.float32
@@ -176,7 +181,8 @@ def compute_windows(inv_k: torch.Tensor, k: torch.Tensor,
         fx = k[..., 0, 0].to(geo)                                # [b, cams]
         d_lo = min_depth * fx / focal_length_scale
         d_hi = max_depth * fx / focal_length_scale
-        src_k = k[:, rel_idx].to(geo)                    # [b, cams, n_nbr, 4, 4]
+        src_k = (k if src_k is None else src_k)[:, rel_idx].to(geo)
+        # src_k: [b, cams, n_nbr, 4, 4]
 
         def windows_for(pose, box_hw):                   # [b, cams, n_nbr, 4, 4]
             near, pole = _include_masks(

@@ -21,6 +21,18 @@ take their batch means over the ranks (``batch_mean``). The plain batch
 means (smoothness, pose consistency, the synthesis smoothness) stay
 per rank: every rank holds the same batch size, so the ranks' mean of
 them is the global one, and ``parallel.reduce_logs`` averages the logs.
+
+The camera-axis grid (``parallel/mesh.py``): inside its
+``camera_shard()``, as its training forward runs the loss, the batch holds
+this rank's cameras and the renders warp into them. Every per-camera
+vector is then assembled into the rig's before the camera mean: the
+masked means' numerators and denominators (``percam_sum``) and the
+smoothness's batch means (``percam_mean``), each by one world all-reduce
+of the vector at its cameras' places. Every rank so computes the whole
+global loss, and the mean of the ranks' gradients is its gradient.
+``cam_t_cam`` stays the whole rig's (the pose is replicated), so the pose
+logs and the cold-start priors read every camera, and the priors' batch
+means average over the world.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from .primitives import (_smoothness_maps, auto_mask, mean_normalized_disp,
 from ..geometry.se3 import matrix_to_euler_angles_xyz
 from ..ops import ties
 from ..parallel.data_parallel import batch_mean, batch_sum
+from ..parallel.mesh import percam_mean, percam_sum
 
 _EPSILON = 1e-5  # identity-loss tie-break noise scale
 
@@ -42,9 +55,10 @@ _EPSILON = 1e-5  # identity-loss tie-break noise scale
 def _percam_masked_mean(loss: torch.Tensor, mask: torch.Tensor
                         ) -> torch.Tensor:
     """Masked mean per camera: [b, cams, H, W, 1] -> [cams], over the global
-    batch inside ``global_batch()``."""
-    num = batch_sum((loss * mask).sum(dim=(0, 2, 3, 4)))
-    den = batch_sum(mask.sum(dim=(0, 2, 3, 4)))
+    batch inside ``global_batch()`` (and over the rig's cameras inside
+    ``camera_shard()``)."""
+    num = percam_sum((loss * mask).sum(dim=(0, 2, 3, 4)))
+    den = percam_sum(mask.sum(dim=(0, 2, 3, 4)))
     return num / (den + 1e-8)
 
 
@@ -216,14 +230,15 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
     st_coeff = (cfg.spatio_tempo_coeff if st_ramp is None
                 else cfg.spatio_tempo_coeff * st_ramp)
 
-    cam_loss = target.new_zeros(target.shape[1])
+    cam_loss = 0.0
     logs: Dict[str, torch.Tensor] = {}
     for si, scale in enumerate(cfg.scales):
         r = rendered[scale]
         reproj, reproj_map, amask = reprojection_loss(
             noise[si], target, context, r.temporal_img, ref_mask,
             amask_blend=amask_blend)
-        smooth = smoothness_loss(batch[f"color/0/{scale}"], disps[scale])
+        smooth = percam_mean(smoothness_loss(batch[f"color/0/{scale}"],
+                                             disps[scale]))
         scale_loss = reproj + cfg.disparity_smoothness * smooth / (2.0 ** scale)
 
         if cfg.spatio or cfg.spatio_temporal:

@@ -24,7 +24,11 @@ them (JAX's functional recompute discards its statistics).
 Under a process group (data parallelism, ``parallel/``), BatchNorm in train
 mode, and in its recompute, normalises with the GLOBAL batch's statistics,
 as JAX's BatchNorm over a batch sharded across devices does: see
-``BatchNorm``.
+``BatchNorm``. Under the camera-axis grid (``parallel/mesh.py``) the same
+world sum is right: every BatchNorm layer is in an encoder, which runs per
+camera on a rank's own cameras, so the ranks hold disjoint (sample,
+camera) pairs; the voxel stages that run replicated over a cam group hold
+no BatchNorm (``tests/test_torch_cam_parallel.py`` checks both).
 """
 from __future__ import annotations
 

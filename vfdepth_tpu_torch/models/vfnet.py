@@ -13,7 +13,11 @@ backward K2) for rigs whose two overlap groups are equal, the ungrouped one
 K3, backward K4 in the update dtype ``sampler_3d`` names; ``gather`` on a
 bf16 volume: the gather-bf16 forms of K3 and K4, ``Sample3dGather``),
 ``BEVFold`` and ``augment_extrinsics`` (the depth-synthesis branch's
-random rotation).
+random rotation). Under the camera-axis grid (``parallel/mesh.py``) a rank
+back-projects its own cameras per camera (K1b) and sums its members of
+each overlap group (``local_group_sums``); the cam group's all-reduce then
+gives every rank the two group sums, and the fusion, the pose branch's
+BEV and the frustum sample of its cameras run on them as on K1's.
 
 ``dtype`` is the compute dtype (``models/blocks.py``). Under mixed
 precision the back-projected features, the voxel volume and the frustum
@@ -218,6 +222,19 @@ class _GroupSums(torch.autograd.Function):
                 return d1 + d2
             return d1 if cam in g1 else d2 if cam in g2 else zero
         return torch.stack([per_cam(c) for c in range(cams)], dim=1), None, None
+
+
+def local_group_sums(feat: torch.Tensor, groups, cams: range
+                     ) -> torch.Tensor:
+    """One rank's part of the two overlap-group sums under the camera-axis
+    grid (``parallel/mesh.py``): per-camera feat [b, len(cams), n, C] of
+    the rig's cameras ``cams``, a contiguous block -> [b, 2, n, C], each
+    group summed over its members among ``cams`` in camera order, zeros
+    where it has none there (``_GroupSums``), laid out as K1's group sums.
+    The cam group's all-reduce completes them."""
+    g1 = [c - cams.start for c in groups[0] if c in cams]
+    g2 = [c - cams.start for c in groups[1] if c in cams]
+    return torch.stack(_GroupSums.apply(feat, g1, g2), dim=1)
 
 
 class VFNet(nn.Module):

@@ -47,7 +47,7 @@ import torch.distributed as dist
 from torch import nn
 
 from .distributed import (COUNTS, all_reduce_max, all_reduce_sum,
-                          broadcast_, is_active, rank_world)
+                          broadcast_, is_active, loader_shard, rank_world)
 
 # the scalar logs reduced by a maximum and a minimum over the ranks; the
 # others are means over the batch, or equal on every rank, and average
@@ -89,35 +89,37 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     return all_reduce_sum(x, "loss") / rank_world()[1]
 
 
-def local_slice(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """This rank's slice of a global-batch tensor along ``axis`` (rank r
-    takes the r-th of ``world`` equal parts); ``x`` itself in one
-    process."""
-    rank, world = rank_world()
-    if world == 1:
+def local_slice(x: torch.Tensor, axis: int, grid=None) -> torch.Tensor:
+    """This rank's slice of a global-batch tensor along ``axis`` (batch
+    shard r takes the r-th of the equal parts; under a ``grid`` r is the
+    data index); ``x`` itself in one process."""
+    shard, shards = loader_shard(grid)
+    if shards == 1:
         return x
-    n = x.shape[axis] // world
-    return x.narrow(axis, rank * n, n)
+    n = x.shape[axis] // shards
+    return x.narrow(axis, shard * n, n)
 
 
-def global_shape(shape: Iterable[int], axis: int) -> tuple:
+def global_shape(shape: Iterable[int], axis: int, grid=None) -> tuple:
     """A rank's draw shape with its batch ``axis`` over the global batch."""
     shape = list(shape)
-    shape[axis] *= rank_world()[1]
+    shape[axis] *= loader_shard(grid)[1]
     return tuple(shape)
 
 
-def gather_batch(x: torch.Tensor) -> torch.Tensor:
-    """The global batch of a per-rank batch tensor [b, ...]: the ranks'
-    batches in rank order, [world * b, ...], on every rank (an all-gather
-    by one sum of zero-padded slots, exact)."""
-    rank, world = rank_world()
+def gather_batch(x: torch.Tensor, grid=None) -> torch.Tensor:
+    """The global batch of a per-rank batch tensor [b, ...]: the batch
+    shards in order, [shards * b, ...], on every rank (an all-gather by
+    one sum of zero-padded slots, exact; under a ``grid`` over its data
+    group, one rank a shard)."""
     if not is_active():
         return x
-    slots = x.new_zeros((world,) + tuple(x.shape))
-    slots[rank] = x
-    return all_reduce_sum(slots, "windows").reshape(
-        (world * x.shape[0],) + tuple(x.shape[1:]))
+    shard, shards = loader_shard(grid)
+    slots = x.new_zeros((shards,) + tuple(x.shape))
+    slots[shard] = x
+    group = None if grid is None else grid.data_group
+    return all_reduce_sum(slots, "windows", group).reshape(
+        (shards * x.shape[0],) + tuple(x.shape[1:]))
 
 
 def broadcast_model(model: nn.Module) -> None:

@@ -18,8 +18,11 @@ The port's collectives are ``all_reduce``, ``broadcast`` and ``barrier``,
 which gloo also runs on CUDA tensors (through the host). Each
 ``all_reduce`` and ``broadcast`` adds one to ``COUNTS[site]``, ``site``
 naming the code path that called it (``"batch_norm"``, ``"loss"``,
-``"gradients"``, ...), so a run can show which global reductions it went
-through.
+``"gradients"``, ``"cam_fusion"``, ...), so a run can show which global
+reductions it went through. Each takes the process group it reduces over
+(``group``; None is the whole world): the camera-axis grid
+(``parallel/mesh.py``) reduces some sums over its cam group or its data
+group.
 """
 from __future__ import annotations
 
@@ -101,9 +104,11 @@ def is_main_process() -> bool:
     return rank_world()[0] == 0
 
 
-def loader_shard() -> Tuple[int, int]:
-    """(shard_index, num_shards) of this rank's data loader."""
-    return rank_world()
+def loader_shard(grid=None) -> Tuple[int, int]:
+    """(shard_index, num_shards) of this rank's data loader: its rank in
+    the world, or under a camera-axis ``grid`` (``parallel/mesh.py``) its
+    data index, so the ranks of one cam group read the same samples."""
+    return (grid.d, grid.data) if grid is not None else rank_world()
 
 
 def per_process_seed(seed: int) -> int:
@@ -114,41 +119,45 @@ def per_process_seed(seed: int) -> int:
 
 
 class _SumAllReduce(torch.autograd.Function):
-    """Sum over the ranks; its backward sums the cotangents over the ranks,
-    so the gradient of every rank's loss reaches the inputs it read."""
+    """Sum over the ranks of ``group``; its backward sums the cotangents
+    over the same ranks, so the gradient of every rank's loss reaches the
+    inputs it read."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor, site: str) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable (a new tensor)."""
+def all_reduce_sum(x: torch.Tensor, site: str, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (None: the world),
+    differentiable (a new tensor)."""
     COUNTS[site] += 1
-    return _SumAllReduce.apply(x)
+    return _SumAllReduce.apply(x, group)
 
 
-def all_reduce_max(x: torch.Tensor, site: str) -> torch.Tensor:
-    """The elementwise maximum of ``x`` over the ranks (a new tensor, no
-    gradient)."""
+def all_reduce_max(x: torch.Tensor, site: str, group=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``group`` (a new
+    tensor, no gradient)."""
     COUNTS[site] += 1
     y = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
 
-def broadcast_(tensors: Iterable[torch.Tensor], site: str) -> None:
+def broadcast_(tensors: Iterable[torch.Tensor], site: str,
+               group=None) -> None:
     """Overwrite ``tensors`` in place with rank 0's, one broadcast a
-    tensor."""
+    tensor (``group`` must hold rank 0)."""
     with torch.no_grad():
         for t in tensors:
             COUNTS[site] += 1
-            dist.broadcast(t, 0)
+            dist.broadcast(t, 0, group=group)

@@ -20,6 +20,12 @@ permutation (seed 42), ``batch_size`` samples a step: the global batch is N
 times the config's ``batch_size``, as in the JAX package's multi-process
 run and the reference's DDP. Rank 0 prints, logs and writes the
 checkpoints. Without a launcher the run is one process with no group.
+
+Camera-axis model parallelism: set ``tpu.cam_parallel_size`` (a divisor of
+the rig's cameras) in the yaml and launch N ranks, a multiple of it. The
+ranks form JAX's (N / cam, cam) grid (``parallel/mesh.py``): each cam group
+of ``cam`` ranks splits one batch shard's cameras, so the global batch is
+N / cam times ``batch_size``.
 """
 from __future__ import annotations
 
@@ -79,7 +85,10 @@ def train(cfg, max_steps: Optional[int] = None, device=None):
         # the card maybe_initialize_distributed set for this rank
         device = torch.device("cuda", torch.cuda.current_device())
     model = VFDepthModel(cfg, device=device)
-    shard_index, num_shards = loader_shard()
+    # the camera-axis grid, where the config asks for one, before the
+    # loaders: it decides their shard
+    trainer = Trainer(cfg, model, use_tb=is_main_process())
+    shard_index, num_shards = loader_shard(trainer.grid)
     train_ds = construct_dataset(cfg, "train")
     # the shuffle seed is the same on every rank: each takes its own
     # contiguous slice of one permutation, so the shards partition the
@@ -93,8 +102,6 @@ def train(cfg, max_steps: Optional[int] = None, device=None):
                                  num_workers=0)
     except (FileNotFoundError, ValueError):
         val_loader = None
-
-    trainer = Trainer(cfg, model, use_tb=is_main_process())
     return trainer.learn(train_loader, val_loader, max_steps=max_steps)
 
 

@@ -102,6 +102,19 @@ runs its loss inside ``parallel.global_batch()``), and
 every rank warps the same windows; ``predict`` and ``forward(...,
 train=False)`` hold no collective.
 
+Under the camera-axis grid (``shard_cameras``, ``parallel/mesh.py``: JAX's
+``tpu.cam_parallel_size``), the training forward runs on this rank's block
+of cameras: the merged encoders, the back-projection (per camera, K1b),
+the frustum sample (K3) and the decoder see only them, and the overlap
+groups' sums and the count are completed over the cam group by a
+differentiable all-reduce each before the fusion and the pose branch's
+BEV, which run replicated. The pose is distributed to every camera; the
+renders (K5) warp the whole rig's source images into this rank's cameras,
+and the loss assembles its per-camera vectors over every rank
+(``losses/composite.py``). ``aug_depth``, the fsm nets,
+``merge_backprojection: false`` and ``batch_pose_frames: false`` raise
+there (ROADMAP A3c).
+
 Config keys that name TPU alternates of one function map onto the port's
 one implementation (the CUDA kernel for CUDA tensors, its plain version
 for CPU tensors): ``tpu.sampler_2d`` and ``tpu.warp_op`` (K5 is the one
@@ -131,9 +144,11 @@ from ..models import (FusedDepthNet, FusedPoseNet, MonoDepthNet, MonoPoseNet,
                       unpack_cam_feat)
 from ..models.blocks import recomputing
 from ..models.torchvision_init import load_resnet_encoder_params
-from ..models.vfnet import augment_extrinsics
+from ..models.vfnet import augment_extrinsics, local_group_sums
 from ..ops.resize import resize_bilinear
 from ..parallel.data_parallel import gather_batch, global_batch
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import camera_shard, local_cameras
 from ..weights import init_random
 
 _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
@@ -257,6 +272,9 @@ class VFDepthModel(nn.Module):
         # explicit size applies to both kinds
         self.warp_window_hw = (hw, hw) if hw else None
         self.plain_samplers = False
+        self.num_cams = int(cfg.num_cams)
+        # the camera-axis grid of the training forward (shard_cameras)
+        self.cam_grid = None
         # the voxel keys only where a fusion net is built: the published fsm
         # configs (configs/*/*_baseline.yaml) have none, and the JAX
         # package, which reads them for every pair, cannot build those
@@ -298,6 +316,29 @@ class VFDepthModel(nn.Module):
                                        device=self.device).long()
         self.eval()
 
+    def shard_cameras(self, grid) -> None:
+        """Split the training forward's cameras over ``grid``
+        (``parallel/mesh.py``; None: every camera on this rank). The grid
+        covers the default training step of the fusion nets; the other
+        options raise, and nothing falls back to the unsharded step."""
+        if grid is not None:
+            unsupported = [
+                (self.aug_depth, "aug_depth"),
+                ("fsm" in (self.cfg.depth_model, self.cfg.pose_model),
+                 "the fsm nets"),
+                (not self.merge_backproject, "merge_backprojection: false"),
+                (not self.batch_pose_frames and len(self.frame_ids) > 2,
+                 "batch_pose_frames: false")]
+            for bad, what in unsupported:
+                if bad:
+                    raise NotImplementedError(
+                        f"tpu.cam_parallel_size {grid.cam}: {what} under the "
+                        f"camera axis is not ported yet (ROADMAP A3c)")
+            if self.num_cams % grid.cam:
+                raise ValueError(f"num_cams {self.num_cams} does not divide "
+                                 f"over {grid.cam} camera shards")
+        self.cam_grid = grid
+
     def configure_warp_window(self, batch: Mapping, rigs=None) -> None:
         """Size the static warp windows on the host (JAX
         ``configure_warp_window``): over every rig of ``batch`` (``K/0`` and
@@ -309,8 +350,9 @@ class VFDepthModel(nn.Module):
         neither overlap loss, and where the boxes would cover 90% of the
         image or more (dense is cheaper there). Under a process group
         ``batch`` is this rank's, and the boxes are sized over the global
-        batch (every rank's, gathered in one collective), so every rank
-        sizes the same boxes and turns them off alike."""
+        batch (every rank's, gathered in one collective; under the
+        camera-axis grid over its data group, one rank a batch shard), so
+        every rank sizes the same boxes and turns them off alike."""
         if not self.warp_window or self.warp_window_hw is not None:
             return
         if not (self.loss_cfg.spatio or self.loss_cfg.spatio_temporal):
@@ -318,7 +360,7 @@ class VFDepthModel(nn.Module):
             return
         rel = np.asarray(self.cfg.rel_cam_array)
         k_b, ext_b = (_host(gather_batch(torch.as_tensor(batch[key]).to(
-            self.device))) for key in ("K/0", "extrinsics"))
+            self.device), self.cam_grid)) for key in ("K/0", "extrinsics"))
         rig_list = [(k_b[i], ext_b[i]) for i in range(k_b.shape[0])]
         for k, ext in (rigs or []):
             rig_list.append((_host(k), _host(ext)))
@@ -358,10 +400,12 @@ class VFDepthModel(nn.Module):
     def _windows(self, x: Mapping[str, torch.Tensor],
                  spatio_pose: Optional[torch.Tensor],
                  st_pose: Optional[torch.Tensor],
-                 depth: Optional[torch.Tensor] = None
-                 ) -> Optional[WarpWindows]:
+                 depth: Optional[torch.Tensor], rel_cam: torch.Tensor,
+                 src_k: Optional[torch.Tensor]) -> Optional[WarpWindows]:
         """This step's windows (JAX ``_windows``), None where the warps
-        are dense. The poses and the depth enter without gradient."""
+        are dense. The poses and the depth enter without gradient.
+        ``rel_cam`` (the target cameras' rows of the neighbour indices) and
+        ``src_k`` as ``compute_windows`` takes them."""
         if not self.warp_window or self.warp_window_hw is None:
             return None
         if spatio_pose is None or st_pose is None:
@@ -369,11 +413,13 @@ class VFDepthModel(nn.Module):
         spatio_hw, st_hw = self.warp_window_hw
         st_depth = (depth.detach() if self.st_window_mode == "actual"
                     and depth is not None else None)
+        sources = {} if src_k is None else dict(src_k=src_k)
         return compute_windows(
             x["inv_K/0"], x["K/0"], spatio_pose.detach(), st_pose.detach(),
-            torch.clamp(self.rel_cam, min=0), self.rel_cam >= 0,
+            torch.clamp(rel_cam, min=0), rel_cam >= 0,
             self.height, self.width, spatio_hw, st_hw, self.min_depth,
-            self.max_depth, self.focal_length_scale, st_depth=st_depth)
+            self.max_depth, self.focal_length_scale, st_depth=st_depth,
+            **sources)
 
     def _remat_for(self, net: nn.Module) -> bool:
         """Whether ``net``'s train-mode calls are checkpointed (JAX
@@ -430,10 +476,16 @@ class VFDepthModel(nn.Module):
         return x
 
     def _predict_pose_depth(self, x: Mapping[str, torch.Tensor],
-                            extrinsics_aug: Optional[torch.Tensor] = None):
+                            extrinsics_aug: Optional[torch.Tensor] = None,
+                            rig: Optional[Mapping[str, torch.Tensor]] = None):
         """(cam_T_cam [b, cams, n_ctx, 4, 4], the depth net's outputs
         {'disp/{s}' [b, cams, h, w, 1], and 'disp/{s}/aug' where
-        ``extrinsics_aug`` is given}) from a batch already on the device."""
+        ``extrinsics_aug`` is given}) from a batch already on the device.
+
+        Given the whole ``rig`` (the camera-axis grid's training forward),
+        ``x`` holds this rank's cameras: the back-projection runs per
+        camera (K1b), its overlap-group sums and count are completed over
+        the cam group, and cam_T_cam covers the rig's every camera."""
         fk = f"K/{self.fusion_level + 1}"
         fik = f"inv_K/{self.fusion_level + 1}"
         ctx = self.frame_ids[1:]
@@ -455,7 +507,18 @@ class VFDepthModel(nn.Module):
         # identical, so the feature maps concatenate on channels
         cp = pose_feats.shape[-1]
         merged = torch.cat([pose_feats, depth_feats], dim=-1)
-        if self.grouped:
+        grouped = self.grouped or rig is not None
+        if rig is not None:
+            feat, _, count = backproject_features(
+                merged, x["mask"], x[fk], x["extrinsics_inv"],
+                plain=self.plain_samplers, **self.voxel)
+            loc = self.cam_grid.local_cams(self.num_cams)
+            group = self.cam_grid.cam_group
+            feat = all_reduce_sum(local_group_sums(
+                feat, self.groups, range(loc.start, loc.stop)), "cam_fusion",
+                group)
+            count = all_reduce_sum(count, "cam_fusion", group)
+        elif self.grouped:
             feat, count = backproject_features_grouped(
                 merged, x["mask"], x[fk], x["extrinsics_inv"],
                 groups=self.groups, plain=self.plain_samplers, **self.voxel)
@@ -472,14 +535,15 @@ class VFDepthModel(nn.Module):
 
         axisangle, translation = self._call(
             self.pose_net, self.pose_net.pose_from_backprojection, feat_pose,
-            count, n_ctx=n_ctx, grouped=self.grouped)
+            count, n_ctx=n_ctx, grouped=grouped)
         skips = [dfeats[i] for i in range(self.fusion_level)]
         disps = self._call(
             self.depth_net, self.depth_net.decode_from_backprojection,
             feat_depth, count, skips, x[fik], x["extrinsics"],
-            extrinsics_aug=extrinsics_aug, grouped=self.grouped,
+            extrinsics_aug=extrinsics_aug, grouped=grouped,
             plain=self.plain_samplers)
-        return self._cam_t_cam(axisangle, translation, x, bsz), disps
+        return self._cam_t_cam(axisangle, translation,
+                               x if rig is None else rig, bsz), disps
 
     def _cam_t_cam(self, axisangle: torch.Tensor, translation: torch.Tensor,
                    x: Mapping[str, torch.Tensor], bsz: int) -> torch.Tensor:
@@ -647,37 +711,68 @@ class VFDepthModel(nn.Module):
         ``temporal_mask``, ``overlap_img`` / ``overlap_mask`` where the
         overlap losses are on, ``reproj_map`` / ``reproj_mask``), for the
         logger's image panels.
+
+        Under the camera-axis grid (``shard_cameras``) the training forward
+        takes this rank's cameras of ``batch`` as its targets: ``noise``
+        then holds them only, and the outputs are theirs (``cam_T_cam``
+        the rig's); the loss is the global one (``parallel/mesh.py``).
         """
-        x = self._to_device(batch)
+        rig = self._to_device(batch)
+        grid = self.cam_grid if train else None
+        # the targets: this rank's cameras of every [b, cams, ...] array
+        # (JAX's batch_sharding_2d rule), the whole rig without a grid
+        x = {k: (local_cameras(v, grid, self.num_cams)
+                 if v.dim() >= 2 and v.shape[1] == self.num_cams else v)
+             for k, v in rig.items()}
         if noise is None or tuple(noise.shape) != self.noise_shape(x):
             raise ValueError(f"noise must have shape {self.noise_shape(x)}")
         with self._bn_mode(train):
-            cam_t_cam, disps, disps_aug, ext_aug = self._predict(x, aug_u)
+            if grid is None:
+                cam_t_all, disps, disps_aug, ext_aug = self._predict(x, aug_u)
+            else:
+                cam_t_all, out = self._predict_pose_depth(x, rig=rig)
+                disps = {s: out[f"disp/{s}"] for s in self.scales}
+                disps_aug = ext_aug = None
         k0 = x["K/0"]
         depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
         depths_aug = ({s: self.to_depth(disps_aug[s], k0)
                        for s in self.scales}
                       if disps_aug is not None else None)
+        # the target cameras' poses and neighbour rows; the neighbours are
+        # the rig's cameras
         spatio_pose, st_pose = relative_cam_poses(
-            x["extrinsics"], x["extrinsics_inv"], cam_t_cam, self.rel_cam)
+            rig["extrinsics"], rig["extrinsics_inv"], cam_t_all, self.rel_cam)
+        cam_t_cam, spatio_pose, st_pose = (
+            local_cameras(t, grid, self.num_cams)
+            for t in (cam_t_all, spatio_pose, st_pose))
+        rel_cam = local_cameras(self.rel_cam, grid, self.num_cams, axis=0)
+        # the warp sources in the compute dtype; the loss targets stay f32
+        src_colors = {f: rig[f"color/{f}/0"].to(self.compute_dtype
+                                                 or torch.float32)
+                      for f in self.frame_ids}
+        colors = {f: local_cameras(v, grid, self.num_cams)
+                  for f, v in src_colors.items()}
+        # under the grid the neighbours' side is the rig's
+        src_k = None if grid is None else rig["K/0"]
+        sources = ({} if grid is None else dict(
+            src_colors=src_colors, src_mask=rig["mask"], src_k=src_k))
         # the 'actual' spatio-temporal windows follow each scale's depth:
         # one set from the finest scale's, or one per scale with several
         per_scale = self.st_window_mode == "actual" and len(self.scales) > 1
         windows = (None if per_scale else self._windows(
-            x, spatio_pose, st_pose, depths[min(self.scales)]))
-        # the warp sources in the compute dtype; the loss targets stay f32
-        colors = {f: x[f"color/{f}/0"].to(self.compute_dtype or torch.float32)
-                  for f in self.frame_ids}
+            x, spatio_pose, st_pose, depths[min(self.scales)], rel_cam,
+            src_k))
         rendered, overflow = {}, None
         for s in self.scales:
-            win = (self._windows(x, spatio_pose, st_pose, depths[s])
+            win = (self._windows(x, spatio_pose, st_pose, depths[s], rel_cam,
+                                 src_k)
                    if per_scale else windows)
             if win is not None:
                 overflow = (win.overflow if overflow is None
                             else torch.maximum(overflow, win.overflow))
             rendered[s] = render_views(
                 colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
-                spatio_pose, st_pose, self.rel_cam, self.frame_ids,
+                spatio_pose, st_pose, rel_cam, self.frame_ids,
                 do_intensity_align=self.intensity_align,
                 spatio=self.loss_cfg.spatio,
                 spatio_temporal=self.loss_cfg.spatio_temporal,
@@ -685,16 +780,16 @@ class VFDepthModel(nn.Module):
                 extrinsics_aug=ext_aug,
                 depth_aug=depths_aug[s] if depths_aug else None,
                 min_depth=self.min_depth, max_depth=self.max_depth,
-                windows=win, plain=self.plain_samplers)
-        with global_batch(train):
+                windows=win, plain=self.plain_samplers, **sources)
+        with global_batch(train), camera_shard(grid, self.num_cams):
             loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
-                                    disps, depths, cam_t_cam, rendered,
+                                    disps, depths, cam_t_all, rendered,
                                     disps_aug=disps_aug,
                                     depths_aug=depths_aug, step=step)
         if overflow is not None:
             # > 0: a window truncated its warp this step (JAX :697-701)
             logs["warp_window_overflow"] = overflow
-        outputs = {"cam_T_cam": cam_t_cam}
+        outputs = {"cam_T_cam": cam_t_all}
         for s in self.scales:
             outputs[f"disp/{s}"] = disps[s]
             outputs[f"depth/{s}"] = depths[s]

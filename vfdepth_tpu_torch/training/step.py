@@ -22,6 +22,14 @@ Adam. The step then computes what JAX's sharded step computes over the
 global batch; ``parallel.reduce_logs`` turns a rank's logs into the global
 batch's.
 
+Under the camera-axis grid (``model.cam_grid``, ``parallel/mesh.py``) the
+ranks of one cam group hold the same batch shard, ``batch`` is that
+shard, and each rank takes the global tie-break noise's slice of both its
+batch shard (axis 1) and its cameras (axis 2). The gradients are still
+averaged over every rank: each rank's loss is the global one, so the mean
+of the ranks' gradients is the global loss's, per-camera and replicated
+parameters alike.
+
 The epoch loop around these steps is ``training/trainer.py``.
 """
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 from .model import VFDepthModel
 from ..parallel.data_parallel import (average_gradients, broadcast_model,
                                       global_shape, local_slice)
+from ..parallel.mesh import local_cameras
 
 
 def make_lr_schedule(learning_rate: float, scheduler_step_size: int,
@@ -123,13 +132,13 @@ def create_train_state(model: VFDepthModel, steps_per_epoch: int = 0,
 
 def noise_shape(model: VFDepthModel, batch: Mapping) -> Tuple[int, ...]:
     """The tie-break noise of the global batch (``model.noise_shape`` with
-    its batch axis, 1, over every rank's batch)."""
-    return global_shape(model.noise_shape(batch), 1)
+    its batch axis, 1, over every batch shard)."""
+    return global_shape(model.noise_shape(batch), 1, model.cam_grid)
 
 
 def aug_shape(model: VFDepthModel, batch: Mapping) -> Tuple[int, ...]:
     """The rotated views' draw of the global batch (batch axis 0)."""
-    return global_shape(model.aug_shape(batch), 0)
+    return global_shape(model.aug_shape(batch), 0, model.cam_grid)
 
 
 def _draw_noise(shape, generator: torch.Generator) -> torch.Tensor:
@@ -162,9 +171,10 @@ def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
     the noise, ``generator``. Both are the global batch's: under a process
     group ``batch`` is this rank's slice of it, the generator is seeded
     alike on every rank, and each rank takes its slice of the draws (the
-    noise's batch axis is 1, the rotations' 0); then the gradients are
-    averaged over the ranks. Returns this rank's scalar logs, detached, on
-    the model's device."""
+    noise's batch axis is 1, the rotations' 0; under the camera-axis grid
+    the noise's cameras, axis 2, too); then the gradients are averaged
+    over the ranks. Returns this rank's scalar logs, detached, on the
+    model's device."""
     for group in optimizer.param_groups:
         group["lr"] = lr_at(group, step)
     optimizer.zero_grad(set_to_none=True)
@@ -172,9 +182,12 @@ def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
         noise = _draw_noise(noise_shape(model, batch), generator)
     if aug_u is None:
         aug_u = _draw_aug(model, aug_shape(model, batch), generator)
-    _, loss, logs = model(batch, step=step, noise=local_slice(noise, 1),
+    grid = model.cam_grid
+    noise = local_cameras(local_slice(noise, 1, grid), grid, model.num_cams,
+                          axis=2)
+    _, loss, logs = model(batch, step=step, noise=noise,
                           aug_u=None if aug_u is None
-                          else local_slice(aug_u, 0))
+                          else local_slice(aug_u, 0, grid))
     loss.backward()
     average_gradients(model.parameters())
     optimizer.step()

@@ -27,8 +27,16 @@ the global batch's (``parallel.reduce_logs``: one sum, one maximum), the
 overflow's running maximum among them, before ``_note_warp_overflow``, so
 every rank falls back to dense warps at the same step; between log
 checkpoints there is no host sync. ``pretrain`` loads the same files on
-every rank. The camera-axis mesh (``tpu.cam_parallel_size`` > 1 with at
-least that many ranks, ROADMAP A3b) is not ported and raises.
+every rank.
+
+The camera-axis grid (JAX's 2-D mesh, ``parallel/mesh.py``): with
+``tpu.cam_parallel_size`` > 1 under a process group, the trainer builds
+the (world / cam, cam) grid by JAX's rule (``cam_grid_for``: a world not
+a multiple of cam, or num_cams not divisible by it, raises) and splits the
+model's training forward over it (``VFDepthModel.shard_cameras``, which
+raises for the options it does not cover yet); ``parallel.loader_shard(
+trainer.grid)`` is then the data index, so the ranks of one cam group read
+the same batches. The rank-0 rules above hold unchanged.
 
 Randomness is explicit: ``learn``'s ``seed`` seeds the ``torch.Generator``
 (on the model's device) that draws each step's tie-break noise and, under
@@ -57,7 +65,8 @@ from .step import (aug_shape, create_train_state, eval_step, noise_shape,
                    train_step)
 from ..data.loader import device_prefetch
 from ..parallel.data_parallel import reduce_logs
-from ..parallel.distributed import is_active, is_main_process, rank_world
+from ..parallel.distributed import is_active, is_main_process
+from ..parallel.mesh import cam_grid_for
 from ..utils.logger import Logger
 from ..utils.metrics import METRIC_NAMES, compute_depth_metrics
 
@@ -77,11 +86,9 @@ class Trainer:
         self.cfg = cfg
         self.model = model
         self.num_epochs = cfg.num_epochs
-        cam_par = int(cfg.get("cam_parallel_size", 1) or 1)
-        if cam_par > 1 and rank_world()[1] >= cam_par:
-            raise NotImplementedError(
-                f"tpu.cam_parallel_size {cam_par}: camera-axis model "
-                "parallelism is not ported yet (ROADMAP A3b)")
+        # the camera-axis grid by JAX's rule (None: data parallelism only)
+        self.grid = cam_grid_for(cfg, model.num_cams)
+        model.shard_cameras(self.grid)
         # rank 0 logs, validates and writes checkpoints
         self.is_main = is_main_process()
         self.logger = Logger(cfg, use_tb and self.is_main)

@@ -364,6 +364,25 @@ def stream_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiler_ms(fn, name: str, reps: int = 10) -> float:
+    """Device time a call of the kernels whose name holds ``name``, read by
+    ``torch.profiler`` over ``reps`` calls of ``fn`` after one warm-up
+    call: the kernels alone, without the gaps a CUDA event pair around a
+    call also counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    check(us > 0, f"the profiler saw no device time of {name}")
+    return us / reps / 1e3
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -2081,13 +2100,15 @@ def time_k5_on_step(key, row, calls):
     check(err <= tol, f"{key} on the step's coordinates differs from its "
                       f"plain version: {err} > {tol}")
     del got, ref
-    times, streams, bounds = [], [], []
+    times, streams, bounds, devices = [], [], [], []
     for img, mask, coords in calls:
         maps = warp_image_mask_maps(img, mask, coords)
         times.append(time_ms(lambda: warp_image_mask_maps(img, mask,
                                                           coords)))
         streams.append(stream_ms(lambda: warp_image_mask_maps(img, mask,
                                                               coords)))
+        devices.append(profiler_ms(lambda: warp_image_mask_maps(
+            img, mask, coords), "warp_image_mask"))
         bounds.append(bound(nbytes(img, mask, coords, *maps),
                             coords.shape[0] * coords.shape[1] * 3 * 11)[0])
         del maps
@@ -2095,6 +2116,8 @@ def time_k5_on_step(key, row, calls):
                ms=statistics.mean(times), bound_ms=statistics.mean(bounds),
                stream_ms=statistics.mean(streams), step_call_ms=times,
                step_call_stream_ms=streams, step_call_bound_ms=bounds,
+               profiler_ms=statistics.mean(devices),
+               step_call_profiler_ms=devices,
                max_abs_err=max(row["max_abs_err"], err))
     print(f"{key} on the step's own coordinates (4 calls of one training "
           f"step; call 1 against plain: max_abs_err {err:.3e}, tol "
@@ -2103,7 +2126,11 @@ def time_k5_on_step(key, row, calls):
           f"{[round(b, 4) for b in bounds]} ms, mean {row['ms']:.4f} ms "
           f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound; back to "
           f"back {row['stream_ms']:.4f}, "
-          f"{100 * row['bound_ms'] / row['stream_ms']:.1f}%); stress input "
+          f"{100 * row['bound_ms'] / row['stream_ms']:.1f}%; profiler "
+          f"device time {[round(t, 4) for t in devices]} ms, mean "
+          f"{row['profiler_ms']:.4f}, "
+          f"{100 * row['bound_ms'] / row['profiler_ms']:.1f}% of the bound); "
+          f"stress input "
           f"(random depth per pixel) {row['stress_ms']:.4f} ms "
           f"({100 * row['stress_bound_ms'] / row['stress_ms']:.1f}%)",
           flush=True)
@@ -3734,6 +3761,40 @@ def run_remat(device, paths):
     return table
 
 
+GATHER_HOT_POINTS = 5000       # past the gather backward's column kernel
+
+
+def gather_hot_coords(coords, shape):
+    """The step's coordinates with their first GATHER_HOT_POINTS points of
+    each frameset moved into one voxel cell, (w/2, h/2, d/2) to that plus 1
+    (fractions in [0.1, 0.9]): each of the cell's 8 voxels takes that many
+    more taps, in one serial chain by contract, and more than the reduce's
+    column kernel holds (4,096), so its serial merge runs."""
+    _, h, w, d, _ = shape
+    gen = torch.Generator().manual_seed(7)
+    size = torch.tensor([w, h, d], dtype=torch.float32)
+    pix = size.div(2).floor() + 0.1 + 0.8 * torch.rand(
+        coords.shape[0], GATHER_HOT_POINTS, 3, generator=gen)
+    hot = coords.clone()
+    hot[:, :GATHER_HOT_POINTS] = (pix / (0.5 * (size - 1)) - 1.0).to(
+        coords.device)
+    return hot
+
+
+def gather_tap_stats(coords, shape):
+    """(live taps, live points, voxels touched, the hottest voxel's taps) of
+    the gather-bf16 backward at coords: its taps of weight != 0
+    (``_gather_bwd_items``) counted per voxel."""
+    from vfdepth_tpu_torch.ops import sample3d as s3
+    n_vox = math.prod(shape[:4])
+    wts, keys = s3._gather_bwd_items(coords, shape)
+    live_keys = keys[keys < n_vox]
+    per_voxel = torch.bincount(live_keys, minlength=n_vox)
+    live_pts = int(wts.reshape(-1, 8).ne(0).any(1).sum())
+    return (int(live_keys.numel()), live_pts, int((per_voxel > 0).sum()),
+            int(per_voxel.max()))
+
+
 def check_gather_forms(calls):
     """The gather-bf16 forms (``sampler_3d: gather`` under mixed precision;
     counterparts of JAX's XLA gather ``grid_sample_3d`` and the scatter of
@@ -3742,11 +3803,14 @@ def check_gather_forms(calls):
     (``capture_k3k4``): each against its plain version bit for bit, two
     launches bit-identical, the backward's plan on the card against the
     plain plan; timed (median of 20 with CUDA events, and 20 back to
-    back; the backward's plan and reduce apart) beside the plain version,
-    the bound (bytes over 3.35 TB/s: the volume, coordinates and output;
-    for the backward the rows of g that some live tap reads, the
-    coordinates and dvol) and the library call (5-D ``F.grid_sample`` in
-    bf16, and its autograd backward). Returns the two rows."""
+    back; the backward's plan and reduce apart, and each of its kernels
+    under the profiler) beside the plain version, the bound (bytes over
+    3.35 TB/s: the volume, coordinates and output; for the backward the
+    rows of g that some live tap reads, the coordinates and dvol) and the
+    library call (5-D ``F.grid_sample`` in bf16, and its autograd backward,
+    alone and back to back). Then the backward again on a hot-voxel input
+    (``gather_hot_coords``): bits, relaunch, plan and times. Returns the
+    two rows."""
     from vfdepth_tpu_torch.ops import sample3d as s3
     check(len(calls["fwd"]) == 1 and len(calls["bwd"]) == 1,
           f"the gather step called its sampler {len(calls['fwd'])} and its "
@@ -3768,18 +3832,20 @@ def check_gather_forms(calls):
     nb = vol.shape[0]
     vol_czyx = vol.permute(0, 4, 3, 1, 2).contiguous()
     grid = coords.reshape(nb, 1, 1, -1, 3).to(torch.bfloat16)
+
+    def library3():
+        return F.grid_sample(vol_czyx, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
     row3 = _row(
         "sample3d_gather (bf16)", "sample3d.cu",
         "vfdepth_tpu/ops/grid_sample.py:188", err3,
         time_ms(lambda: s3.sample3d_gather(vol, coords)),
         time_ms(lambda: s3.sample3d_gather_plain(vol, coords), reps=5),
         nbytes(vol, coords, out), coords.shape[0] * coords.shape[1]
-        * vol.shape[-1] * 8 * 2,
-        time_ms(lambda: F.grid_sample(vol_czyx, grid, mode="bilinear",
-                                      padding_mode="zeros",
-                                      align_corners=True)),
+        * vol.shape[-1] * 8 * 2, time_ms(library3),
         dict(vol=vol.shape, coords=coords.shape, out=out.shape))
     row3["stream_ms"] = stream_ms(lambda: s3.sample3d_gather(vol, coords))
+    row3["library_stream_ms"] = stream_ms(library3)
     row3["counterpart_of"] = "XLA gather grid_sample_3d, not a TPU kernel"
     del out, again, ref
 
@@ -3787,6 +3853,8 @@ def check_gather_forms(calls):
     p_order, p_start = s3.sample3d_gather_bwd_plan_plain(coords, shape)
     check(torch.equal(order, p_order) and torch.equal(start, p_start),
           "K4-gather-bf16: the card's plan differs from the plain plan")
+    check(int(start[-1]) == int(p_start[-1]), "K4-gather-bf16: live count")
+    del p_order, p_start
     dvol = s3.sample3d_gather_bwd(g, coords, shape)
     again = s3.sample3d_gather_bwd(g, coords, shape)
     ref = s3.sample3d_gather_bwd_plain(g, coords, shape)
@@ -3796,14 +3864,17 @@ def check_gather_forms(calls):
     check(torch.equal(bits(dvol), bits(again)), "K4-gather-bf16: two "
                                                 "launches differ")
     err4 = (dvol.float() - ref.float()).abs().max().item()
-    live = int(start[-1])
-    live_pts = int(torch.unique(order[:live].long() // 8).numel())
-    runs = start[1:] - start[:-1]
+    live, live_pts, touched, hottest = gather_tap_stats(coords, shape)
+    check(live_pts == int(start[-1]), "K4-gather-bf16: the plan's live "
+                                      "points")
     c = shape[-1]
     vol_g = vol.permute(0, 4, 3, 1, 2).contiguous().requires_grad_()
     lib_out = F.grid_sample(vol_g, grid, mode="bilinear",
                             padding_mode="zeros", align_corners=True)
     lib_g = g.transpose(1, 2).reshape(lib_out.shape).contiguous()
+
+    def library4():
+        return torch.autograd.grad(lib_out, vol_g, lib_g, retain_graph=True)
     row4 = _row(
         "sample3d_gather_bwd (bf16)", "sample3d_bwd.cu",
         "vfdepth_tpu/ops/grid_sample.py:165", err4,
@@ -3811,31 +3882,76 @@ def check_gather_forms(calls):
         time_ms(lambda: s3.sample3d_gather_bwd_plain(g, coords, shape),
                 reps=2, warmup=1),
         live_pts * c * g.element_size() + nbytes(coords, dvol),
-        live * c * 2,
-        time_ms(lambda: torch.autograd.grad(lib_out, vol_g, lib_g,
-                                            retain_graph=True)),
+        live * c * 2, time_ms(library4),
         dict(g=g.shape, coords=coords.shape, dvol=dvol.shape))
     row4.update(stage_split(
         lambda: s3.sample3d_gather_bwd_plan(coords, shape),
         lambda p: s3._gather_bwd_launch(g, coords, shape, *p)))
     row4["stream_ms"] = stream_ms(lambda: s3.sample3d_gather_bwd(g, coords,
                                                                  shape))
+    row4["library_stream_ms"] = stream_ms(library4)
     row4["counterpart_of"] = ("XLA scatter of grid_sample_3d's VJP "
                               "_gs3d_bwd, not a TPU kernel")
-    row4.update(live_taps=live, taps=int(order.numel()),
-                live_points=live_pts, hottest_voxel=int(runs.max()),
-                voxels_touched=int((runs > 0).sum()))
+    row4.update(live_taps=live, taps=8 * coords.shape[0] * coords.shape[1],
+                live_points=live_pts, hottest_voxel=hottest,
+                voxels_touched=touched)
+    profile("K4-gather-bf16, one call on the gather step's inputs",
+            lambda: s3.sample3d_gather_bwd(g, coords, shape))
     print(f"K3-gather-bf16 on the 6-camera bf16 gather step "
           f"({coords.shape[1]} points a frameset, batch {nb}): equal to its "
-          f"plain version bit for bit, two launches bit-identical", flush=True)
-    print(f"K4-gather-bf16 on that step: plan {live} live of "
-          f"{order.numel()} taps ({live_pts} points), "
-          f"{row4['voxels_touched']} voxels touched, the hottest "
-          f"{row4['hottest_voxel']} taps; equal to the plain plan; equal to "
-          f"its plain version bit for bit, two launches bit-identical",
+          f"plain version bit for bit, two launches bit-identical; "
+          f"{row3['ms']:.4f} ms a call ({row3['stream_ms']:.4f} back to "
+          f"back) against F.grid_sample 5-D bf16 {row3['library_ms']:.4f} "
+          f"({row3['library_stream_ms']:.4f}): "
+          f"{'faster' if row3['ms'] < row3['library_ms'] else 'SLOWER'}; "
+          f"{100 * row3['bound_ms'] / row3['ms']:.1f}% of its bound",
           flush=True)
+    print(f"K4-gather-bf16 on that step: plan of {int(start[-1])} live of "
+          f"{order.numel()} points ({live} live taps of {row4['taps']}), "
+          f"{touched} voxels touched, the hottest {hottest} taps; equal to "
+          f"the plain plan; equal to its plain version bit for bit, two "
+          f"launches bit-identical; {row4['ms']:.4f} ms = plan "
+          f"{row4['plan_ms']:.4f} + reduce {row4['reduce_ms']:.4f} "
+          f"({row4['stream_ms']:.4f} back to back; the tap-sort form took "
+          f"2.790 on an H100 80GB HBM3 at 700 W), "
+          f"{100 * row4['bound_ms'] / row4['ms']:.1f}% of its bound; "
+          f"autograd backward of F.grid_sample {row4['library_ms']:.4f} "
+          f"({row4['library_stream_ms']:.4f})", flush=True)
+    del dvol, again, ref, lib_out, vol_g, order, start
+
+    hot = gather_hot_coords(coords, shape)
+    order, start = s3.sample3d_gather_bwd_plan(hot, shape)
+    p_order, p_start = s3.sample3d_gather_bwd_plan_plain(hot, shape)
+    check(torch.equal(order, p_order) and torch.equal(start, p_start),
+          "K4-gather-bf16 on the hot input: the card's plan differs from "
+          "the plain plan")
+    del p_order, p_start
+    dvol = s3.sample3d_gather_bwd(g, hot, shape)
+    again = s3.sample3d_gather_bwd(g, hot, shape)
+    ref = s3.sample3d_gather_bwd_plain(g, hot, shape)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(dvol), bits(ref)), "K4-gather-bf16 on the hot "
+                                              "input differs from its plain "
+                                              "version")
+    check(torch.equal(bits(dvol), bits(again)), "K4-gather-bf16 on the hot "
+                                                "input: two launches differ")
+    h_live, _, _, h_hot = gather_tap_stats(hot, shape)
+    check(h_hot >= GATHER_HOT_POINTS, f"the hot input's hottest voxel takes "
+                                      f"{h_hot} taps, expected >= "
+                                      f"{GATHER_HOT_POINTS}")
+    hot_row = stage_split(lambda: s3.sample3d_gather_bwd_plan(hot, shape),
+                          lambda p: s3._gather_bwd_launch(g, hot, shape, *p))
+    hot_row.update(ms=time_ms(lambda: s3.sample3d_gather_bwd(g, hot, shape)),
+                   live_taps=h_live, hottest_voxel=h_hot)
+    row4["hot_input"] = hot_row
+    print(f"K4-gather-bf16 on the hot-voxel input ({GATHER_HOT_POINTS} points "
+          f"of each frameset in one cell; the hottest voxel {h_hot} taps, "
+          f"{h_live} live taps): equal to its plain version bit for bit, "
+          f"two launches bit-identical, the plans equal; {hot_row['ms']:.4f} "
+          f"ms = plan {hot_row['plan_ms']:.4f} + reduce "
+          f"{hot_row['reduce_ms']:.4f}", flush=True)
     rows = {"K3-gather-bf16": row3, "K4-gather-bf16": row4}
-    del dvol, again, ref, lib_out, vol_g
+    del dvol, again, ref, hot, order, start
     torch.cuda.empty_cache()
     _print_rows(rows)
     return rows

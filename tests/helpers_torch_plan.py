@@ -141,3 +141,30 @@ def gather_bwd_in_plan_order(g: torch.Tensor, coords: torch.Tensor,
         upd = _bf16(g_rows[item // 8] * wts[item])
         acc[key] = _bf16(acc[key] + upd)
     return acc.to(torch.bfloat16).reshape(tuple(vol_shape))
+
+
+def gather_voxel_candidates(order: torch.Tensor, start: torch.Tensor,
+                            vol_shape):
+    """The gather-bf16 reduce's merge on the CPU: from the plan (order,
+    start) of ``sample3d_gather_bwd_plan`` (each base voxel's live points
+    in point order), each voxel's candidates, the points of the 8 bases
+    v - (dx, dy, dz) merged by point, as items point * 8 + tap (tap dx +
+    2 dy + 4 dz) -> {voxel: [items]}, voxels with none left out."""
+    nb, h, w, d, _ = vol_shape
+    order, start = order.long().tolist(), start.long().tolist()
+    out = {}
+    for img in range(nb):
+        for y in range(h):
+            for x in range(w):
+                for z in range(d):
+                    items = []
+                    for t in range(8):
+                        dx, dy, dz = t & 1, (t >> 1) & 1, t >> 2
+                        k = (((img * (h + 1) + y - dy + 1) * (w + 1) + x - dx
+                              + 1) * (d + 1) + z - dz + 1)
+                        items += [p * 8 + t
+                                  for p in order[start[k]:start[k + 1]]]
+                    if items:
+                        v = ((img * h + y) * w + x) * d + z
+                        out[v] = sorted(items, key=lambda i: i // 8)
+    return out

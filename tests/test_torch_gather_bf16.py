@@ -48,7 +48,8 @@ from vfdepth_tpu_torch.ops import sample3d as s3
 from vfdepth_tpu_torch.training.model import VFDepthModel
 from vfdepth_tpu_torch.weights import load_flax_params
 
-from helpers_torch_plan import gather_bwd_in_plan_order
+from helpers_torch_plan import (gather_bwd_in_plan_order,
+                                gather_voxel_candidates)
 from helpers_torch_step import by_port_name, jax_step, port_step, with_motion
 from helpers_torch_threads import port_threads  # noqa: F401
 
@@ -170,18 +171,30 @@ def test_backward_plain_matches_jax_where_taps_collide(kind):
 
 @pytest.mark.parametrize("kind", ["spread", "outside"])
 def test_plan_is_each_voxels_live_taps_in_item_order(kind):
+    """The plan lists each base voxel's live points in point order; merged
+    by point, the 8 bases v - (dx, dy, dz) of voxel v give exactly v's
+    live taps (weight != 0) in item order, each point at most once."""
     coords = torch.from_numpy(coords_of(kind))
     order, start = s3.sample3d_gather_bwd_plan_plain(coords, SHAPE)
     wts, keys = s3._gather_bwd_items(coords, SHAPE)
-    n_keys = int(np.prod(SHAPE[:4]))
+    base_keys, n_bases = s3.gather_bwd_base_keys(coords, SHAPE)
+    nb, h, w, d, _ = SHAPE
+    n_keys = nb * h * w * d
+    assert n_bases == nb * (h + 1) * (w + 1) * (d + 1)
     assert order.dtype == start.dtype == torch.int32
-    assert start.shape == (n_keys + 1,) and order.shape == keys.shape
+    assert start.shape == (n_bases + 1,) and order.shape == (nb * 400,)
     live = int(start[-1])
-    assert live == int((wts != 0).sum()) == int((keys < n_keys).sum())
-    for k in range(n_keys):
-        items = order[start[k]:start[k + 1]].long()
-        assert torch.equal(items, torch.nonzero(keys == k).reshape(-1)), k
-    assert bool((keys[order[live:].long()] == n_keys).all())
+    assert live == int(wts.reshape(-1, 8).ne(0).any(1).sum())
+    for k in range(n_bases):
+        points = order[start[k]:start[k + 1]].long()
+        assert torch.equal(points, torch.nonzero(base_keys == k).reshape(-1))
+    assert bool((base_keys[order[live:].long()] == n_bases).all())
+    merged = gather_voxel_candidates(order, start, SHAPE)
+    for v in range(n_keys):
+        items = torch.tensor([i for i in merged.get(v, [])
+                              if wts[i] != 0], dtype=torch.int64)
+        assert torch.equal(items, torch.nonzero(keys == v).reshape(-1)), v
+    assert sum(len(c) for c in merged.values()) >= int((wts != 0).sum())
 
 
 @pytest.mark.parametrize("kind", ["spread", "border", "outside"])

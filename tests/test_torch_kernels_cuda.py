@@ -40,8 +40,10 @@ against the plain version and against the f32-update form.
 The gather-bf16 forms (``sampler_3d: gather`` under mixed precision:
 ``sample3d_gather`` and ``sample3d_gather_bwd``) compute in their plain
 versions' literal bf16 arithmetic and order: equal bit for bit, their
-plans element for element, two launches the same bits, a hot voxel (3000
-points on one 2 x 2 x 2 block) included.
+plans element for element, two launches the same bits, at C = 64, 7, 8
+and 72, on rows 2- and 4-byte aligned, at batch 1, with a block of points
+whose every tap lies outside, and with a hot cell (4,300 points: more
+taps on each of its voxels than the backward's column kernel holds).
 
 Two checks of the data path on the card close the file, exact both:
 ``device_prefetch`` against the pageable route, and a checkpoint moved
@@ -772,61 +774,103 @@ def test_sample3d_vector_paths(c, dtype):
     assert torch.equal(out.view(view), again.view(view))
 
 
-def _gather_inputs(seed, c, hot: bool):
+def _at_offset(t, offset: int):
+    """t's values in a contiguous tensor that starts ``offset`` elements
+    past an allocation's (aligned) start: offset 1 leaves bf16 rows 2-byte
+    aligned (the scalar paths), 2 leaves them 4-byte aligned (2 channels a
+    lane)."""
+    if offset == 0:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (C, kind, offset of the volume's / cotangent's first element)
+GATHER_CASES = [(64, "spread", 0), (7, "spread", 0), (64, "hot", 0),
+                (8, "spread", 0), (72, "spread", 0), (64, "spread", 1),
+                (64, "spread", 2), (64, "batch1", 0), (64, "outside", 0)]
+
+
+def _gather_inputs(seed, c, kind: str, offset: int = 0):
+    """A bf16 volume [B, 9, 10, 4, C], 4001 points a frameset (6001 for
+    "hot") and their cotangent. "hot": 4,300 points in the first voxel cell
+    (each of its voxels takes more taps than the reduce's column kernel
+    holds, 4,096, so the serial merge runs too); "outside": a block of 400
+    points whose every tap lies outside the volume; "batch1": one
+    frameset."""
     rng = np.random.RandomState(seed)
-    shape = (2, 9, 10, 4, c)
+    shape = (1 if kind == "batch1" else 2, 9, 10, 4, c)
+    b, n = shape[0], 6001 if kind == "hot" else 4001
     vol = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
         torch.bfloat16).cuda()
-    coords = rng.uniform(-1.3, 1.3, (2, 4001, 3)).astype(np.float32)
+    coords = rng.uniform(-1.3, 1.3, (b, n, 3)).astype(np.float32)
     coords[:, :4] = [[-1, -1, -1], [1, 1, 1], [-1.002, 0, 0], [0, 1.002, 0]]
-    if hot:
-        coords[:, 100:3100] = rng.uniform(-1.0, -0.97, (2, 3000, 3))
+    if kind == "hot":
+        coords[:, 100:4400] = rng.uniform(-1.0, -0.97, (b, 4300, 3))
+    if kind == "outside":
+        coords[:, 1000:1400] = rng.uniform(1.7, 3.0, (b, 400, 3)) * \
+            rng.choice([-1.0, 1.0], (b, 400, 3))
     coords[:, 10, 1] = np.nan
     coords[:, 11, 0] = np.inf
     coords[:, 12] = [40.0, -1e9, 3.0]
-    g = torch.from_numpy(rng.randn(2, 4001, c).astype(np.float32)).to(
+    g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(
         torch.bfloat16).cuda()
-    return vol, torch.from_numpy(coords).cuda(), g, shape
+    return (_at_offset(vol, offset), torch.from_numpy(coords).cuda(),
+            _at_offset(g, offset), shape)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,hot", [(64, False), (7, False), (64, True)])
-def test_gather_bf16_forward_matches_plain_bits(c, hot):
-    """Even C takes the 2-channel path, odd C the scalar one."""
+@pytest.mark.parametrize("c,kind,offset", GATHER_CASES)
+def test_gather_bf16_forward_matches_plain_bits(c, kind, offset):
+    """C % 8 == 0 on 16-byte aligned tensors takes 8 channels a thread
+    (C = 72: nine vectors a row), an even C on 4-byte aligned ones 2, the
+    rest 1."""
     _need_cuda()
-    vol, coords, _, _ = _gather_inputs(80 + c, c, hot)
+    vol, coords, _, _ = _gather_inputs(80 + c, c, kind, offset)
+    before = s3.sample3d_gather.launches_bf16
     out = s3.sample3d_gather(vol, coords)
     again = s3.sample3d_gather(vol, coords)
     ref = s3.sample3d_gather_plain(vol, coords)
     torch.cuda.synchronize()
+    assert s3.sample3d_gather.launches_bf16 == before + 2
     assert out.dtype == torch.bfloat16
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
     assert torch.equal(out.view(torch.int16), again.view(torch.int16))
     assert (out[:, 10:13] == 0).all()
+    if kind == "outside":
+        assert (out[:, 1000:1400] == 0).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,hot", [(64, False), (7, False), (64, True)])
-def test_gather_bf16_backward_plan_and_bits(c, hot):
-    """The card's plan equals the plain plan, the kernel the plain version
-    and the tap-by-tap model bit for bit, a relaunch the same bits; the hot
-    block gives its voxels thousands of additions each."""
+@pytest.mark.parametrize("c,kind,offset", GATHER_CASES)
+def test_gather_bf16_backward_plan_and_bits(c, kind, offset):
+    """The card's plan (the live points by base voxel) equals the plain
+    plan, the kernel the plain version and the tap-by-tap model bit for
+    bit, a relaunch the same bits; the hot cell gives its voxels more than
+    4,096 additions each, one serial chain a voxel."""
     _need_cuda()
-    _, coords, g, shape = _gather_inputs(90 + c, c, hot)
+    _, coords, g, shape = _gather_inputs(90 + c, c, kind, offset)
     order, start = s3.sample3d_gather_bwd_plan(coords, shape)
     p_order, p_start = s3.sample3d_gather_bwd_plan_plain(coords, shape)
     assert torch.equal(order, p_order) and torch.equal(start, p_start)
-    runs = start[1:] - start[:-1]
-    if hot:
-        assert int(runs.max()) > 1000
+    wts, keys = s3._gather_bwd_items(coords, shape)
+    n_vox = int(np.prod(shape[:4]))
+    assert int(start[-1]) == int(wts.reshape(-1, 8).ne(0).any(1).sum())
+    per_voxel = torch.bincount(keys[keys < n_vox], minlength=n_vox)
+    if kind == "hot":
+        assert int(per_voxel.max()) > 4096
+    before = s3.sample3d_gather_bwd.launches_bf16
     dvol = s3.sample3d_gather_bwd(g, coords, shape)
     again = s3.sample3d_gather_bwd(g, coords, shape)
     ref = s3.sample3d_gather_bwd_plain(g, coords, shape)
     torch.cuda.synchronize()
+    assert s3.sample3d_gather_bwd.launches_bf16 == before + 2
     bits = dvol.view(torch.int16)
     assert torch.equal(bits, ref.view(torch.int16))
     assert torch.equal(bits, again.view(torch.int16))
-    if not hot:
+    if kind != "hot":
         model = gather_bwd_in_plan_order(g.cpu(), coords.cpu(), shape)
         assert torch.equal(dvol.cpu().view(torch.int16),
                            model.view(torch.int16))

@@ -327,7 +327,7 @@ inline int64_t workspace_ints(int64_t n, int64_t n_keys) {
 // [n_keys + 1] (the first sorted position of each key; start[n_keys] is the
 // live count); `ws` holds workspace_ints(n, n_keys) ints. The sort alone
 // is also the plan of the gather-bf16 backward (sample3d_bwd.cu), whose
-// keys are voxels, not tiles.
+// keys are the points' base voxels, not tiles.
 inline int sort_keys(const int* keys, int n, int n_keys, int* ws, int* order,
                      int* start, cudaStream_t s) {
   if (n <= 0 || n_keys <= 0) return (int)cudaErrorInvalidValue;

@@ -207,10 +207,24 @@ sample3d_trilinear_vec_kernel(const T* __restrict__ vol,
 // product of three weights rounded, weight * valid, vals * weight rounded,
 // and the 8 taps summed in JAX's order (dx fastest), each addition rounded.
 // Every bf16 operand is exact in f32, so an f32 product or sum rounded to
-// bf16 is XLA's bf16 operation. One warp per point, its lanes over
-// channels (V adjacent ones each: 2 where C is even and the rows are
-// 4-byte aligned); each lane recomputes the point's 8 taps. A simple
-// kernel, not a tuned one.
+// bf16 is XLA's bf16 operation.
+//
+// What bounds it: bytes, as K3-bf16 (the [B, N, C] output, 295 MB at batch
+// 2 of the production shapes, against a volume that L2 holds), and then
+// the rounding arithmetic, 8 taps x C products and sums a point. Design:
+// K3-bf16's layout with the gather rule. A block of 256 threads owns 256
+// points; one thread a point computes its 8 clipped voxel rows and 8
+// rounded weights once, into shared memory; then the threads walk (point,
+// V channels) items channel-fastest, V = 8 (one 16-byte load per tap, all
+// 8 issued before the first product, and a streaming 16-byte store) where
+// C % 8 == 0 and the tensors are 16-byte aligned, else 2 or 1. The
+// arithmetic takes two channels at a time (bf16x2_scale, bf16x2_add): the
+// same roundings as one at a time, in fewer instructions.
+
+struct GatherTaps {
+  int vox[8];      // tap t's voxel row in the batch (clipped into the volume)
+  float wt[8];     // its bf16 weight times valid
+};
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -220,49 +234,52 @@ template <int V>
 __global__ void __launch_bounds__(kThreads)
 sample3d_gather_bf16_kernel(const __nv_bfloat16* __restrict__ vol,
                             const float* __restrict__ coords,
-                            __nv_bfloat16* __restrict__ out, int64_t nb,
+                            __nv_bfloat16* __restrict__ out, int64_t total,
                             int h, int w, int d, int c, int64_t n) {
-  const int64_t pt = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (pt >= nb * n) return;
-  const GatherPoint p = gather_point(coords + pt * 3, h, w, d);
-  float a[3][2];                       // per axis: (1 - w, w), bf16 values
-  for (int k = 0; k < 3; ++k) {
-    const float wk = round_bf16(p.f[k]);
-    a[k][0] = round_bf16(__fsub_rn(1.0f, wk));
-    a[k][1] = wk;
-  }
-  const int64_t vol0 = pt / n * (int64_t)h * w * d;
-  int64_t row[8];
-  float wt[8];
-  for (int t = 0; t < 8; ++t) {
-    int vox;
-    const bool valid = gather_tap(p, t, h, w, d, vox);
-    const float wgt = round_bf16(__fmul_rn(
-        round_bf16(__fmul_rn(a[0][t & 1], a[1][(t >> 1) & 1])),
-        a[2][t >> 2]));
-    wt[t] = __fmul_rn(wgt, valid ? 1.0f : 0.0f);
-    row[t] = (vol0 + vox) * c;
-  }
-  for (int ch = lane * V; ch < c; ch += 32 * V) {
-    float acc[V];
-    for (int t = 0; t < 8; ++t) {
-      float v[V];
-      if constexpr (V == 2) {
-        const float2 f = bf16x2_float2(__ldg(
-            reinterpret_cast<const uint32_t*>(vol + row[t] + ch)));
-        v[0] = f.x;
-        v[1] = f.y;
-      } else {
-        v[0] = __bfloat162float(vol[row[t] + ch]);
-      }
-      for (int j = 0; j < V; ++j) {
-        const float term = round_bf16(__fmul_rn(v[j], wt[t]));
-        acc[j] = t == 0 ? term : round_bf16(__fadd_rn(acc[j], term));
-      }
+  __shared__ GatherTaps taps[kPts];
+  const int64_t p0 = (int64_t)blockIdx.x * kPts;
+  const int np = total - p0 < kPts ? (int)(total - p0) : kPts;
+  if ((int)threadIdx.x < np) {
+    const int64_t pt = p0 + threadIdx.x;
+    const GatherPoint p = gather_point(coords + pt * 3, h, w, d);
+    float a[3][2];                     // per axis: (1 - w, w), bf16 values
+    for (int k = 0; k < 3; ++k) {
+      const float wk = round_bf16(p.f[k]);
+      a[k][0] = round_bf16(__fsub_rn(1.0f, wk));
+      a[k][1] = wk;
     }
-    __nv_bfloat16* dst = out + pt * c + ch;
-    for (int j = 0; j < V; ++j) dst[j] = __float2bfloat16_rn(acc[j]);
+    const int vol0 = (int)(pt / n) * h * w * d;
+    GatherTaps tp;
+    for (int t = 0; t < 8; ++t) {
+      int vox;
+      const bool valid = gather_tap(p, t, h, w, d, vox);
+      const float wgt = round_bf16(__fmul_rn(
+          round_bf16(__fmul_rn(a[0][t & 1], a[1][(t >> 1) & 1])),
+          a[2][t >> 2]));
+      tp.wt[t] = __fmul_rn(wgt, valid ? 1.0f : 0.0f);
+      tp.vox[t] = vol0 + vox;
+    }
+    taps[threadIdx.x] = tp;
+  }
+  __syncthreads();
+  const int cv = c / V;
+  for (int e = threadIdx.x; e < np * cv; e += kThreads) {
+    const int p = e / cv, ch = (e - p * cv) * V;
+    Bf16Words<V> v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      v[t] = load_bf16<V>(vol + (int64_t)taps[p].vox[t] * c + ch);
+    Bf16Words<V> acc;
+#pragma unroll
+    for (int j = 0; j < Bf16Words<V>::kWords; ++j)
+      acc.w[j] = bf16x2_scale(v[0].w[j], taps[p].wt[0]);
+#pragma unroll
+    for (int t = 1; t < 8; ++t)
+#pragma unroll
+      for (int j = 0; j < Bf16Words<V>::kWords; ++j)
+        acc.w[j] = bf16x2_add(acc.w[j], bf16x2_scale(v[t].w[j],
+                                                     taps[p].wt[t]));
+    store_bf16<V>(out + (p0 + p) * c + ch, acc);
   }
 }
 
@@ -334,15 +351,19 @@ extern "C" int vf_sample3d_gather_bf16(const __nv_bfloat16* vol,
                                        __nv_bfloat16* out, int64_t b,
                                        int64_t h, int64_t w, int64_t d,
                                        int64_t c, int64_t n, void* stream) {
-  if (h < 1 || w < 1 || d < 1 || c < 1 || c > INT32_MAX)
+  if (h < 1 || w < 1 || d < 1 || c < 1 || c > (1 << 20) ||
+      b * h * w * d >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t blocks = (b * n + kWarps - 1) / kWarps;
-  if (c % 2 == 0 && aligned(vol, 4) && aligned(out, 4))
-    sample3d_gather_bf16_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
-        vol, coords, out, b, (int)h, (int)w, (int)d, (int)c, n);
-  else
-    sample3d_gather_bf16_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        vol, coords, out, b, (int)h, (int)w, (int)d, (int)c, n);
+  const int64_t blocks = (b * n + kPts - 1) / kPts;
+  if (blocks == 0) return (int)cudaGetLastError();
+  auto kernel = sample3d_gather_bf16_kernel<1>;
+  if (c % 8 == 0 && aligned(vol, 16) && aligned(out, 16))
+    kernel = sample3d_gather_bf16_kernel<8>;
+  else if (c % 2 == 0 && aligned(vol, 4) && aligned(out, 4))
+    kernel = sample3d_gather_bf16_kernel<2>;
+  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(vol, coords, out, b * n,
+                                              (int)h, (int)w, (int)d, (int)c,
+                                              n);
   return (int)cudaGetLastError();
 }

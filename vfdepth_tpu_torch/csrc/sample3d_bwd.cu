@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "dest_tiles.cuh"
 #include "elem.cuh"
 #include "sample3d_taps.cuh"
@@ -390,14 +392,53 @@ int launch(const G* g, const float* coords, const int* order,
 // of a TPU kernel. Each tap of each point (item i = point * 8 + tap, tap
 // t = dx + 2 dy + 4 dz: gather_tap in sample3d_taps.cuh) adds the update
 // g[point] * w_t, formed in f32 and rounded once to bf16, into the bf16
-// dvol at its voxel, every addition rounded to bf16; a tap of weight 0
-// adds nothing and is dropped. The plan is tiles::sort_keys with one key
-// per tap, its voxel (b, y, x, z), so each voxel's taps sit together in
-// item order; then one warp per voxel sums them in that order, its lanes
-// over channels (2 each per 64), and writes the voxel once. The order is
-// fixed, so a relaunch gives the same bits; ops/sample3d.py
-// sample3d_gather_bwd_plain sums in the same order. A simple kernel, not a
-// tuned one: a hot voxel's taps are summed by one warp.
+// dvol at its voxel, starting from +0, every addition rounded to bf16, in
+// item order; a tap of weight 0 adds nothing and is dropped.
+//
+// What bounds it: the g rows of the live points (295 MB at batch 2 of the
+// production shapes) read once, dvol written once; in practice the
+// ordering: one tap list a voxel, in item order, and each list a serial
+// chain of rounded additions. Design:
+//  * Plan. Inside the volume a point puts at most one tap on a voxel, so
+//    a voxel's taps in item order are its contributing points in point
+//    order. The plan sorts POINTS, not taps, by their base voxel (their
+//    floors, each >= -1: a key of the [b, h + 1, w + 1, d + 1] grid of
+//    bases), stably, with tiles::sort_keys: 8 times fewer keys.
+//  * Candidates. Voxel v's candidates are the points of its 8 bases
+//    v - (dx, dy, dz), reaching it through tap dx + 2 dy + 4 dz; a count
+//    and a scan give each voxel its place in one array of (point, weight)
+//    entries. One block a voxel column merges them by point in shared
+//    memory (the column's points are 4 contiguous segments of the plan)
+//    and writes them coalesced; a voxel of more than kColumnCap candidates
+//    (none at the production shapes) is merged by one thread.
+//  * Sum. Most voxels have a few dozen candidates: 8 lanes a voxel, 8
+//    channels a lane (16-byte loads); a voxel of more than kHotMin takes a
+//    warp that scales 32 rows at a time into shared memory, so its serial
+//    chain is one shared load and one addition an entry, and these voxels
+//    are listed first so their chains start early. Each voxel's sum is one
+//    serial chain by contract: the hottest voxel of the production step
+//    (3,369 taps) bounds the sum's latency from below.
+// Every sum takes two channels an instruction (bf16x2_scale, bf16x2_add:
+// the same roundings); C % 8 != 0 or unaligned rows take a warp a voxel at
+// 2 or 1 channels a lane. The order is fixed, so a relaunch gives the same
+// bits; ops/sample3d.py sample3d_gather_bwd_plain sums in the same order.
+
+constexpr int kColumnCap = 4096;   // points a column kernel's window holds
+constexpr int kHotMin = 512;       // a voxel of more candidates: summed first
+constexpr int kGroupBatch = 8;     // entries an 8-lane group loads at once
+
+// the key of voxel v's own base (v = ((img * h + y) * w + x) * d + z), and
+// that of the base reaching v through tap t
+__device__ __forceinline__ int voxel_base_key(int v, int h, int w, int d) {
+  const int z = v % d, x = (v / d) % w, yi = v / (d * w);
+  return ((yi / h * (h + 1) + yi % h + 1) * (w + 1) + x + 1) * (d + 1) + z +
+         1;
+}
+
+__device__ __forceinline__ int run_key(int key0, int t, int w, int d) {
+  return key0 - (t >> 2) - (t & 1) * (d + 1) - ((t >> 1) & 1) * (w + 1) *
+                                                    (d + 1);
+}
 
 __global__ void sample3d_gather_bwd_keys_kernel(
     const float* __restrict__ coords, int total, int h, int w, int d, int n,
@@ -405,57 +446,435 @@ __global__ void sample3d_gather_bwd_keys_kernel(
   const int pt = blockIdx.x * blockDim.x + threadIdx.x;
   if (pt >= total) return;
   const GatherPoint p = gather_point(coords + (int64_t)pt * 3, h, w, d);
-  const int vol0 = pt / n * h * w * d;
+  bool live = false;
   for (int t = 0; t < 8; ++t) {
     int vox;
     const bool valid = gather_tap(p, t, h, w, d, vox);
-    keys[(int64_t)pt * 8 + t] =
-        gather_weight_f32(p, t, valid) != 0.0f ? vol0 + vox : n_keys;
+    live |= gather_weight_f32(p, t, valid) != 0.0f;
+  }
+  keys[pt] = live ? gather_base_key(p, pt / n, h, w, d) : n_keys;
+}
+
+// The first key of base column (y - dy, x - dx) of image img (its base at
+// z = -1); its bases z = -1 .. d - 1 are the d + 1 keys from there.
+__device__ __forceinline__ int base_column_key(int img, int y, int x, int q,
+                                               int h, int w, int d) {
+  return ((img * (h + 1) + y - (q >> 1) + 1) * (w + 1) + x - (q & 1) + 1) *
+         (d + 1);
+}
+
+// cnt[v]: the points of the 8 bases that reach voxel v (its candidates);
+// cnt[n_vox] = 0. A voxel of more than hot_min candidates is listed in
+// hot_list (in no fixed order: which warp sums it does not change its bits)
+__global__ void sample3d_gather_bwd_count_kernel(
+    const int* __restrict__ start, int n_vox, int h, int w, int d,
+    int hot_min, int* __restrict__ cnt, int* __restrict__ hot_list,
+    int* __restrict__ hot_count) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v > n_vox) return;
+  int sum = 0;
+  if (v < n_vox) {
+    const int key0 = voxel_base_key(v, h, w, d);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int k = run_key(key0, t, w, d);
+      sum += start[k + 1] - start[k];
+    }
+    if (sum > hot_min) hot_list[atomicAdd(hot_count, 1)] = v;
+  }
+  cnt[v] = sum;
+}
+
+// A candidate as the sum reads it: the point and its tap's f32 weight (its
+// bits, >= 0: a weight is +0 or positive), or -1 - tap where the serial
+// merge left the weight to the sum.
+__device__ __forceinline__ int2 make_entry(int pt, float wt) {
+  return make_int2(pt, __float_as_int(wt));
+}
+
+// sq[i] = coords of the plan's i-th live point: the column kernel then
+// reads a point and its coordinates at the same place
+__global__ void sample3d_gather_bwd_sorted_coords_kernel(
+    const float* __restrict__ coords, const int* __restrict__ order,
+    const int* __restrict__ live, float* __restrict__ sq) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= *live) return;
+  const int pt = order[i];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    sq[(int64_t)i * 3 + k] = coords[(int64_t)pt * 3 + k];
+}
+
+// One block a voxel column (img, y, x) at full depth: its candidates
+// merged by point, written to entries[off[v], off[v + 1]) of each voxel v
+// of the column. The column's list, the points of the 4 base columns
+// (y - dy, x - dx) that reach it, is 4 contiguous segments of the plan's
+// order (each sorted by base z, then point). The block walks the column in
+// windows of voxels [z0, z1) whose bases z0 - 1 .. z1 - 1 hold at most
+// `cap` points: phase 1 stages them in shared memory with their base z and
+// their 2 weights toward this column (taps dx + 2 dy, and + 4); phase 2
+// ranks each toward its voxels (its count of smaller points in each of the
+// voxel's 8 runs, by binary search); phase 3 writes the window's merged
+// lists out in order, coalesced. A voxel of more than `cap` candidates is
+// left to the serial merge below.
+__global__ void __launch_bounds__(kThreads)
+sample3d_gather_bwd_column_kernel(const float* __restrict__ sq,
+                                  const int* __restrict__ order,
+                                  const int* __restrict__ start,
+                                  const int* __restrict__ off,
+                                  int2* __restrict__ entries, int h, int w,
+                                  int d, int cap) {
+  extern __shared__ __align__(16) int csm[];
+  __shared__ int seg_beg[4];
+  const int col = blockIdx.x, x = col % w, yi = col / w;
+  const int img = yi / h, y = yi % h;
+  const int tid = threadIdx.x;
+  // shared memory: rs[4][d + 2] (base column q's bases z = j - 1 hold its
+  // points [rs[q][j], rs[q][j + 1]) of the column's list), wo[d + 1] (the
+  // window's voxel lists in merged), then per point of the window its
+  // index, base z and 2 weights, and 2 merged entries (point * 2 + dz)
+  int* rs = csm;
+  int* wo = rs + 4 * (d + 2);
+  int* e_pt = wo + d + 1;
+  float* e_w = reinterpret_cast<float*>(e_pt + cap);      // [cap][2]
+  unsigned short* merged = reinterpret_cast<unsigned short*>(e_w + 2 * cap);
+  signed char* e_bz = reinterpret_cast<signed char*>(merged + 2 * cap);
+  for (int e = tid; e < 4 * (d + 2); e += kThreads) {
+    const int q = e / (d + 2), j = e % (d + 2);
+    const int k = base_column_key(img, y, x, q, h, w, d);
+    const int at = start[k + j];
+    if (j == 0) seg_beg[q] = at;
+    rs[e] = at;
+  }
+  __syncthreads();
+  for (int e = tid; e < 4 * (d + 2); e += kThreads)
+    rs[e] -= seg_beg[e / (d + 2)];
+  __syncthreads();
+  // the points of bases z0 - 1 .. z1 - 1 (runs j = z0 .. z1 of each q)
+  auto count = [&](int z0, int z1) {
+    int n = 0;
+    for (int q = 0; q < 4; ++q)
+      n += rs[q * (d + 2) + z1 + 1] - rs[q * (d + 2) + z0];
+    return n;
+  };
+  const int v0 = col * d;              // the column's first voxel
+  int z0 = 0;
+  while (z0 < d) {
+    if (count(z0, z0 + 1) > cap) {     // the serial merge's voxel
+      ++z0;
+      continue;
+    }
+    int z1 = z0 + 1;
+    while (z1 < d && count(z1, z1 + 1) <= cap && count(z0, z1 + 1) <= cap)
+      ++z1;
+    // window-local list: base column q's points [rs[q][z0], rs[q][z1 + 1])
+    // from qo[q]
+    int qo[5];
+    qo[0] = 0;
+    for (int q = 0; q < 4; ++q)
+      qo[q + 1] = qo[q] + rs[q * (d + 2) + z1 + 1] - rs[q * (d + 2) + z0];
+    const int total = qo[4];
+    for (int i = tid; i < total; i += kThreads) {
+      int q = 0;
+      while (i >= qo[q + 1]) ++q;
+      const int at = seg_beg[q] + rs[q * (d + 2) + z0] + i - qo[q];
+      const int pt = __ldg(order + at);
+      const GatherPoint p = gather_point(sq + (int64_t)at * 3, h, w, d);
+      const int t0 = (q & 1) + 2 * (q >> 1);
+      e_pt[i] = pt;
+      e_bz[i] = (signed char)p.i[2];
+      e_w[2 * i] = gather_weight_f32(p, t0, true);
+      e_w[2 * i + 1] = gather_weight_f32(p, t0 + 4, true);
+    }
+    if (tid == 0) {
+      wo[0] = 0;
+      for (int z = z0; z < z1; ++z)
+        wo[z - z0 + 1] = wo[z - z0] + count(z, z + 1);
+    }
+    __syncthreads();
+    // phase 2: point i of base z bz, toward voxel z = bz + dz
+    for (int e = tid; e < 2 * total; e += kThreads) {
+      const int i = e >> 1, z = e_bz[i] + (e & 1);
+      if (z < z0 || z >= z1) continue;
+      const int pt = e_pt[i];
+      int rank = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int* r = rs + q * (d + 2);
+        const int base = qo[q] - r[z0];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {  // runs of bases z - 1 (j = 0) and z
+          int lo = base + r[z + j], hi = base + r[z + j + 1];
+          const int beg = lo;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (e_pt[mid] < pt) lo = mid + 1; else hi = mid;
+          }
+          rank += lo - beg;
+        }
+      }
+      merged[wo[z - z0] + rank] = (unsigned short)e;
+    }
+    __syncthreads();
+    // phase 3: voxels z0 .. z1 - 1 are consecutive, their lists contiguous
+    int2* dst = entries + off[v0 + z0];
+    for (int k = tid; k < wo[z1 - z0]; k += kThreads) {
+      const int m = merged[k];
+      dst[k] = make_entry(e_pt[m >> 1], e_w[m]);
+    }
+    __syncthreads();
+    z0 = z1;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-sample3d_gather_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g,
-                                const float* __restrict__ coords,
-                                const int* __restrict__ order,
-                                const int* __restrict__ start,
-                                __nv_bfloat16* __restrict__ dvol, int n_keys,
-                                int h, int w, int d, int c) {
-  const int key = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+// bytes of the column kernel's shared memory at a cap of points
+__host__ inline size_t column_smem(int d, int cap) {
+  return (size_t)(4 * (d + 2) + d + 1) * sizeof(int) +
+         (size_t)cap * (sizeof(int) + 2 * sizeof(float) +
+                        2 * sizeof(unsigned short) + 1);
+}
+
+// One thread a voxel of more than `cap` candidates: its 8 runs (each in
+// point order) merged by point into entries[off[v], off[v + 1]), each run's
+// next element loaded one step ahead; the weights are left to the sum, so
+// the merge's serial chain waits on no coordinates.
+__global__ void sample3d_gather_bwd_merge_kernel(
+    const int* __restrict__ order, const int* __restrict__ start,
+    const int* __restrict__ off, int n_vox, int h, int w, int d, int cap,
+    int2* __restrict__ entries) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n_vox) return;
+  int o = off[v];
+  const int o_end = off[v + 1];
+  if (o_end - o <= cap) return;        // the column kernel's voxel
+  const int key0 = voxel_base_key(v, h, w, d);
+  int pos[8], end[8], head[8], next[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int k = run_key(key0, t, w, d);
+    pos[t] = start[k];
+    end[t] = start[k + 1];
+    head[t] = pos[t] < end[t] ? __ldg(order + pos[t]) : INT32_MAX;
+    next[t] = pos[t] + 1 < end[t] ? __ldg(order + pos[t] + 1) : INT32_MAX;
+  }
+  for (; o < o_end; ++o) {
+    int best = head[0], tb = 0;
+#pragma unroll
+    for (int t = 1; t < 8; ++t)
+      if (head[t] < best) {
+        best = head[t];
+        tb = t;
+      }
+    entries[o] = make_int2(best, -1 - tb);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (t == tb) {
+        head[t] = next[t];
+        ++pos[t];
+        next[t] = pos[t] + 1 < end[t] ? __ldg(order + pos[t] + 1)
+                                      : INT32_MAX;
+      }
+  }
+}
+
+// the entry's f32 weight: its own, or its tap's (-1 - e.y) from the
+// point's coordinates
+__device__ __forceinline__ int2 weighted(int2 e, const float* coords, int h,
+                                        int w, int d) {
+  if (e.y < 0) {
+    const GatherPoint p = gather_point(coords + (int64_t)e.x * 3, h, w, d);
+    e.y = __float_as_int(gather_weight_f32(p, -1 - e.y, true));
+  }
+  return e;
+}
+
+// One warp sums voxel v, V channels a lane (32 * V a pass): its entries in
+// order, 32 at a time (lane j loads entry j; the next 32 are loaded while
+// these are summed), each batch's rows all loaded before its first
+// addition; entries of weight 0 are dropped. The shortest chain a long
+// list can take: the hot voxels' path.
+template <int V>
+__device__ __forceinline__ void sum_voxel_warp(
+    const __nv_bfloat16* __restrict__ g, const float* __restrict__ coords,
+    const int2* __restrict__ entries, const int* __restrict__ off,
+    __nv_bfloat16* __restrict__ dvol, int v, int h, int w, int d, int c) {
+  constexpr int kWords = Bf16Words<V>::kWords;
   const int lane = threadIdx.x % 32;
-  if (key >= n_keys) return;
-  const int beg = start[key], end = start[key + 1];
-  __nv_bfloat16* dst = dvol + (int64_t)key * c;
-  for (int ch0 = 0; ch0 < c; ch0 += 64) {
-    const int ch[2] = {ch0 + 2 * lane, ch0 + 2 * lane + 1};
-    float acc[2] = {0.0f, 0.0f};       // bf16 values
+  const int beg = off[v], end = off[v + 1];
+  for (int ch0 = 0; ch0 < c; ch0 += 32 * V) {
+    const int ch = ch0 + lane * V;
+    const bool has = ch < c;
+    Bf16Words<V> acc;
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) acc.w[u] = 0u;     // +0.0
+    int2 e = beg + lane < end ? __ldg(entries + beg + lane) : make_int2(0, 0);
+    e = weighted(e, coords, h, w, d);
     for (int b0 = beg; b0 < end; b0 += 32) {
       const int cnt = min(32, end - b0);
-      int pt = 0;
-      float wt = 0.0f;
-      if (lane < cnt) {                // lane j makes item j of the batch
-        const int item = order[b0 + lane];
-        pt = item >> 3;
-        const GatherPoint p = gather_point(coords + (int64_t)pt * 3, h, w, d);
-        int vox;
-        const bool valid = gather_tap(p, item & 7, h, w, d, vox);
-        wt = gather_weight_f32(p, item & 7, valid);
+      int2 e_next = b0 + 32 + lane < end ? __ldg(entries + b0 + 32 + lane)
+                                         : make_int2(0, 0);
+      Bf16Words<V> row[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        if (j >= cnt) break;
+        const int pt = __shfl_sync(0xffffffffu, e.x, j);
+        const int wb = __shfl_sync(0xffffffffu, e.y, j);
+        if (has && wb != 0) row[j] = load_bf16<V>(g + (int64_t)pt * c + ch);
       }
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const int pj = __shfl_sync(0xffffffffu, pt, j);
-        const float wj = __shfl_sync(0xffffffffu, wt, j);
-        const __nv_bfloat16* row = g + (int64_t)pj * c;
-        for (int k = 0; k < 2; ++k) {
-          if (ch[k] >= c) continue;
-          const float u = round_bf16(__fmul_rn(ld1(row + ch[k]), wj));
-          acc[k] = round_bf16(__fadd_rn(acc[k], u));
-        }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        if (j >= cnt) break;
+        const float wt = __int_as_float(__shfl_sync(0xffffffffu, e.y, j));
+        if (has && wt != 0.0f)
+#pragma unroll
+          for (int u = 0; u < kWords; ++u)
+            acc.w[u] = bf16x2_add(acc.w[u], bf16x2_scale(row[j].w[u], wt));
       }
+      e = weighted(e_next, coords, h, w, d);
     }
-    for (int k = 0; k < 2; ++k)
-      if (ch[k] < c) dst[ch[k]] = __float2bfloat16_rn(acc[k]);
+    if (has) store_bf16<V>(dvol + (int64_t)v * c + ch, acc);
   }
+}
+
+// One warp sums hot voxel v, 64 channels a pass, C % 8 == 0 and 16-byte
+// aligned rows: its entries 32 at a time. Lane j loads entry j's row slice
+// (eight 16-byte loads: a batch's 256 loads in flight at once) and scales
+// it into terms[j] in shared memory (+0 for an entry of weight 0, which
+// leaves the sum as it is: a bf16 sum that starts at +0 is never -0, and
+// x + +0 = x; rows of 36 words, so 8 lanes' 16-byte stores hit 32 banks),
+// so the serial chain is, an entry, one 4-byte shared load and one
+// add.bf16x2 a lane; the next 32 entries' rows are loaded while it runs.
+__device__ __forceinline__ void sum_voxel_warp_staged(
+    const __nv_bfloat16* __restrict__ g, const float* __restrict__ coords,
+    const int2* __restrict__ entries, const int* __restrict__ off,
+    __nv_bfloat16* __restrict__ dvol, int v, int h, int w, int d, int c,
+    uint32_t (*terms)[36]) {
+  const int lane = threadIdx.x % 32;
+  const int beg = off[v], end = off[v + 1];
+  for (int ch0 = 0; ch0 < c; ch0 += 64) {
+    const int nvec = min(8, (c - ch0) / 8);     // 16-byte vectors a row
+    uint32_t acc = 0u;                           // +0.0, channels 2 lane, +1
+    auto load_rows = [&](int b0, Bf16Words<8> (&rows)[8], float& wt) {
+      const int j = b0 + lane;
+      wt = 0.0f;
+      if (j < end) {
+        const int2 e = weighted(__ldg(entries + j), coords, h, w, d);
+        wt = __int_as_float(e.y);
+        if (e.y != 0)
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (q < nvec)
+              rows[q] = load_bf16<8>(g + (int64_t)e.x * c + ch0 + 8 * q);
+      }
+    };
+    Bf16Words<8> rows[8];
+    float wt;
+    load_rows(beg, rows, wt);
+    for (int b0 = beg; b0 < end; b0 += 32) {
+      const int cnt = min(32, end - b0);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        uint4 t = make_uint4(0u, 0u, 0u, 0u);
+        if (q < nvec && wt != 0.0f)
+          t = make_uint4(bf16x2_scale(rows[q].w[0], wt),
+                         bf16x2_scale(rows[q].w[1], wt),
+                         bf16x2_scale(rows[q].w[2], wt),
+                         bf16x2_scale(rows[q].w[3], wt));
+        *reinterpret_cast<uint4*>(&terms[lane][4 * q]) = t;
+      }
+      __syncwarp();
+      load_rows(b0 + 32, rows, wt);
+      for (int j = 0; j < cnt; ++j) acc = bf16x2_add(acc, terms[j][lane]);
+      __syncwarp();
+    }
+    if (2 * lane < c - ch0)
+      store_bf16<2>(dvol + (int64_t)v * c + ch0 + 2 * lane,
+                    Bf16Words<2>{{acc}});
+  }
+}
+
+// 8 lanes sum voxel v, 8 channels a lane (16-byte loads; 64 a pass): each
+// lane reads the voxel's entries itself (the group's lanes read the same
+// ones; the next kGroupBatch are loaded while these are summed), their
+// rows all loaded before the first addition. Fewer instructions an entry
+// than the warp paths, where most voxels have a few dozen candidates.
+__device__ __forceinline__ void sum_voxel_group8(
+    const __nv_bfloat16* __restrict__ g, const float* __restrict__ coords,
+    const int2* __restrict__ entries, const int* __restrict__ off,
+    __nv_bfloat16* __restrict__ dvol, int v, int h, int w, int d, int c) {
+  const int gl = threadIdx.x % 8;
+  const int beg = off[v], end = off[v + 1];
+  for (int ch0 = 0; ch0 < c; ch0 += 64) {
+    const int ch = ch0 + gl * 8;
+    const bool has = ch < c;
+    Bf16Words<8> acc;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc.w[u] = 0u;          // +0.0
+    int2 e[kGroupBatch], e_next[kGroupBatch];
+#pragma unroll
+    for (int j = 0; j < kGroupBatch; ++j)
+      e_next[j] = beg + j < end ? __ldg(entries + beg + j) : make_int2(0, 0);
+    for (int b0 = beg; b0 < end; b0 += kGroupBatch) {
+#pragma unroll
+      for (int j = 0; j < kGroupBatch; ++j) {
+        e[j] = weighted(e_next[j], coords, h, w, d);
+        const int at = b0 + kGroupBatch + j;
+        e_next[j] = at < end ? __ldg(entries + at) : make_int2(0, 0);
+      }
+      Bf16Words<8> row[kGroupBatch];
+#pragma unroll
+      for (int j = 0; j < kGroupBatch; ++j)
+        if (has && e[j].y != 0)
+          row[j] = load_bf16<8>(g + (int64_t)e[j].x * c + ch);
+#pragma unroll
+      for (int j = 0; j < kGroupBatch; ++j)
+        if (has && e[j].y != 0)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            acc.w[u] = bf16x2_add(acc.w[u],
+                                  bf16x2_scale(row[j].w[u],
+                                               __int_as_float(e[j].y)));
+    }
+    if (has) store_bf16<8>(dvol + (int64_t)v * c + ch, acc);
+  }
+}
+
+// The sum: every voxel written once. Warps [0, hot_warps) take the listed
+// hot voxels first, a warp each (their long serial chains start early;
+// staged in shared memory where V = 8); the rest take the other voxels in
+// order, 8 lanes each where V = 8, else a warp each.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+sample3d_gather_bwd_sum_kernel(const __nv_bfloat16* __restrict__ g,
+                               const float* __restrict__ coords,
+                               const int2* __restrict__ entries,
+                               const int* __restrict__ off,
+                               const int* __restrict__ hot_list,
+                               const int* __restrict__ hot_count,
+                               int hot_warps, int hot_min,
+                               __nv_bfloat16* __restrict__ dvol, int n_vox,
+                               int h, int w, int d, int c) {
+  const int warp = (int)(((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32);
+  if (warp < hot_warps) {
+    if (warp >= *hot_count) return;
+    if constexpr (V == 8) {
+      __shared__ __align__(16) uint32_t terms[kThreads / 32][32][36];
+      sum_voxel_warp_staged(g, coords, entries, off, dvol, hot_list[warp], h,
+                            w, d, c, terms[threadIdx.x / 32]);
+    } else {
+      sum_voxel_warp<V>(g, coords, entries, off, dvol, hot_list[warp], h, w,
+                        d, c);
+    }
+    return;
+  }
+  const int per_warp = V == 8 ? 4 : 1;
+  const int v = (warp - hot_warps) * per_warp + (int)(threadIdx.x % 32) /
+                                                    (32 / per_warp);
+  if (v >= n_vox || off[v + 1] - off[v] > hot_min) return;
+  if constexpr (V == 8)
+    sum_voxel_group8(g, coords, entries, off, dvol, v, h, w, d, c);
+  else
+    sum_voxel_warp<V>(g, coords, entries, off, dvol, v, h, w, d, c);
 }
 
 }  // namespace
@@ -521,38 +940,87 @@ extern "C" int vf_sample3d_trilinear_bwd_bf16(
                              tx, stream);
 }
 
-// the gather-bf16 backward's plan: order [b*n*8] (taps by voxel, stable;
-// the live ones first) and start [b*h*w*d + 1]; ws holds b*n*8 keys and
-// then tiles::workspace_ints(b*n*8, b*h*w*d) ints
+// the gather-bf16 backward's plan: order [b*n] (the points by base voxel,
+// stable; the live ones first) and start [b*(h+1)*(w+1)*(d+1) + 1]; ws
+// holds b*n keys and then tiles::workspace_ints(b*n, that key count) ints
 extern "C" int vf_sample3d_gather_bwd_plan(const float* coords, int* ws,
                                            int* order, int* start, int64_t b,
                                            int64_t h, int64_t w, int64_t d,
                                            int64_t n, void* stream) {
   if (h < 1 || w < 1 || d < 1 || b * n < 1 || b * n * 8 >= INT32_MAX ||
-      b * h * w * d >= INT32_MAX)
+      b * (h + 1) * (w + 1) * (d + 1) >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pts = (int)(b * n), items = 8 * pts, n_keys = (int)(b * h * w * d);
-  sample3d_gather_bwd_keys_kernel<<<tiles::ceil_div(pts, 256), 256, 0,
-                                    s>>>(coords, pts, (int)h, (int)w, (int)d,
-                                         (int)n, n_keys, ws);
-  return tiles::sort_keys(ws, items, n_keys, ws + items, order, start, s);
+  const int pts = (int)(b * n);
+  const int n_keys = (int)(b * (h + 1) * (w + 1) * (d + 1));
+  sample3d_gather_bwd_keys_kernel<<<tiles::ceil_div(pts, 256), 256, 0, s>>>(
+      coords, pts, (int)h, (int)w, (int)d, (int)n, n_keys, ws);
+  return tiles::sort_keys(ws, pts, n_keys, ws + pts, order, start, s);
 }
 
 // the gather-bf16 backward on that plan: g [b, n, c] bf16 -> dvol [b, h, w,
-// d, c] bf16, every voxel written once
+// d, c] bf16, every voxel written once; ws holds the voxels' candidate
+// offsets [b*h*w*d + 1], the scan's ceil((b*h*w*d + 1) / 2048) sums, one
+// int of padding, the candidates (point, weight) [8*b*n], the live
+// points' coordinates in plan order [b*n, 3], and the hot voxels' count and
+// list [1 + min(b*h*w*d, 8*b*n / 512)] (ints)
 extern "C" int vf_sample3d_gather_bwd_bf16(
     const __nv_bfloat16* g, const float* coords, const int* order,
-    const int* start, __nv_bfloat16* dvol, int64_t b, int64_t h, int64_t w,
-    int64_t d, int64_t c, int64_t n, void* stream) {
-  if (h < 1 || w < 1 || d < 1 || c < 1 || c > INT32_MAX ||
-      b * h * w * d >= INT32_MAX || n < 1)
+    const int* start, int* ws, __nv_bfloat16* dvol, int64_t b, int64_t h,
+    int64_t w, int64_t d, int64_t c, int64_t n, void* stream) {
+  if (h < 1 || w < 1 || d < 1 || c < 1 || c > (1 << 20) || n < 1 ||
+      b * (h + 1) * (w + 1) * (d + 1) >= INT32_MAX || b * n * 8 >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_keys = (int)(b * h * w * d);
-  constexpr int kWarps = kThreads / 32;
-  sample3d_gather_bwd_bf16_kernel<<<tiles::ceil_div(n_keys, kWarps),
-                                    kThreads, 0, s>>>(
-      g, coords, order, start, dvol, n_keys, (int)h, (int)w, (int)d, (int)c);
+  const int n_vox = (int)(b * h * w * d);
+  // the column kernel holds bases z in a signed char: d <= 127, else every
+  // voxel with a candidate takes the serial merge
+  const int cap = d <= 127 ? kColumnCap : 0;
+  int* off = ws;
+  int* sums = off + n_vox + 1;
+  const int64_t used = n_vox + 1 + tiles::ceil_div(n_vox + 1, tiles::kTile);
+  int2* entries = reinterpret_cast<int2*>(ws + used + (used & 1));
+  float* sq = reinterpret_cast<float*>(entries + 8 * b * n);
+  // at most 8 b n candidates in all, so at most 8 b n / kHotMin hot voxels
+  const int hot_warps = (int)std::min<int64_t>(n_vox, 8 * b * n / kHotMin);
+  int* hot_count = reinterpret_cast<int*>(sq + 3 * b * n);
+  int* hot_list = hot_count + 1;
+  cudaError_t err = cudaMemsetAsync(hot_count, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  sample3d_gather_bwd_count_kernel<<<tiles::ceil_div(n_vox + 1, 256), 256, 0,
+                                     s>>>(start, n_vox, (int)h, (int)w,
+                                          (int)d, kHotMin, off, hot_list,
+                                          hot_count);
+  tiles::exclusive_scan(off, n_vox + 1, sums, s);
+  const int n_keys = (int)(b * (h + 1) * (w + 1) * (d + 1));
+  sample3d_gather_bwd_sorted_coords_kernel<<<tiles::ceil_div(b * n, 256), 256,
+                                             0, s>>>(coords, order,
+                                                     start + n_keys, sq);
+  const size_t smem = column_smem((int)d, cap);
+  err = cudaFuncSetAttribute(sample3d_gather_bwd_column_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sample3d_gather_bwd_column_kernel<<<(unsigned)(b * h * w), kThreads, smem,
+                                      s>>>(sq, order, start, off, entries,
+                                           (int)h, (int)w, (int)d, cap);
+  sample3d_gather_bwd_merge_kernel<<<tiles::ceil_div(n_vox, 128), 128, 0,
+                                     s>>>(order, start, off, n_vox, (int)h,
+                                          (int)w, (int)d, cap, entries);
+  auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  auto sum = sample3d_gather_bwd_sum_kernel<1>;
+  int per_warp = 1;
+  if (c % 8 == 0 && aligned(g, 16) && aligned(dvol, 16)) {
+    sum = sample3d_gather_bwd_sum_kernel<8>;
+    per_warp = 4;
+  } else if (c % 2 == 0 && aligned(g, 4) && aligned(dvol, 4)) {
+    sum = sample3d_gather_bwd_sum_kernel<2>;
+  }
+  const int64_t warps = hot_warps + tiles::ceil_div(n_vox, per_warp);
+  sum<<<tiles::ceil_div(warps * 32, kThreads), kThreads, 0, s>>>(
+      g, coords, entries, off, hot_list, hot_count, hot_warps, kHotMin, dvol,
+      n_vox, (int)h, (int)w, (int)d, (int)c);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,7 @@
 // kernel's (dy fastest, dz slowest).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,4 +149,67 @@ __device__ __forceinline__ float gather_weight_f32(const GatherPoint& p,
   const float y = (t >> 1) & 1 ? p.f[1] : __fsub_rn(1.0f, p.f[1]);
   const float z = t >> 2 ? p.f[2] : __fsub_rn(1.0f, p.f[2]);
   return __fmul_rn(__fmul_rn(__fmul_rn(x, y), z), valid ? 1.0f : 0.0f);
+}
+
+// The key of a point's base voxel, its floors (x, y, z) in image img, in
+// the [b, h + 1, w + 1, d + 1] grid of bases: a point with a tap of
+// weight != 0 has every floor in [-1, size - 1] (the backward's plan).
+__device__ __forceinline__ int gather_base_key(const GatherPoint& p, int img,
+                                               int h, int w, int d) {
+  return ((img * (h + 1) + p.i[1] + 1) * (w + 1) + p.i[0] + 1) * (d + 1) +
+         p.i[2] + 1;
+}
+
+// Two bf16 values packed in 32 bits (element 0 in the low half), the
+// arithmetic of both gather kernels on them. A product with an f32 w is
+// formed in f32 and rounded once to bf16 (each half); a sum of two bf16
+// values rounded to bf16 is the f32 sum rounded (that sum is exact, or the
+// smaller term lies below 2^-15 of the larger and cannot reach a rounding
+// boundary), which add.bf16x2 computes in one instruction.
+__device__ __forceinline__ uint32_t bf16x2_scale(uint32_t v, float w) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      __fmul_rn(__uint_as_float(v << 16), w),
+      __fmul_rn(__uint_as_float(v & 0xffff0000u), w));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r =
+      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// V consecutive bf16 values (8: one 16-byte vector; 2; 1, in the low half
+// of its word) as the words the arithmetic above takes, and back
+template <int V>
+struct Bf16Words {
+  static constexpr int kWords = V == 1 ? 1 : V / 2;
+  uint32_t w[kWords];
+};
+
+template <int V>
+__device__ __forceinline__ Bf16Words<V> load_bf16(const __nv_bfloat16* p) {
+  Bf16Words<V> r;
+  if constexpr (V == 8) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    r.w[0] = u.x; r.w[1] = u.y; r.w[2] = u.z; r.w[3] = u.w;
+  } else if constexpr (V == 2) {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* p,
+                                           const Bf16Words<V>& r) {
+  if constexpr (V == 8)
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(r.w[0], r.w[1], r.w[2],
+                                                   r.w[3]));
+  else if constexpr (V == 2)
+    *reinterpret_cast<unsigned int*>(p) = r.w[0];
+  else
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)r.w[0];
 }

@@ -63,6 +63,7 @@ _POINT_CHUNK = 1 << 18   # plain version: points per gather
 K4_TILES = {False: (4, 4), True: (2, 2)}
 _BLOCK_CHANNELS = 64     # csrc/sample3d_bwd.cu kCS
 _DTYPES = (torch.float32, torch.bfloat16)
+_GATHER_HOT_MIN = 512    # csrc/sample3d_bwd.cu kHotMin
 
 
 def _axis_weights(coord: torch.Tensor, size: int):
@@ -573,13 +574,36 @@ def _gather_bwd_items(coords: torch.Tensor, vol_shape):
     return wts.reshape(-1), keys.reshape(-1)
 
 
+def gather_bwd_base_keys(coords: torch.Tensor, vol_shape):
+    """Each point's key in the gather-bf16 backward's plan: its base voxel
+    (the floors of its coordinates, each >= -1 where a tap has weight !=
+    0) in the [B, H + 1, W + 1, D + 1] grid of bases, ``n_keys`` (that
+    grid's size) where all 8 of its ``_trilinear_taps`` weights are 0 ->
+    (keys [B*N] int64, n_keys)."""
+    nb, h, w, d, _ = vol_shape
+    n = coords.shape[1]
+    n_keys = nb * (h + 1) * (w + 1) * (d + 1)
+    wts, _ = _gather_bwd_items(coords, vol_shape)
+    live = wts.reshape(nb, n, 8).ne(0).any(-1)
+    keys = torch.empty(nb, n, dtype=torch.int64, device=coords.device)
+    for b in range(nb):
+        for s in range(0, n, _POINT_CHUNK):
+            (_, ix), (_, iy), (_, iz) = _gather_taps(
+                coords[b, s:s + _POINT_CHUNK], h, w, d)
+            keys[b, s:s + _POINT_CHUNK] = (
+                ((b * (h + 1) + iy + 1) * (w + 1) + ix + 1) * (d + 1) + iz + 1)
+    return torch.where(live, keys, n_keys).reshape(-1), n_keys
+
+
 def sample3d_gather_bwd_plan_plain(coords: torch.Tensor, vol_shape):
     """The gather-bf16 backward's plan in plain PyTorch: (order, start) of
-    ``dest_tiles.sort_plain`` over its items' keys (``_gather_bwd_items``),
-    int32 on coords' device: each voxel's live taps in item order."""
-    nb, h, w, d, _ = vol_shape
-    _, keys = _gather_bwd_items(coords, vol_shape)
-    order, start = dest_tiles.sort_plain(keys, nb * h * w * d)
+    ``dest_tiles.sort_plain`` over the points' base keys
+    (``gather_bwd_base_keys``), int32 on coords' device: each base's live
+    points in point order. Voxel v's taps in item order are the points of
+    the 8 bases v - (dx, dy, dz) merged by point (a point puts at most one
+    tap on a voxel), tap t = dx + 2 dy + 4 dz from base v - (dx, dy, dz)."""
+    keys, n_keys = gather_bwd_base_keys(coords, vol_shape)
+    order, start = dest_tiles.sort_plain(keys, n_keys)
     return order.int(), start.int()
 
 
@@ -613,21 +637,22 @@ def sample3d_gather_bwd_plain(g: torch.Tensor, coords: torch.Tensor,
 
 def sample3d_gather_bwd_plan(coords: torch.Tensor, vol_shape):
     """The gather-bf16 backward's plan built on the card
-    (``vf_sample3d_gather_bwd_plan``): (order [B*N*8], start [B*H*W*D + 1])
-    int32, equal element for element to ``sample3d_gather_bwd_plan_plain``.
-    coords [B, N, 3] f32 on a CUDA device."""
+    (``vf_sample3d_gather_bwd_plan``): (order [B*N], start [B*(H+1)*(W+1)*
+    (D+1) + 1]) int32, equal element for element to
+    ``sample3d_gather_bwd_plan_plain``. coords [B, N, 3] f32 on a CUDA
+    device."""
     _check_cuda((("coords", coords),))
     nb, h, w, d, _ = vol_shape
     n = coords.shape[1]
-    items, n_keys = nb * n * 8, nb * h * w * d
-    if items >= 2 ** 31:
-        raise ValueError(f"gather-bf16 backward: {items} taps exceed the "
-                         f"plan's int32 indices")
+    pts, n_keys = nb * n, nb * (h + 1) * (w + 1) * (d + 1)
+    if 8 * pts >= 2 ** 31 or n_keys >= 2 ** 31:
+        raise ValueError(f"gather-bf16 backward: {pts} points or {n_keys} "
+                         f"bases exceed the plan's int32 indices")
     ints = dict(dtype=torch.int32, device=coords.device)
-    order = torch.empty(items, **ints)
+    order = torch.empty(pts, **ints)
     start = torch.empty(n_keys + 1, **ints)
-    blocks = -(-items // 2048)
-    ws = torch.empty(5 * items + 256 * blocks + -(-256 * blocks // 2048),
+    blocks = -(-pts // 2048)
+    ws = torch.empty(5 * pts + 256 * blocks + -(-256 * blocks // 2048),
                      **ints)
     fn = _build.function("sample3d_bwd", "vf_sample3d_gather_bwd_plan",
                          [_P] * 4 + [_I64] * 5 + [_P])
@@ -642,21 +667,30 @@ def sample3d_gather_bwd_plan(coords: torch.Tensor, vol_shape):
 
 
 def _gather_bwd_launch(g, coords, vol_shape, order, start) -> torch.Tensor:
-    """The gather-bf16 backward kernel on the plan (order, start) of
+    """The gather-bf16 backward's reduce on the plan (order, start) of
     ``sample3d_gather_bwd_plan(coords, vol_shape)`` -> dvol bf16, each
-    voxel written once."""
+    voxel written once. Its scratch holds each voxel's candidates, the
+    points of the 8 bases that reach it merged by point, with their tap
+    weights (at most 8 a point), and the points' coordinates in plan order:
+    175 MB at the production shapes, batch 2."""
     nb, h, w, d, c = vol_shape
     n = g.shape[1]
-    if order.shape != (nb * n * 8,) or start.shape != (nb * h * w * d + 1,) \
+    n_vox = nb * h * w * d
+    if order.shape != (nb * n,) \
+            or start.shape != (nb * (h + 1) * (w + 1) * (d + 1) + 1,) \
             or order.dtype != torch.int32 or start.dtype != torch.int32:
         raise ValueError("the plan does not fit the cotangent and volume")
     dvol = torch.empty(tuple(vol_shape), device=g.device, dtype=g.dtype)
+    ws = torch.empty(n_vox + 3 + -(-(n_vox + 1) // 2048) + 19 * nb * n
+                     + min(n_vox, 8 * nb * n // _GATHER_HOT_MIN),
+                     dtype=torch.int32, device=g.device)
     fn = _build.function("sample3d_bwd", "vf_sample3d_gather_bwd_bf16",
-                         [_P] * 5 + [_I64] * 6 + [_P])
+                         [_P] * 6 + [_I64] * 6 + [_P])
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), coords.data_ptr(), order.data_ptr(),
-                 start.data_ptr(), dvol.data_ptr(), nb, h, w, d, c, n, stream)
+                 start.data_ptr(), ws.data_ptr(), dvol.data_ptr(), nb, h, w,
+                 d, c, n, stream)
     if err != 0:
         raise RuntimeError(f"vf_sample3d_gather_bwd_bf16 launch failed: CUDA "
                            f"error {err}")

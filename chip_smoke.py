@@ -226,7 +226,14 @@ Phases (any failure exits non-zero):
     within the gradient tolerance (relative L2), the ranks' states bit
     for bit, each rank's launches a step equal to one process's, the
     windows equal; each rank's step time is printed as two ranks
-    time-sharing one card (no data-parallel speed).
+    time-sharing one card (no data-parallel speed). Then the camera-axis
+    grids (``CAM_WORLDS``), each cell held so against the same
+    single-process step: (1, 2) on those cells and on every training
+    option (``CAM_OPTION_CELLS``, f32: the production yaml unmerged and
+    with unbatched pose frames, the fsm baseline, the augdepth yaml), and
+    (2, 2) on the bench's cell, each rank launching per camera (K1b / K2b)
+    what one process launches grouped, with the cell's cam-group
+    collectives by site.
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the f32 comparisons must see
 only the kernels' differences.
@@ -4277,27 +4284,57 @@ DP_STEP = 3                 # the global step of the compared update
 DP_TIMED_STEPS = 2          # each rank's steps after the compared one
 DP_DEADLINE_S = 600         # a world's ranks, all its cells, start-up included
 DP_DEVICE = "cuda"          # the ranks' device ("cpu" rehearses the phase)
-# (label, mixed precision, FakeDataset rig, windows sized from the batch):
-# the 6-camera f32 step and the bench's cell (bf16, the "nuscenes" rig,
-# the production focal-length scale, windows on), each at batch 1 a rank
-DP_CELLS = (("6-camera f32", False, "even", False),
+# (label, mixed precision, FakeDataset rig, windows sized from the batch,
+# the training option or None): the 6-camera f32 step and the bench's cell
+# (bf16, the "nuscenes" rig, the production focal-length scale, windows
+# on), each at batch 1 a rank
+DP_CELLS = (("6-camera f32", False, "even", False, None),
             ("6-camera bf16 nuscenes (the bench's cell)", True, "nuscenes",
-             True))
+             True, None))
+# the training options of the camera axis, f32 at batch 1 a rank: the
+# published production yaml with each net's own back-projection, and with
+# unbatched pose frames; the fsm baseline; the published augdepth yaml
+CAM_OPTION_CELLS = (
+    ("6-camera f32 unmerged", False, "even", False, "unmerged"),
+    ("6-camera f32 unbatched pose frames", False, "even", False,
+     "unbatched"),
+    ("6-camera fsm f32", False, "even", False, "fsm"),
+    ("6-camera aug f32", False, "even", False, "aug"))
+# each option cell's collectives of a step on every rank of the (1, 2)
+# grid: the cam-group sums of each back-projection (2 a net and pose pass
+# where the nets back-project their own features), the fsm poses' and the
+# aug depths' gathers
+CAM_OPTION_SITES = {
+    "unmerged": dict(cam_fusion=4),
+    "unbatched": dict(cam_fusion=6),
+    "fsm": dict(cam_poses=1),
+    "aug": dict(cam_fusion=2, cam_depths=1)}
 # the camera-axis worlds, (data, cam, cells): each rank runs its cameras
 # of its data shard's batch, which is the global batch of DP_WORLD samples
 # split over the data shards, so every cell is held against the same
 # single-process step as the two data-parallel ranks
-CAM_WORLDS = ((1, 2, DP_CELLS), (2, 2, DP_CELLS[1:]))
+CAM_WORLDS = ((1, 2, DP_CELLS + CAM_OPTION_CELLS), (2, 2, DP_CELLS[1:]))
 
 
-def dp_config(mp: bool):
+def dp_config(cell):
     """A cell's config at batch 1 (a rank's batch): the published yaml in
-    f32, the bench's cell (``presets.build_config``) in bf16."""
+    f32, the bench's cell (``presets.build_config``) in bf16, or the
+    cell's training option (``CAM_OPTION_CELLS``)."""
     from vfdepth_tpu_torch import presets
     from vfdepth_tpu_torch.config import get_config
+    mp, option = cell[1], cell[4]
     if mp:
         return presets.build_config(batch_size=1, mixed_precision=True)
-    cfg = get_config(str(CONFIG))
+    if option == "fsm":
+        cfg = fsm_config()
+    elif option == "aug":
+        cfg = aug_config()
+    else:
+        cfg = get_config(str(CONFIG))
+        if option == "unmerged":
+            cfg.set("merge_backprojection", False)
+        elif option == "unbatched":
+            cfg.set("batch_pose_frames", False)
     cfg.set("batch_size", 1)
     return cfg
 
@@ -4321,15 +4358,16 @@ def dp_cell_step(cell, device, rank: int = 0, world: int = 1, grid=None):
     the set-up broadcast replaces the other ranks' weights with rank 0's)
     and a carried Adam state: the global batch's first ``world``-th for
     this rank (all of it in one process; under a camera-axis ``grid`` its
-    data shard's part, its cameras), the global tie-break noise drawn from
-    one seed. Then ``DP_TIMED_STEPS`` more steps, timed. Returns the
-    results on the host, with the compared step's launches, collectives
-    by site and peak memory."""
+    data shard's part, its cameras), the global tie-break noise (and
+    rotated-view draw) drawn from one seed. Then ``DP_TIMED_STEPS`` more
+    steps, timed (one for an option cell: its ranks' steps take seconds
+    over gloo). Returns the results on the host, with the compared step's
+    launches, collectives by site and peak memory."""
     from vfdepth_tpu_torch.parallel import COUNTS, reduce_logs
     from vfdepth_tpu_torch.training import (VFDepthModel, create_train_state,
                                             train_step)
-    label, mp, rig, windows = cell
-    cfg = dp_config(mp)
+    label, mp, rig, windows, _ = cell
+    cfg = dp_config(cell)
     ds = _dataset(cfg, DP_WORLD, rig)
     shard, shards = (grid.d, grid.data) if grid is not None else (rank, world)
     per = DP_WORLD // shards
@@ -4360,7 +4398,7 @@ def dp_cell_step(cell, device, rank: int = 0, world: int = 1, grid=None):
                       for k, p in model.named_parameters()},
                state={k: v.detach().cpu().clone()
                       for k, v in model.state_dict().items()}, ms=[])
-    for i in range(DP_TIMED_STEPS):
+    for i in range(1 if cell[4] else DP_TIMED_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         train_step(model, opt, batch, DP_STEP + 1 + i,
@@ -4417,15 +4455,15 @@ def _rel_l2(a, b) -> float:
 
 
 def dp_refs(device):
-    """Each cell's single-process step at the global batch (DP_WORLD)."""
-    refs = []
-    for cell in DP_CELLS:
-        refs.append(dp_cell_step(cell, device))
+    """Each cell's single-process step at the global batch (DP_WORLD), by
+    label."""
+    refs = {}
+    for cell in DP_CELLS + CAM_OPTION_CELLS:
+        ref = refs[cell[0]] = dp_cell_step(cell, device)
         print(f"{cell[0]} single-process step at batch {DP_WORLD}: loss "
-              f"{refs[-1]['logs']['total_loss']:.6f}, windows "
-              f"{refs[-1]['windows']}, step ms "
-              f"{[round(m, 3) for m in refs[-1]['ms']]}, peak "
-              f"{refs[-1]['peak_gib']:.3f} GiB", flush=True)
+              f"{ref['logs']['total_loss']:.6f}, windows {ref['windows']}, "
+              f"step ms {[round(m, 3) for m in ref['ms']]}, peak "
+              f"{ref['peak_gib']:.3f} GiB", flush=True)
     return refs
 
 
@@ -4535,7 +4573,8 @@ def run_two_ranks(device, paths, tmp: Path, refs):
           f"{wall:.1f} s; rank 0's collectives by site {counts}", flush=True)
     for site in ("broadcast", "batch_norm", "loss", "gradients", "logs"):
         check(counts.get(site, 0) > 0, f"two ranks: no {site} collective")
-    for i, (cell, ref) in enumerate(zip(DP_CELLS, refs)):
+    for i, cell in enumerate(DP_CELLS):
+        ref = refs[cell[0]]
         hold_cell(cell, ref, [r[i] for r in ranks], "two ranks over gloo",
                   ref["counts"], paths)
     del ranks
@@ -4560,8 +4599,10 @@ def run_cam_world(device, paths, tmp: Path, refs, data: int, cam: int,
     card over gloo: each cell's step held against the single-process step
     at the same global batch (``hold_cell``); every rank launches the
     per-camera back-projection (K1b / K2b), K3, K4 and K5 as often as one
-    process launches K1 / K2, K3, K4 and K5, and takes two cam-group
-    all-reduces (the back-projection's group sums and count)."""
+    process launches K1 / K2, K3, K4 and K5, and takes the cell's
+    cam-group collectives: two all-reduces a back-projection (its group
+    sums and count; ``CAM_OPTION_SITES`` for the option cells), the fsm
+    poses' and the aug depths' gathers."""
     world = data * cam
     what = f"(data {data}, cam {cam}) grid of {world} ranks over gloo"
     ranks, wall = spawn_ranks(tmp, what, world, cam, cells)
@@ -4569,12 +4610,14 @@ def run_cam_world(device, paths, tmp: Path, refs, data: int, cam: int,
           f"{wall:.1f} s; rank 0's collectives by site {ranks[0][-1]}",
           flush=True)
     for i, cell in enumerate(cells):
-        ref = refs[DP_CELLS.index(cell)]
+        ref = refs[cell[0]]
         got = [r[i] for r in ranks]
+        want = CAM_OPTION_SITES.get(cell[4], dict(cam_fusion=2))
         for r, out in enumerate(got):
-            check(out["collectives"].get("cam_fusion") == 2,
-                  f"{cell[0]}, {what} rank {r}: collectives "
-                  f"{out['collectives']}")
+            sites = {k: v for k, v in out["collectives"].items()
+                     if k.startswith("cam_")}
+            check(sites == want, f"{cell[0]}, {what} rank {r}: collectives "
+                                 f"{out['collectives']}, expected {want}")
         hold_cell(cell, ref, got, what, per_camera_launches(ref["counts"]),
                   paths)
     del ranks

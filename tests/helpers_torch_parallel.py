@@ -8,20 +8,26 @@ check's rank-side work and saves what it saw to ``rank<r>.pt``:
 
 * ``step``: its loader shard's first batch and one ``train_step`` at
   batch 1 from the parent's weights (rank 1 starts from other weights, so
-  the set-up broadcast must replace them) with the parent's global noise;
-  the noise its forward received, the reduced logs, gradients and state
-  after Adam (rank 1 only their digests);
+  the set-up broadcast must replace them) with the parent's global noise
+  and the parent's single-process auto-masks imposed on its row
+  (``impose_auto_masks``); the noise its forward received, the reduced
+  logs, its own auto-masks, gradients and state after Adam (rank 1 only
+  their digests);
 * ``unequal``: ``_percam_masked_mean`` and a BatchNorm layer on per-rank
   slices with deliberately unequal mask counts and means;
 * ``windows``: ``configure_warp_window`` on this rank's first batch of the
   "nuscenes" rig, rank 1's focal length shortened so its rig needs other
   boxes;
 * ``loop``: ``Trainer.learn`` for 2 steps, a log checkpoint at each, rank
-  1's boxes too small for the overlaps (it overflows, rank 0 does not).
+  1's boxes too small for the overlaps (it overflows, rank 0 does not);
+* ``cam_parallel``: a ``Trainer`` with ``tpu.cam_parallel_size`` 3 on the
+  2 ranks (a world smaller than it: JAX's rule drops the camera axis) and
+  the ``step`` check's step through its model.
 """
 import hashlib
 import os
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -29,6 +35,7 @@ import torch.distributed as dist
 
 from vfdepth_tpu_torch import presets
 from vfdepth_tpu_torch.data import BatchLoader, FakeDataset
+from vfdepth_tpu_torch.losses import auto_mask, composite
 from vfdepth_tpu_torch.losses.composite import _percam_masked_mean
 from vfdepth_tpu_torch.models.blocks import BatchNorm
 from vfdepth_tpu_torch.parallel import (COUNTS, global_batch,
@@ -86,7 +93,9 @@ def unequal_inputs():
     """Global [2, ...] inputs of the unequal-count checks: a loss map and a
     mask that keeps 90% of rank 0's pixels and 10% of rank 1's; a
     BatchNorm input whose rank-1 half has another mean and scale, and the
-    cotangent of its output."""
+    cotangent of its output; a BatchNorm input whose mean dwarfs its
+    spread (10 + 0.01 N(0, 1): E[x^2] - E[x]^2 cancels to ~5% of the
+    variance in f32)."""
     rng = np.random.RandomState(7)
     loss = rng.rand(2, 3, 8, 8, 1).astype(np.float32)
     keep = np.array([0.9, 0.1], np.float32)[:, None, None, None, None]
@@ -95,8 +104,10 @@ def unequal_inputs():
     x[1] = 2.0 * x[1] + 3.0
     cot = rng.randn(2, 4, 5, 6).astype(np.float32)
     weights = rng.rand(3).astype(np.float32)
+    shifted = (10.0 + 0.01 * rng.randn(2, 4, 5, 6)).astype(np.float32)
     return {k: torch.from_numpy(v) for k, v in dict(
-        loss=loss, mask=mask, x=x, cot=cot, weights=weights).items()}
+        loss=loss, mask=mask, x=x, cot=cot, weights=weights,
+        shifted=shifted).items()}
 
 
 def masked_mean_and_grad(loss, mask, weights):
@@ -123,6 +134,26 @@ def batch_norm_and_grads(x, cot):
                 dweight=bn.weight.grad, dbias=bn.bias.grad)
 
 
+def impose_auto_masks(masks, rows=slice(None), cams=slice(None)):
+    """A stand-in for ``losses.composite.auto_mask`` that returns the
+    reference's mask (``masks`` [n_scales, b, cams, H, W, 1], the calls
+    taken in scale order; their ``rows`` and ``cams``) and keeps the
+    comparison's own mask in its ``own`` list, one per call. A pixel whose
+    comparison ties within f32 rounding can flip between two steps that
+    differ in rounding alone, and one flip moves a gradient by up to
+    ~3e-3: with the reference's masks imposed, the steps compare on the
+    same pixels, and the own masks are checked apart."""
+    own = []
+
+    def imposed(reproj, ident):
+        k = len(own) % len(masks)
+        own.append(auto_mask(reproj, ident).detach().clone())
+        return torch.as_tensor(masks[k][rows, cams]).to(reproj)
+
+    imposed.own = own
+    return imposed
+
+
 def digest(tensors) -> str:
     """A hash of a name -> tensor dict's names, dtypes, shapes and bits."""
     h = hashlib.sha256()
@@ -133,13 +164,22 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _step(rank, inputs):
+def _step(rank, inputs, work=None):
+    """The ``step`` check; given ``work``, through a ``Trainer`` built with
+    ``tpu.cam_parallel_size`` 3 (its logs under ``work``)."""
     cfg = step_config()
     loader = shard_loader(dataset(cfg), rank)
     batch = next(iter(loader))
     model = VFDepthModel(cfg, device="cpu", seed=rank)
     if rank == 0:
         model.load_state_dict(inputs["state"])
+    grid = "none"
+    if work is not None:
+        cfg.set("cam_parallel_size", WORLD + 1, section="tpu")
+        root = work / "cam3" / f"rank{rank}"
+        cfg.set("log_path", str(root / "log"))
+        cfg.set("save_weights_root", str(root / "models"))
+        grid = Trainer(cfg, model, use_tb=False).grid
     opt = create_train_state(model)
     carry_adam_state(opt, model)
     seen, forward = {}, model.forward
@@ -148,13 +188,17 @@ def _step(rank, inputs):
         seen["noise"] = kwargs["noise"].clone()
         return forward(*args, **kwargs)
     model.forward = recording
-    logs = train_step(model, opt, batch, STEP, torch.Generator(),
-                      noise=inputs["noise"])
+    # the single-process step's auto-masks on this rank's row
+    masks = impose_auto_masks(inputs["amask"], slice(rank, rank + 1))
+    with mock.patch.object(composite, "auto_mask", masks):
+        logs = train_step(model, opt, batch, STEP, torch.Generator(),
+                          noise=inputs["noise"])
     grads = {n: p.grad for n, p in model.named_parameters()}
     state = model.state_dict()
     out = dict(epoch_indices=loader._epoch_indices(), batch=batch,
                noise=seen["noise"], logs=reduce_logs(logs),
-               digests=(digest(grads), digest(state)))
+               digests=(digest(grads), digest(state)), grid=grid,
+               own_masks=torch.stack(masks.own))
     if rank == 0:       # rank 1's are held to rank 0's by their digests
         out.update(grads={n: g.clone() for n, g in grads.items()},
                    state={k: v.clone() for k, v in state.items()})
@@ -168,7 +212,9 @@ def _unequal(rank):
         value, dloss = masked_mean_and_grad(part["loss"], part["mask"],
                                             inp["weights"])
     return dict(masked_mean=value, masked_mean_dloss=dloss,
-                batch_norm=batch_norm_and_grads(part["x"], part["cot"]))
+                batch_norm=batch_norm_and_grads(part["x"], part["cot"]),
+                batch_norm_shifted=batch_norm_and_grads(part["shifted"],
+                                                        part["cot"]))
 
 
 def window_batch(cfg, rank):
@@ -242,13 +288,10 @@ def run_rank(rank: int, work: str) -> None:
     out.update(_unequal(rank))
     out.update(_windows(rank))
     out.update(_loop(rank, work))
-    cfg = step_config()
-    cfg.set("cam_parallel_size", WORLD + 1)
-    try:
-        Trainer(cfg, VFDepthModel(cfg, device="cpu"), use_tb=False)
-        out["cam_parallel"] = None
-    except ValueError as e:
-        out["cam_parallel"] = str(e)
+    before = COUNTS["cam_fusion"]
+    cam3 = _step(rank, inputs, work)
+    out["cam_parallel"] = dict(grid=cam3["grid"], digests=cam3["digests"],
+                               cam_fusion=COUNTS["cam_fusion"] - before)
     dist.barrier()
     torch.save(out, work / f"rank{rank}.pt")
     dist.destroy_process_group()

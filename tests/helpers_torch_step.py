@@ -40,6 +40,20 @@ def with_motion(params, translation=(2.0, 1.0, 3.0)):
     return params
 
 
+def jax_noise(jm, b: int, rng):
+    """The standard normals of JAX's identity-loss tie-break in a training
+    step whose key is ``rng`` (already folded with the step): [n_scales,
+    b, cams, n_ctx, H, W, 1], one key split per scale."""
+    key = jax.random.split(rng)[0]
+    noise = []
+    for _ in jm.scales:
+        key, k1 = jax.random.split(key)
+        noise.append(jax.random.normal(
+            k1, (b, jm.num_cams, len(jm.frame_ids) - 1, jm.height,
+                 jm.width, 1)))
+    return jnp.stack(noise)
+
+
 def jax_step(jm, params, stats, jbatch, step: int = 3,
              compiler_options=None):
     """One JAX training step (``forward(train=True)`` + ``jax.grad``),
@@ -57,15 +71,8 @@ def jax_step(jm, params, stats, jbatch, step: int = 3,
             return loss, (logs, new_stats)
 
         grads, (logs, new_stats) = jax.grad(loss_fn, has_aux=True)(params)
-        key = jax.random.split(rng)[0]
-        noise = []
-        for _ in jm.scales:
-            key, k1 = jax.random.split(key)
-            noise.append(jax.random.normal(
-                k1, (b, jm.num_cams, len(jm.frame_ids) - 1, jm.height,
-                     jm.width, 1)))
         scalar = {k: v for k, v in logs.items() if v.ndim == 0}
-        return (grads, scalar, new_stats, jnp.stack(noise),
+        return (grads, scalar, new_stats, jax_noise(jm, b, rng),
                 logs["reproj_mask"])
 
     args = (params, stats, jbatch, jax.random.PRNGKey(11), jnp.int32(step))

@@ -29,7 +29,7 @@ average over the auto-mask), gradients 5e-3 / 5e-2 relative L2 (depth /
 pose net), BatchNorm statistics 1e-5; against the port's single-process
 step (the same function, the f32 sums in another order: the cam group's
 sum of partial group sums, the loss's assembled per-camera vectors, the
-global BatchNorm's E[x^2] - E[x]^2), the self-bounds: logs 2e-6 (3e-4
+global BatchNorm's sums over the ranks), the self-bounds: logs 2e-6 (3e-4
 where they see the auto-mask), gradients 2e-3, BatchNorm statistics 1e-5,
 parameters after Adam from a carried state 2e-3 of the learning rate. The
 ranks end bit-identical.
@@ -306,13 +306,21 @@ def test_batchnorm_only_in_per_camera_stages():
     this rank's cameras (a disjoint set of (sample, camera) pairs on each
     rank), so the world's sum of its statistics is the global batch's. The
     voxel stages, replicated over a cam group, hold none that would count
-    the group's copies as extra samples."""
-    model = VFDepthModel(presets.micro_config(), device="cpu")
-    names = [n for n, m in model.named_modules()
-             if isinstance(m, torch.nn.BatchNorm2d)]
-    assert names
-    assert all(n.startswith(("depth_net.encoder.", "pose_net.encoder."))
-               for n in names), names
+    the group's copies as extra samples. So for every pair of nets: the
+    fsm nets (``MonoDepthNet``, ``MonoPoseNet``) run whole on this rank's
+    cameras, and their decoders hold none either."""
+    for depth_model in ("fusion", "fsm"):
+        for pose_model in ("fusion", "fsm"):
+            model = VFDepthModel(presets.micro_config(
+                depth_model=depth_model, pose_model=pose_model),
+                device="cpu")
+            names = [n for n, m in model.named_modules()
+                     if isinstance(m, torch.nn.BatchNorm2d)]
+            assert any(n.startswith("depth_net.") for n in names)
+            assert any(n.startswith("pose_net.") for n in names)
+            assert all(n.startswith(("depth_net.encoder.",
+                                     "pose_net.encoder."))
+                       for n in names), (depth_model, pose_model, names)
 
 
 def test_windowed_step(grid_2x2):
@@ -369,35 +377,18 @@ def _grid_stub(cam):
     return mesh.Grid(1, cam, 0, 0, None, None)
 
 
-@pytest.mark.parametrize("option", ["aug_depth", "fsm_depth", "fsm_pose",
-                                    "unmerged", "unbatched"])
-def test_unsupported_options_raise(option):
-    """What the camera axis does not cover yet raises, naming ROADMAP A3c;
-    nothing falls back to the unsharded step."""
-    over = dict(aug_depth=option == "aug_depth")
-    if option == "fsm_depth":
-        over["depth_model"] = "fsm"
-    if option == "fsm_pose":
-        over["pose_model"] = "fsm"
-    cfg = presets.micro_config(**over)
-    if option == "unmerged":
-        cfg.set("merge_backprojection", False, section="tpu")
-    if option == "unbatched":
-        cfg.set("batch_pose_frames", False, section="tpu")
-    model = VFDepthModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3c"):
-        model.shard_cameras(_grid_stub(3))
-    assert model.cam_grid is None
-
-
 def test_grid_rule(monkeypatch):
-    """JAX's rule: no grid in one process or with ``cam_parallel_size`` 1;
-    a world not a multiple of it raises (JAX would leave ranks out), as
-    does ``num_cams`` not divisible by it (JAX's message); a model whose
-    cameras do not divide over a grid refuses it."""
+    """JAX's rule: no grid in one process or with ``cam_parallel_size`` 1,
+    nor on a world smaller than it (JAX drops the camera axis there and
+    trains on its 1-D data mesh); a larger world not a multiple of it
+    raises (JAX would leave ranks out), as does ``num_cams`` not divisible
+    by it (JAX's message); a model whose cameras do not divide over a grid
+    refuses it."""
     cfg = presets.micro_config()
     cfg.set("cam_parallel_size", 3, section="tpu")
     assert mesh.cam_grid_for(cfg) is None            # one process
+    monkeypatch.setattr(mesh, "rank_world", lambda: (1, 2))
+    assert mesh.cam_grid_for(cfg) is None            # world 2 < cam 3
     monkeypatch.setattr(mesh, "rank_world", lambda: (0, 4))
     with pytest.raises(ValueError, match="not a multiple.*A3b"):
         mesh.cam_grid_for(cfg)

@@ -1,0 +1,78 @@
+"""The camera axis (``parallel/mesh.py``) under the fsm nets and depth
+synthesis, on the CPU: gloo ranks of the (data 2, cam 2) grid on the
+6-camera rig (micro widths, the overlap groups split unevenly, {0} | {1,
+2} and {3, 4} | {5}) against the JAX package's unsharded step over the
+global batch and the port's own single-process step, with
+``tests/test_torch_cam_parallel_options.py``'s checks and bounds
+(``tests/test_torch_cam_parallel_mixed.py`` holds the mixed pairs so).
+
+* the fsm nets (``depth_model`` and ``pose_model`` fsm, the baseline's
+  ``pose_loss_coeff`` 0.1; at 64x96, as the fsm depth net needs): each
+  camera alone on the rank's cameras, no fusion sum; the per-camera poses
+  gathered over the cam group (one placed sum, site "cam_poses"), so the
+  pose-consistency term reads the rig's every pose, camera 0's as the
+  reference, and its gradient reaches them all;
+* ``aug_depth``: the rank's rows of the global rotated-view draw, the
+  replicated volume decoded along the rank's rotated frusta after the
+  main decode, each scale's depth gathered over the cam group (site
+  "cam_depths") so each camera's synthesis warps its neighbours' depths,
+  and the synthesis loss's sums and means assembled over every rank.
+
+The batch's rig is yawed by 0.1 rad (``helpers_torch_cam_options.YAW``):
+on FakeDataset's rig JAX's pose-consistency gradient is nan.
+"""
+import pytest
+
+import helpers_torch_cam_options as H
+from helpers_torch_threads import port_threads  # noqa: F401
+from test_torch_cam_parallel_options import (
+    SHARED, check_against_single, check_auto_masks,
+    check_batchnorm_against_jax, check_collectives,
+    check_gradients_against_jax, check_logs_against_jax,
+    check_ranks_bit_identical, prepare_grid)
+
+GRID = "2x2"
+OPTIONS = H.grid_options(GRID)
+JAX_HELD = [o for o in OPTIONS if o not in SHARED]
+
+
+@pytest.fixture(scope="module")
+def grid(tmp_path_factory):
+    return prepare_grid(GRID, tmp_path_factory.mktemp(f"cam_opt_{GRID}"))
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_collectives_by_site(grid, option):
+    check_collectives(grid[option], option)
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_auto_masks_agree(grid, option):
+    check_auto_masks(grid[option])
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_ranks_bit_identical(grid, option):
+    check_ranks_bit_identical(grid[option])
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_step_against_single_process(grid, option):
+    check_against_single(grid[option])
+
+
+@pytest.mark.parametrize("option", JAX_HELD)
+def test_step_logs_against_jax(grid, option):
+    check_logs_against_jax(grid[option])
+
+
+@pytest.mark.parametrize("net", ["depth_net", "pose_net"])
+@pytest.mark.parametrize("option", JAX_HELD)
+def test_step_gradients_against_jax(grid, option, net):
+    check_gradients_against_jax(grid[option], net)
+
+
+@pytest.mark.parametrize("net", ["depth_net", "pose_net"])
+@pytest.mark.parametrize("option", JAX_HELD)
+def test_step_batchnorm_against_jax(grid, option, net):
+    check_batchnorm_against_jax(grid[option], net)

@@ -277,7 +277,10 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
                  plain: bool = False,
                  src_colors: Optional[Dict[int, torch.Tensor]] = None,
                  src_mask: Optional[torch.Tensor] = None,
-                 src_k: Optional[torch.Tensor] = None) -> RenderOutputs:
+                 src_k: Optional[torch.Tensor] = None,
+                 src_inv_k: Optional[torch.Tensor] = None,
+                 src_depth: Optional[torch.Tensor] = None,
+                 first_cam: int = 0) -> RenderOutputs:
     """Render every warped view the losses need for one scale.
 
     colors: frame id -> [b, cams, H, W, 3]; mask [b, cams, H, W, 1]; k /
@@ -298,8 +301,12 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
     neighbours' side of the spatial and spatio-temporal warps: the whole
     rig's [b, all cams, ...], which ``rel_cam``'s indices name, while the
     other arguments (and ``rel_cam``'s rows) hold the target cameras only
-    (a rank of the camera-axis grid, ``parallel/mesh.py``). By default the
-    targets are the whole rig and their own sources.
+    (a rank of the camera-axis grid, ``parallel/mesh.py``), the rig's
+    cameras [first_cam, first_cam + cams). The depth-synthesis warps read
+    their sources (the neighbours and the camera itself) from them too,
+    and from ``src_inv_k`` and ``src_depth`` (the rig's depths, gathered
+    with their gradient); ``extrinsics`` is always the rig's. By default
+    the targets are the whole rig and their own sources.
     """
     if aug_depth and (extrinsics is None or extrinsics_aug is None
                       or depth_aug is None):
@@ -361,7 +368,8 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
     if aug_depth:
         cams = depth.shape[1]
         # sources: each camera's neighbours, then itself
-        self_idx = torch.arange(cams, device=rel_idx.device)[:, None]
+        self_idx = torch.arange(first_cam, first_cam + cams,
+                                device=rel_idx.device)[:, None]
         src_idx = torch.cat([rel_idx, self_idx], dim=1)    # [cams, n_src]
         src_valid = torch.cat([rel_cam >= 0, torch.ones_like(
             self_idx, dtype=torch.bool)], dim=1)
@@ -370,9 +378,12 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
                                 invert_pose(extrinsics_aug),
                                 extrinsics[:, src_idx])
         tform_depth, tform_mask = warp_depth(
-            depth[:, src_idx], mask[:, src_idx], inv_k[:, src_idx],
-            k[:, src_idx], _bcast(depth_aug, n_src), _bcast(inv_k, n_src),
-            rel_pose, min_depth, max_depth)
+            (depth if src_depth is None else src_depth)[:, src_idx],
+            (mask if src_mask is None else src_mask)[:, src_idx],
+            (inv_k if src_inv_k is None else src_inv_k)[:, src_idx],
+            (k if src_k is None else src_k)[:, src_idx],
+            _bcast(depth_aug, n_src), _bcast(inv_k, n_src), rel_pose,
+            min_depth, max_depth)
         tform_mask = tform_mask * src_valid.to(depth.dtype)[
             None, :, :, None, None, None]
     return RenderOutputs(t_img, t_mask, overlap_img, overlap_mask,

@@ -30,9 +30,18 @@ masked means' numerators and denominators (``percam_sum``) and the
 smoothness's batch means (``percam_mean``), each by one world all-reduce
 of the vector at its cameras' places. Every rank so computes the whole
 global loss, and the mean of the ranks' gradients is its gradient.
-``cam_t_cam`` stays the whole rig's (the pose is replicated), so the pose
-logs and the cold-start priors read every camera, and the priors' batch
-means average over the world.
+``cam_t_cam`` stays the whole rig's (a fusion net's pose is replicated,
+an fsm net's per-camera poses are gathered over the cam group), so the
+pose logs, the cold-start priors and the fsm pose-consistency term read
+every camera (the latter with the rig's extrinsics, ``total_loss``'s
+``rig``), and the priors' batch means average over the world. The
+pose-consistency term stays this rank's batch shard's, as under data
+parallelism: every rank of a cam group computes the same vector, the
+gather's backward sums their cotangents over the group and the gradient
+average divides by the world, so each (sample, camera) pair counts once
+and the ranks' mean of the term is the global batch's. The depth
+synthesis's consistency sums and smoothness means assemble over every
+rank like the other per-camera terms.
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ from .primitives import (_smoothness_maps, auto_mask, mean_normalized_disp,
                          photometric_loss)
 from ..geometry.se3 import matrix_to_euler_angles_xyz
 from ..ops import ties
-from ..parallel.data_parallel import batch_mean, batch_sum
+from ..parallel.data_parallel import batch_mean
 from ..parallel.mesh import percam_mean, percam_sum
 
 _EPSILON = 1e-5  # identity-loss tie-break noise scale
@@ -186,13 +195,14 @@ def depth_synthesis_loss(depth_aug: torch.Tensor, tform_depth: torch.Tensor,
     [0, 1], the masked mean over batch, sources and pixels. Smoothness: the
     plain (not edge-aware) first-order gradients of the mean-normalised
     aug disparity. ``abs`` and the clip take JAX's derivative at ties. The
-    consistency's sums are the global batch's inside ``global_batch()``.
+    consistency's sums are the global batch's inside ``global_batch()``,
+    and both vectors the rig's inside ``camera_shard()``.
     """
     da = depth_aug[:, :, None]
     con = ties.abs(da - tform_depth) / (da + tform_depth + 1e-8)
     con = ties.clip(con, 0.0, 1.0)
-    num = batch_sum((con * tform_mask).sum(dim=(0, 2, 3, 4, 5)))
-    den = batch_sum(tform_mask.sum(dim=(0, 2, 3, 4, 5)))
+    num = percam_sum((con * tform_mask).sum(dim=(0, 2, 3, 4, 5)))
+    den = percam_sum(tform_mask.sum(dim=(0, 2, 3, 4, 5)))
     depth_con = num / (den + 1e-8)
 
     nd = mean_normalized_disp(disp_aug)
@@ -200,7 +210,7 @@ def depth_synthesis_loss(depth_aug: torch.Tensor, tform_depth: torch.Tensor,
         dim=(0, 2, 3, 4))
     gy = ties.abs(nd[..., :-1, :, :] - nd[..., 1:, :, :]).mean(
         dim=(0, 2, 3, 4))
-    return depth_con, gx + gy
+    return depth_con, percam_mean(gx + gy)
 
 
 def total_loss(noise: torch.Tensor, cfg: LossConfig,
@@ -210,7 +220,8 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
                rendered: Dict[int, "RenderOutputs"],  # noqa: F821
                disps_aug: Optional[Dict[int, torch.Tensor]] = None,
                depths_aug: Optional[Dict[int, torch.Tensor]] = None,
-               step=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               step=None, rig: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full training loss -> (scalar, logs).
 
     noise: [len(cfg.scales), b, cams, n_ctx, H, W, 1] standard normals, one
@@ -218,7 +229,11 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
     split per scale). ``disps_aug`` / ``depths_aug`` (scale -> the rotated
     views' disparity and depth) feed the depth-synthesis loss under
     ``cfg.aug_depth``. ``step`` drives the cold-start schedule when it is
-    configured; None (eval) means full coefficients.
+    configured; None (eval) means full coefficients. ``rig`` (the
+    camera-axis grid's training forward, where ``batch`` holds this rank's
+    cameras) gives the whole rig's ``extrinsics`` and ``extrinsics_inv``
+    that the pose-consistency term aligns ``cam_t_cam``'s every camera
+    with; by default ``batch``'s.
     """
     ctx_ids = list(cfg.frame_ids[1:])
     target = batch["color/0/0"]
@@ -255,8 +270,9 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
                     logs["overlap_ramp"] = ramp
                     logs["st_ramp"] = st_ramp
         if cfg.pose_model == "fsm" and cfg.pose_loss_coeff > 0:
-            pose_l = pose_consistency_loss(cam_t_cam, batch["extrinsics"],
-                                           batch["extrinsics_inv"])
+            calib = batch if rig is None else rig
+            pose_l = pose_consistency_loss(cam_t_cam, calib["extrinsics"],
+                                           calib["extrinsics_inv"])
             scale_loss = scale_loss + cfg.pose_loss_coeff * pose_l
             if scale == 0:
                 logs["pose"] = pose_l.mean()

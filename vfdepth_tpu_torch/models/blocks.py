@@ -23,12 +23,13 @@ them (JAX's functional recompute discards its statistics).
 
 Under a process group (data parallelism, ``parallel/``), BatchNorm in train
 mode, and in its recompute, normalises with the GLOBAL batch's statistics,
-as JAX's BatchNorm over a batch sharded across devices does: see
-``BatchNorm``. Under the camera-axis grid (``parallel/mesh.py``) the same
-world sum is right: every BatchNorm layer is in an encoder, which runs per
-camera on a rank's own cameras, so the ranks hold disjoint (sample,
-camera) pairs; the voxel stages that run replicated over a cam group hold
-no BatchNorm (``tests/test_torch_cam_parallel.py`` checks both).
+as JAX's BatchNorm over a batch sharded across devices does, in two
+passes as one process does: see ``BatchNorm``. Under the camera-axis grid
+(``parallel/mesh.py``) the same world sums are right: every BatchNorm
+layer is in an encoder, which runs per camera on a rank's own cameras, so
+the ranks hold disjoint (sample, camera) pairs; the voxel stages that run
+replicated over a cam group hold no BatchNorm
+(``tests/test_torch_cam_parallel.py`` checks both).
 """
 from __future__ import annotations
 
@@ -127,13 +128,18 @@ class BatchNorm(nn.BatchNorm2d):
     one.
 
     With a process group active, train mode takes the statistics of the
-    global batch (every rank's): the per-channel sum, sum of squares and
-    count in f32, summed over the ranks by a differentiable all-reduce,
-    then ``var = max(E[x^2] - E[x]^2, 0)`` as flax's ``_compute_stats``
-    has it. The running statistics move with them, identically on every
-    rank. A recompute all-reduces again (every rank recomputes the same
-    blocks in the same order) and moves nothing; eval mode holds no
-    collective.
+    global batch (every rank's) in two passes, as one process's
+    ``F.batch_norm`` does: the per-channel sum and count in f32, summed
+    over the ranks by a differentiable all-reduce, give the mean; the sum
+    of squared deviations from it, summed so too, the variance. flax's
+    ``_compute_stats`` takes ``E[x^2] - E[x]^2`` in one pass, whose f32
+    cancellation where a channel's mean dwarfs its spread moved a gradient
+    of the micro models by up to 9e-3 (relative L2) between the ranks and
+    one process, where two passes leave 4e-4; the port is held against
+    JAX within its bounds either way. The running
+    statistics move with them, identically on every rank. A recompute
+    all-reduces again (every rank recomputes the same blocks in the same
+    order) and moves nothing; eval mode holds no collective.
     """
 
     def __init__(self, num_features: int,
@@ -166,17 +172,17 @@ class BatchNorm(nn.BatchNorm2d):
     def _global_batch_norm(self, x: torch.Tensor,
                            recompute: bool) -> torch.Tensor:
         count = x.new_full((x.shape[1],), x.numel() / x.shape[1])
-        stats = all_reduce_sum(torch.stack(
-            [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]),
-            "batch_norm")
-        mean = stats[0] / stats[2]
-        var = torch.clamp(stats[1] / stats[2] - mean * mean, min=0.0)
+        sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2, 3)), count]),
+                              "batch_norm")
+        mean = sums[0] / sums[1]
+        centred = x - mean[:, None, None]
+        var = all_reduce_sum((centred * centred).sum(dim=(0, 2, 3)),
+                             "batch_norm") / sums[1]
         if not recompute:
             with torch.no_grad():
                 self._move_running(mean, var)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None])
+        return centred * inv[:, None, None] + self.bias[:, None, None]
 
 
 def batch_norm(num_features: int,

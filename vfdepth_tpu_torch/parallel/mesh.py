@@ -10,10 +10,17 @@ GSPMD partitions each per-camera stage over the cam axis and inserts the
 cross-camera sums where VFNet fuses the volume. Here one process a card
 plays one device: rank r sits at (d, c) = divmod(r, cam), and
 
-* the **cam group** (the ranks with the same d) completes the
+* the **cam group** (the ranks with the same d) completes each
   back-projection's camera sums and count with two differentiable
-  all-reduces (``distributed.all_reduce_sum``, site "cam_fusion"); the
-  voxel stages after them run replicated on every rank of the group;
+  all-reduces (``distributed.all_reduce_sum``, site "cam_fusion"): one
+  pair for the merged back-projection, or one per net and pose pass where
+  the nets back-project their own features; the voxel stages after them
+  run replicated on every rank of the group. It also gathers what a rank
+  reads of the other ranks' cameras (``gather_cameras``, a placed sum):
+  an fsm pose net's per-camera poses (site "cam_poses"; the rig's poses
+  feed the pose-consistency loss) and, under ``aug_depth``, each scale's
+  depth (site "cam_depths"; each camera's depth synthesis warps its
+  neighbours' depths);
 * the **data group** (the ranks with the same c, one per batch shard)
   gathers the global first batch that sizes the warp windows;
 * the whole world sums BatchNorm's statistics (each rank holds a disjoint
@@ -31,8 +38,12 @@ extrinsics), not only its cameras'. The cross-camera losses warp the
 neighbours' source images, which are inputs with no gradient, with the
 target camera's own depth, so no activation crosses ranks there.
 
-Only the training forward splits the cameras; serving and the evaluation
-forward run every camera on one rank, with no collective.
+The grid covers every training option of the JAX package (both nets'
+kinds, unmerged back-projections, unbatched pose frames, depth
+synthesis, ``tpu.remat``). A world smaller than ``cam_parallel_size``
+trains data-parallel, as JAX's 1-D mesh does there. Only the training
+forward splits the cameras; serving and the evaluation forward run every
+camera on one rank, with no collective.
 """
 from __future__ import annotations
 
@@ -95,17 +106,18 @@ def make_grid_2d(data: int, cam: int) -> Grid:
 
 def cam_grid_for(cfg, num_cams: Optional[int] = None) -> Optional[Grid]:
     """JAX's rule (``vfdepth_tpu/training/trainer.py:221-235``): with
-    ``tpu.cam_parallel_size`` > 1 and a process group of more than one
-    rank, the (world / cam, cam) grid (built here: every rank calls it);
-    None otherwise (one process, or ``cam_parallel_size`` 1). The global
-    batch must divide over the data shards and ``num_cams`` over the
-    camera shards, else ValueError with JAX's message. A world that is
-    not a multiple of ``cam_parallel_size`` raises too: JAX leaves the
-    leftover devices out of its mesh (or, with fewer devices than
-    ``cam``, drops the camera axis), the port does neither."""
+    ``tpu.cam_parallel_size`` > 1 and a process group of at least that
+    many ranks, the (world / cam, cam) grid (built here: every rank calls
+    it); None otherwise (one process, ``cam_parallel_size`` 1, or a world
+    smaller than it, which then trains data-parallel as JAX's 1-D mesh
+    does). The global batch must divide over the data shards and
+    ``num_cams`` over the camera shards, else ValueError with JAX's
+    message. A larger world that is not a multiple of
+    ``cam_parallel_size`` raises too: JAX leaves the leftover devices out
+    of its mesh, the port runs every rank."""
     cam = int(cfg.get("cam_parallel_size", 1) or 1)
     world = rank_world()[1]
-    if cam <= 1 or world == 1:
+    if cam <= 1 or world < cam:
         return None
     if world % cam:
         raise ValueError(
@@ -133,6 +145,24 @@ def local_cameras(x: torch.Tensor, grid: Optional[Grid], num_cams: int,
         return x
     loc = grid.local_cams(num_cams)
     return x.narrow(axis, loc.start, loc.stop - loc.start)
+
+
+def gather_cameras(x: torch.Tensor, grid: Grid, num_cams: int,
+                   site: str, axis: int = 1) -> torch.Tensor:
+    """The rig's ``num_cams`` cameras along ``axis`` from this rank's block
+    ``x``, on every rank of the cam group: the block at its place in zeros,
+    summed over the group by one differentiable all-reduce (exact: one
+    rank adds each entry). Its backward sums the cotangents over the
+    group, and each rank keeps its block's, the convention the gradient
+    average assumes (``distributed.all_reduce_sum``)."""
+    loc = grid.local_cams(num_cams)
+    shape = list(x.shape)
+    parts = []
+    for n in (loc.start, num_cams - loc.stop):
+        shape[axis] = n
+        parts.append(x.new_zeros(shape))
+    placed = torch.cat([parts[0], x, parts[1]], dim=axis)
+    return all_reduce_sum(placed, site, grid.cam_group)
 
 
 # ------------------------------------------------- the loss's camera axis

@@ -104,16 +104,20 @@ train=False)`` hold no collective.
 
 Under the camera-axis grid (``shard_cameras``, ``parallel/mesh.py``: JAX's
 ``tpu.cam_parallel_size``), the training forward runs on this rank's block
-of cameras: the merged encoders, the back-projection (per camera, K1b),
-the frustum sample (K3) and the decoder see only them, and the overlap
-groups' sums and the count are completed over the cam group by a
-differentiable all-reduce each before the fusion and the pose branch's
-BEV, which run replicated. The pose is distributed to every camera; the
+of cameras, for every option above: the encoders, each back-projection
+(per camera, K1b), the frustum sample (K3, twice under ``aug_depth``)
+and the decoders see only them, and each back-projection's overlap-group
+sums and count are completed over the cam group by a differentiable
+all-reduce each before the fusion and the pose branch's BEV, which run
+replicated: one pair for the merged back-projection, one per net and
+pose pass where the nets back-project their own features. Those
+all-reduces stay outside ``tpu.remat``'s checkpointed calls, so a
+recompute repeats none. A fusion net's pose is distributed to every
+camera; an fsm pose net's per-camera poses, and under ``aug_depth`` each
+scale's depth, are gathered over the cam group with their gradient. The
 renders (K5) warp the whole rig's source images into this rank's cameras,
-and the loss assembles its per-camera vectors over every rank
-(``losses/composite.py``). ``aug_depth``, the fsm nets,
-``merge_backprojection: false`` and ``batch_pose_frames: false`` raise
-there (ROADMAP A3c).
+the depth synthesis the rig's depths into its rotated views, and the loss
+assembles its per-camera vectors over every rank (``losses/composite.py``).
 
 Config keys that name TPU alternates of one function map onto the port's
 one implementation (the CUDA kernel for CUDA tensors, its plain version
@@ -148,7 +152,7 @@ from ..models.vfnet import augment_extrinsics, local_group_sums
 from ..ops.resize import resize_bilinear
 from ..parallel.data_parallel import gather_batch, global_batch
 from ..parallel.distributed import all_reduce_sum
-from ..parallel.mesh import camera_shard, local_cameras
+from ..parallel.mesh import camera_shard, gather_cameras, local_cameras
 from ..weights import init_random
 
 _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
@@ -318,25 +322,12 @@ class VFDepthModel(nn.Module):
 
     def shard_cameras(self, grid) -> None:
         """Split the training forward's cameras over ``grid``
-        (``parallel/mesh.py``; None: every camera on this rank). The grid
-        covers the default training step of the fusion nets; the other
-        options raise, and nothing falls back to the unsharded step."""
-        if grid is not None:
-            unsupported = [
-                (self.aug_depth, "aug_depth"),
-                ("fsm" in (self.cfg.depth_model, self.cfg.pose_model),
-                 "the fsm nets"),
-                (not self.merge_backproject, "merge_backprojection: false"),
-                (not self.batch_pose_frames and len(self.frame_ids) > 2,
-                 "batch_pose_frames: false")]
-            for bad, what in unsupported:
-                if bad:
-                    raise NotImplementedError(
-                        f"tpu.cam_parallel_size {grid.cam}: {what} under the "
-                        f"camera axis is not ported yet (ROADMAP A3c)")
-            if self.num_cams % grid.cam:
-                raise ValueError(f"num_cams {self.num_cams} does not divide "
-                                 f"over {grid.cam} camera shards")
+        (``parallel/mesh.py``; None: every camera on this rank). Every
+        training option runs on the grid; the rig's cameras must divide
+        over it."""
+        if grid is not None and self.num_cams % grid.cam:
+            raise ValueError(f"num_cams {self.num_cams} does not divide "
+                             f"over {grid.cam} camera shards")
         self.cam_grid = grid
 
     def configure_warp_window(self, batch: Mapping, rigs=None) -> None:
@@ -509,15 +500,7 @@ class VFDepthModel(nn.Module):
         merged = torch.cat([pose_feats, depth_feats], dim=-1)
         grouped = self.grouped or rig is not None
         if rig is not None:
-            feat, _, count = backproject_features(
-                merged, x["mask"], x[fk], x["extrinsics_inv"],
-                plain=self.plain_samplers, **self.voxel)
-            loc = self.cam_grid.local_cams(self.num_cams)
-            group = self.cam_grid.cam_group
-            feat = all_reduce_sum(local_group_sums(
-                feat, self.groups, range(loc.start, loc.stop)), "cam_fusion",
-                group)
-            count = all_reduce_sum(count, "cam_fusion", group)
+            feat, count = self._cam_group_backprojection(merged, x)
         elif self.grouped:
             feat, count = backproject_features_grouped(
                 merged, x["mask"], x[fk], x["extrinsics_inv"],
@@ -542,31 +525,63 @@ class VFDepthModel(nn.Module):
             feat_depth, count, skips, x[fik], x["extrinsics"],
             extrinsics_aug=extrinsics_aug, grouped=grouped,
             plain=self.plain_samplers)
-        return self._cam_t_cam(axisangle, translation,
-                               x if rig is None else rig, bsz), disps
+        return self._cam_t_cam(axisangle, translation, x, bsz, rig), disps
+
+    def _cam_group_backprojection(self, feats_agg: torch.Tensor,
+                                  x: Mapping[str, torch.Tensor]
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A back-projection under the camera-axis grid: this rank's cameras
+        of ``x`` one row each (K1b), their part of the two overlap-group
+        sums (``local_group_sums``, the rank's camera range passed down),
+        then the sums and the count completed over the cam group by one
+        differentiable all-reduce each (site "cam_fusion") -> (feat [b, 2,
+        n, C+1], count [b, n]), the same on every rank of the group."""
+        lev = self.fusion_level + 1
+        feat, _, count = backproject_features(
+            feats_agg, x["mask"], x[f"K/{lev}"], x["extrinsics_inv"],
+            plain=self.plain_samplers, **self.voxel)
+        loc = self.cam_grid.local_cams(self.num_cams)
+        group = self.cam_grid.cam_group
+        feat = all_reduce_sum(local_group_sums(
+            feat, self.groups, range(loc.start, loc.stop)), "cam_fusion",
+            group)
+        return feat, all_reduce_sum(count, "cam_fusion", group)
 
     def _cam_t_cam(self, axisangle: torch.Tensor, translation: torch.Tensor,
-                   x: Mapping[str, torch.Tensor], bsz: int) -> torch.Tensor:
+                   x: Mapping[str, torch.Tensor], bsz: int,
+                   rig: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> torch.Tensor:
         """The pose net's motions (context frames group-major) -> cam_T_cam
         [b, cams, n_ctx, 4, 4]; a past frame's motion is inverted. A fusion
         pose net gives one canonical motion per frameset ([n_ctx*b, 1, 1,
         3]), distributed to the cameras through the extrinsics; an fsm pose
-        net one motion per camera ([n_ctx*b*cams, 1, 1, 3])."""
+        net one motion per camera of ``x`` ([n_ctx*b*cams, 1, 1, 3]). Given
+        the whole ``rig`` (the camera-axis grid), cam_T_cam covers the
+        rig's every camera: distributed through its extrinsics, or the fsm
+        net's poses gathered over the cam group (site "cam_poses")."""
         ctx = self.frame_ids[1:]
-        cams = x["extrinsics"].shape[1]
         aa = axisangle[:, 0, 0].reshape(len(ctx), -1, 3)
         tr = translation[:, 0, 0].reshape(len(ctx), -1, 3)
+        calib = x if rig is None else rig
+        mono = isinstance(self.pose_net, MonoPoseNet)
         mats = []
         for i, f in enumerate(ctx):
             mat = vec_to_matrix(aa[i], tr[i], invert=(f < 0))
-            if isinstance(self.pose_net, MonoPoseNet):
-                mats.append(unpack_cam_feat(mat, bsz, cams))
+            if mono:
+                mats.append(unpack_cam_feat(mat, bsz,
+                                            x["extrinsics"].shape[1]))
             else:
-                mats.append(distribute_pose(mat, x["extrinsics"],
-                                            x["extrinsics_inv"]))
-        return torch.stack(mats, dim=2)
+                mats.append(distribute_pose(mat, calib["extrinsics"],
+                                            calib["extrinsics_inv"]))
+        cam_t_cam = torch.stack(mats, dim=2)
+        if mono and rig is not None:
+            cam_t_cam = gather_cameras(cam_t_cam, self.cam_grid,
+                                       self.num_cams, "cam_poses")
+        return cam_t_cam
 
-    def predict_pose(self, x: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def predict_pose(self, x: Mapping[str, torch.Tensor],
+                     rig: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> torch.Tensor:
         """The pose net alone (JAX ``predict_pose``; a fusion net on its own
         back-projection, an fsm net on each camera alone): cam_T_cam [b,
         cams, n_ctx, 4, 4] from a batch already on the device. With
@@ -574,7 +589,13 @@ class VFDepthModel(nn.Module):
         go through one pass; otherwise through one pass each, in the order
         of ``frame_ids[1:]`` (pairs in time order, a past frame's motion
         inverted), and in train mode each pass normalises with its own
-        batch statistics and updates the running ones in turn."""
+        batch statistics and updates the running ones in turn.
+
+        Given the whole ``rig`` (the camera-axis grid's training forward),
+        ``x`` holds this rank's cameras: a fusion net's passes each
+        back-project them and complete the group sums over the cam group
+        (``_cam_group_backprojection``), and cam_T_cam covers the rig's
+        every camera (``_cam_t_cam``)."""
         lev = self.fusion_level + 1
         ctx = self.frame_ids[1:]
         calib = (x["mask"], x[f"K/{lev}"], x[f"inv_K/{lev}"], x["extrinsics"],
@@ -591,6 +612,18 @@ class VFDepthModel(nn.Module):
             outs = [self._call(self.pose_net, self.pose_net,
                                pack_cam_feat(c), pack_cam_feat(n))
                     for c, n, _ in passes]
+        elif rig is not None:
+            # the net's halves, the cam-group sums between them outside
+            # any checkpointed call
+            outs = []
+            for c, n, k in passes:
+                feats_agg = self._call(self.pose_net,
+                                       self.pose_net.encode_aggregate, c, n,
+                                       n_ctx=k)
+                feat, count = self._cam_group_backprojection(feats_agg, x)
+                outs.append(self._call(
+                    self.pose_net, self.pose_net.pose_from_backprojection,
+                    feat, count, n_ctx=k, grouped=True))
         else:
             outs = [self._call(self.pose_net, self.pose_net, c, n, *calib,
                                n_ctx=k, plain=self.plain_samplers)
@@ -598,15 +631,19 @@ class VFDepthModel(nn.Module):
         # per-frame passes stack group-major, as one batched pass returns
         return self._cam_t_cam(torch.cat([o[0] for o in outs]),
                                torch.cat([o[1] for o in outs]), x,
-                               x["color_aug/0/0"].shape[0])
+                               x["color_aug/0/0"].shape[0], rig)
 
     def predict_depth(self, x: Mapping[str, torch.Tensor],
-                      extrinsics_aug: Optional[torch.Tensor] = None
+                      extrinsics_aug: Optional[torch.Tensor] = None,
+                      rig: Optional[Mapping[str, torch.Tensor]] = None
                       ) -> Dict[str, torch.Tensor]:
         """The depth net alone (JAX ``predict_depth``; a fusion net on its
         own back-projection, an fsm net on each camera alone): {'disp/{s}'
         [b, cams, h, w, 1]}, and a fusion net's 'disp/{s}/aug' where
-        ``extrinsics_aug`` is given."""
+        ``extrinsics_aug`` is given. Given the whole ``rig`` (the
+        camera-axis grid's training forward), ``x`` holds this rank's
+        cameras, and a fusion net completes its group sums over the cam
+        group (``_cam_group_backprojection``)."""
         images = x["color_aug/0/0"]
         if isinstance(self.depth_net, MonoDepthNet):
             b, cams = images.shape[:2]
@@ -614,6 +651,17 @@ class VFDepthModel(nn.Module):
                              pack_cam_feat(images))
             return {k: unpack_cam_feat(v, b, cams) for k, v in out.items()}
         lev = self.fusion_level + 1
+        if rig is not None:
+            # the net's halves, the cam-group sums between them outside
+            # any checkpointed call
+            feats, feats_agg = self._call(
+                self.depth_net, self.depth_net.encode_aggregate, images)
+            feat, count = self._cam_group_backprojection(feats_agg, x)
+            return self._call(
+                self.depth_net, self.depth_net.decode_from_backprojection,
+                feat, count, feats[:self.fusion_level], x[f"inv_K/{lev}"],
+                x["extrinsics"], extrinsics_aug=extrinsics_aug, grouped=True,
+                plain=self.plain_samplers)
         return self._call(self.depth_net, self.depth_net, images, x["mask"],
                           x[f"K/{lev}"], x[f"inv_K/{lev}"], x["extrinsics"],
                           x["extrinsics_inv"], extrinsics_aug=extrinsics_aug,
@@ -628,25 +676,31 @@ class VFDepthModel(nn.Module):
                 and (self.batch_pose_frames or len(self.frame_ids) <= 2))
 
     def _predict(self, x: Mapping[str, torch.Tensor],
-                 aug_u: Optional[torch.Tensor] = None):
+                 aug_u: Optional[torch.Tensor] = None,
+                 rig: Optional[Mapping[str, torch.Tensor]] = None):
         """(cam_T_cam, {scale: disp}, {scale: aug disp} or None, the rotated
         extrinsics or None) through the merged back-projection, or through
         each net's own where the two are not merged. ``aug_u`` (under
         ``aug_depth``) is the rotation's draw; a missing or misshapen one
-        raises, as a missing noise does."""
+        raises, as a missing noise does. Given the whole ``rig`` (the
+        camera-axis grid's training forward), ``x`` holds this rank's
+        cameras, ``aug_u`` the rig's draw (this rank's rows of it rotate its
+        cameras), and cam_T_cam covers the rig."""
         ext_aug = None
         if self.aug_depth:
-            if aug_u is None or tuple(aug_u.shape) != self.aug_shape(x):
-                raise ValueError(f"aug_depth: aug_u must have shape "
-                                 f"{self.aug_shape(x)}")
-            aug_u = torch.as_tensor(aug_u).to(self.device)
+            shape = self.aug_shape(x if rig is None else rig)
+            if aug_u is None or tuple(aug_u.shape) != shape:
+                raise ValueError(f"aug_depth: aug_u must have shape {shape}")
+            aug_u = local_cameras(torch.as_tensor(aug_u).to(self.device),
+                                  None if rig is None else self.cam_grid,
+                                  self.num_cams)
             ext_aug = augment_extrinsics(aug_u, x["extrinsics"],
                                          self.aug_angle)
         if self._can_merge_backproject():
-            cam_t_cam, out = self._predict_pose_depth(x, ext_aug)
+            cam_t_cam, out = self._predict_pose_depth(x, ext_aug, rig)
         else:
-            cam_t_cam = self.predict_pose(x)
-            out = self.predict_depth(x, ext_aug)
+            cam_t_cam = self.predict_pose(x, rig)
+            out = self.predict_depth(x, ext_aug, rig)
         disps = {s: out[f"disp/{s}"] for s in self.scales}
         disps_aug = ({s: out[f"disp/{s}/aug"] for s in self.scales}
                      if self.aug_depth else None)
@@ -727,12 +781,8 @@ class VFDepthModel(nn.Module):
         if noise is None or tuple(noise.shape) != self.noise_shape(x):
             raise ValueError(f"noise must have shape {self.noise_shape(x)}")
         with self._bn_mode(train):
-            if grid is None:
-                cam_t_all, disps, disps_aug, ext_aug = self._predict(x, aug_u)
-            else:
-                cam_t_all, out = self._predict_pose_depth(x, rig=rig)
-                disps = {s: out[f"disp/{s}"] for s in self.scales}
-                disps_aug = ext_aug = None
+            cam_t_all, disps, disps_aug, ext_aug = self._predict(
+                x, aug_u, None if grid is None else rig)
         k0 = x["K/0"]
         depths = {s: self.to_depth(disps[s], k0) for s in self.scales}
         depths_aug = ({s: self.to_depth(disps_aug[s], k0)
@@ -755,7 +805,9 @@ class VFDepthModel(nn.Module):
         # under the grid the neighbours' side is the rig's
         src_k = None if grid is None else rig["K/0"]
         sources = ({} if grid is None else dict(
-            src_colors=src_colors, src_mask=rig["mask"], src_k=src_k))
+            src_colors=src_colors, src_mask=rig["mask"], src_k=src_k,
+            src_inv_k=rig["inv_K/0"],
+            first_cam=grid.local_cams(self.num_cams).start))
         # the 'actual' spatio-temporal windows follow each scale's depth:
         # one set from the finest scale's, or one per scale with several
         per_scale = self.st_window_mode == "actual" and len(self.scales) > 1
@@ -770,13 +822,18 @@ class VFDepthModel(nn.Module):
             if win is not None:
                 overflow = (win.overflow if overflow is None
                             else torch.maximum(overflow, win.overflow))
+            if grid is not None and self.aug_depth:
+                # each camera's depth synthesis warps its neighbours'
+                # depths: the rig's, gathered with their gradient
+                sources["src_depth"] = gather_cameras(
+                    depths[s], grid, self.num_cams, "cam_depths")
             rendered[s] = render_views(
                 colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
                 spatio_pose, st_pose, rel_cam, self.frame_ids,
                 do_intensity_align=self.intensity_align,
                 spatio=self.loss_cfg.spatio,
                 spatio_temporal=self.loss_cfg.spatio_temporal,
-                aug_depth=self.aug_depth, extrinsics=x["extrinsics"],
+                aug_depth=self.aug_depth, extrinsics=rig["extrinsics"],
                 extrinsics_aug=ext_aug,
                 depth_aug=depths_aug[s] if depths_aug else None,
                 min_depth=self.min_depth, max_depth=self.max_depth,
@@ -785,7 +842,8 @@ class VFDepthModel(nn.Module):
             loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
                                     disps, depths, cam_t_all, rendered,
                                     disps_aug=disps_aug,
-                                    depths_aug=depths_aug, step=step)
+                                    depths_aug=depths_aug, step=step,
+                                    rig=rig)
         if overflow is not None:
             # > 0: a window truncated its warp this step (JAX :697-701)
             logs["warp_window_overflow"] = overflow

@@ -31,12 +31,14 @@ every rank.
 
 The camera-axis grid (JAX's 2-D mesh, ``parallel/mesh.py``): with
 ``tpu.cam_parallel_size`` > 1 under a process group, the trainer builds
-the (world / cam, cam) grid by JAX's rule (``cam_grid_for``: a world not
-a multiple of cam, or num_cams not divisible by it, raises) and splits the
-model's training forward over it (``VFDepthModel.shard_cameras``, which
-raises for the options it does not cover yet); ``parallel.loader_shard(
-trainer.grid)`` is then the data index, so the ranks of one cam group read
-the same batches. The rank-0 rules above hold unchanged.
+the (world / cam, cam) grid by JAX's rule (``cam_grid_for``: a world
+smaller than cam trains data-parallel, as JAX's 1-D mesh does; a larger
+world not a multiple of cam, or num_cams not divisible by it, raises) and
+splits the model's training forward over it
+(``VFDepthModel.shard_cameras``, every training option);
+``parallel.loader_shard(trainer.grid)`` is then the data index, so the
+ranks of one cam group read the same batches. The rank-0 rules above hold
+unchanged.
 
 Randomness is explicit: ``learn``'s ``seed`` seeds the ``torch.Generator``
 (on the model's device) that draws each step's tie-break noise and, under

@@ -1,0 +1,7 @@
+"""Share of the traced stretch with no kernel, copy or memset on the
+device (train cells)."""
+from benchmark.readers import idle_pct, traced
+
+
+def read(r):
+    return idle_pct(r) if traced(r, "train") else None

@@ -1,0 +1,7 @@
+"""The port kernels' share of their roofline in the traced stretch
+(serve cells)."""
+from benchmark.readers import port_kernels_roofline, traced
+
+
+def read(r):
+    return port_kernels_roofline(r) if traced(r, "serve") else None

@@ -363,6 +363,43 @@ def test_panels_and_a_run_cut_by_max_steps(tmp_path):
                 assert f"cam/{cam}{panel}" in titles, (mode, cam, panel)
 
 
+def test_logged_rate_counts_the_steps_since_the_last_checkpoint(
+        tmp_path, monkeypatch):
+    """The examples/s of a log checkpoint: the steps since the previous
+    one over their wall time, read after ``reduce_logs``, the checkpoint's
+    validation left out. A clock that only the steps (step k takes
+    0.5 (k + 1) s) and the validation (10 s) move: the checkpoints at steps
+    0, 2 and 4 log the mean of steps 0, 1-2 and 3-4."""
+    clock = [0.0]
+    real_step = trainer_module.train_step
+    taken = []
+
+    def step(*args, **kwargs):
+        taken.append(0.5 * (len(taken) + 1))
+        clock[0] += taken[-1]
+        return real_step(*args, **kwargs)
+    monkeypatch.setattr(trainer_module, "train_step", step)
+    monkeypatch.setattr(trainer_module.time, "time", lambda: clock[0])
+    cfg = _cfg(get_config, tmp_path)
+    model = VFDepthModel(cfg, device="cpu")
+    train_ds, val_ds = _datasets(FakeDataset, cfg)
+    trainer = Trainer(cfg, model, use_tb=False)
+    real_validate = trainer._validate
+
+    def validate(*args):
+        clock[0] += 10.0
+        return real_validate(*args)
+    trainer._validate = validate
+    durations = []
+    trainer.logger.log_time = (
+        lambda epoch, batch_idx, duration, loss, start: durations.append(
+            duration))
+    trainer.learn(BatchLoader(train_ds, BATCH, num_workers=0),
+                  BatchLoader(val_ds, 1, shuffle=False, num_workers=0),
+                  max_steps=5)
+    assert durations == [0.5, (1.0 + 1.5) / 2, (2.0 + 2.5) / 2]
+
+
 def test_pretrain_resumes_from_the_saved_step(tmp_path, monkeypatch):
     """With ``pretrain`` the trainer loads the checkpoint's nets and Adam
     state and counts on from its step, as the JAX package's ``learn`` takes

@@ -1,7 +1,7 @@
 """Benchmark: 6-camera training framesets/s on one NVIDIA H100 (the port's
 counterpart of the root ``bench.py``, which times the JAX package).
 
-    python -m vfdepth_tpu_torch.bench [--profile] [--cpu]
+    python -m vfdepth_tpu_torch.bench [--cpu]
 
 The cell is the root bench's: the whole training step (fusion depth and
 pose nets, voxel fusion, view rendering, losses, backward, Adam) on the
@@ -34,9 +34,10 @@ over ``PEAK_BF16_FLOPS``. The extras are the root bench's: the "even" rig
 and batch 2. Only ``torch.cuda.OutOfMemoryError`` moves a batch down to 1
 (or drops an extra); any other error raises.
 
-``--profile`` traces 3 more steps with ``torch.profiler`` and prints, on
-stderr, device time by kernel and the device's busy share of the wall
-time; it writes no file.
+To see where a step's time goes, trace it: wrap steps in
+``torch.profiler.profile(activities=[CPU, CUDA])`` and read the program's
+``vf.*`` spans (``utils/tracing.py``), or run the repository's benchmark
+with ``--trace 1``.
 """
 from __future__ import annotations
 
@@ -60,10 +61,8 @@ FLOPS_PER_FRAMESET = 2.1e12
 # NVIDIA H100 SXM, dense bf16 tensor-core peak (NVIDIA's data sheet, at the
 # full 700 W power limit)
 PEAK_BF16_FLOPS = 989e12
-PEAK_NAME = "NVIDIA H100 SXM dense bf16, 989 TFLOP/s (data sheet)"
 WARMUP_STEPS = 2
 REPEATS = 3
-PROFILE_STEPS = 3
 
 
 def _env_flag(name: str, default: str = "1") -> bool:
@@ -118,8 +117,8 @@ def _sync(device: torch.device) -> None:
 
 
 def run_bench(batch_size: int, height: int, width: int, n_steps: int,
-              use_bf16: bool, rig: Optional[str] = None, device=None,
-              profile: bool = False) -> float:
+              use_bf16: bool, rig: Optional[str] = None, device=None
+              ) -> float:
     """Seconds a training step: the median of ``REPEATS`` windows of
     ``n_steps`` steps after ``WARMUP_STEPS`` warm-up steps."""
     from .data import FakeDataset
@@ -169,64 +168,12 @@ def run_bench(batch_size: int, height: int, width: int, n_steps: int,
             f"{times[-1] * 1e3:.3f} ms a step over {n_steps} steps; loss "
             f"{float(prev):.6f}; windows {windows}; overflow "
             f"{'-' if over is None else float(over)}\n")
-    dt = statistics.median(times)
-    if profile:
-        sys.stderr.write(profile_steps(one, device, dt, batch_size) + "\n")
-    return dt
-
-
-def profile_steps(one, device: torch.device, dt: float,
-                  batch_size: int, top: int = 25) -> str:
-    """``PROFILE_STEPS`` steps under ``torch.profiler``: device time by
-    kernel (self time summed over launches; on the CPU, host time by
-    operator), the device's busy time (the union of its spans) against the
-    wall time, and the analytic FLOP rate against the bf16 peak."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = device.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    _sync(device)
-    t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        for _ in range(PROFILE_STEPS):
-            logs = one()
-        float(logs["total_loss"])
-        _sync(device)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kind = DeviceType.CUDA if cuda else DeviceType.CPU
-    rows = sorted(((e.key, (e.self_device_time_total if cuda
-                            else e.self_cpu_time_total), e.count)
-                   for e in prof.key_averages() if e.device_type == kind),
-                  key=lambda r: -r[1])
-    summed = sum(r[1] for r in rows) or 1.0
-    busy_us, cur = 0.0, None
-    for s, e in sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA):
-        if cur is None or s > cur[1]:
-            busy_us += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    busy_us += 0.0 if cur is None else cur[1] - cur[0]
-    tflops = FLOPS_PER_FRAMESET * batch_size / dt / 1e12
-    lines = [f"profile: {PROFILE_STEPS} steps, wall {wall_ms:.3f} ms, device "
-             f"busy {busy_us / 1e3:.3f} ms "
-             f"({100 * busy_us / 1e3 / wall_ms:.1f}% of the wall); "
-             f"{'device' if cuda else 'host'} time by "
-             f"{'kernel' if cuda else 'operator'} "
-             f"{summed / 1e3:.3f} ms; analytic {tflops:.2f} TFLOP/s against "
-             f"{PEAK_NAME}"]
-    lines += [f"  {us / 1e3:9.3f} ms {100 * us / summed:5.1f}%  x{n:<6d} "
-              f"{key[:100]}" for key, us, n in rows[:top]]
-    return "\n".join(lines)
+    return statistics.median(times)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     device = "cpu" if "--cpu" in argv else None
-    profile = "--profile" in argv
     batch_size = int(os.environ.get("BENCH_BATCH", "1"))
     height = int(os.environ.get("BENCH_HEIGHT", "384"))
     width = int(os.environ.get("BENCH_WIDTH", "640"))
@@ -237,7 +184,7 @@ def main(argv=None) -> int:
     for bs in dict.fromkeys((batch_size, 1)):
         try:
             dt = run_bench(bs, height, width, n_steps, use_bf16,
-                           device=device, profile=profile)
+                           device=device)
             batch_size = bs
             break
         except torch.cuda.OutOfMemoryError as e:
@@ -260,7 +207,7 @@ def main(argv=None) -> int:
                   100.0 * FLOPS_PER_FRAMESET * batch_size / dt
                   / PEAK_BF16_FLOPS, 2)}
     if ("BENCH_RIG" not in os.environ and batch_size == 1
-            and _env_flag("BENCH_EXTRAS") and not profile):
+            and _env_flag("BENCH_EXTRAS")):
         for key, kwargs in (("even_rig", dict(batch_size=1, rig="even")),
                             ("batch2", dict(batch_size=2, rig="nuscenes"))):
             try:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.tracing import span
 
 
 class BatchLoader:
@@ -161,15 +162,20 @@ def device_prefetch(iterator, size: int = 2,
     it = iter(iterator)
     if device.type != "cuda":
         for batch in it:
-            yield {k: _as_f32(v).to(device) for k, v in batch.items()}
+            with span("vf.loader.pin"):
+                host = {k: _as_f32(v) for k, v in batch.items()}
+            with span("vf.loader.upload"):
+                dev = {k: t.to(device) for k, t in host.items()}
+            yield dev
         return
 
     stream = torch.cuda.Stream(device)
 
     def put(batch):
-        host = {k: _as_f32(v).contiguous().pin_memory()
-                for k, v in batch.items()}
-        with torch.cuda.stream(stream):
+        with span("vf.loader.pin"):
+            host = {k: _as_f32(v).contiguous().pin_memory()
+                    for k, v in batch.items()}
+        with span("vf.loader.upload"), torch.cuda.stream(stream):
             dev = {k: t.to(device, non_blocking=True) for k, t in host.items()}
             done = torch.cuda.Event()
             done.record(stream)

@@ -153,6 +153,7 @@ from ..ops.resize import resize_bilinear
 from ..parallel.data_parallel import gather_batch, global_batch
 from ..parallel.distributed import all_reduce_sum
 from ..parallel.mesh import camera_shard, gather_cameras, local_cameras
+from ..utils.tracing import span
 from ..weights import init_random
 
 _SAMPLERS_2D = (None, "auto", "pallas", "matmul", "gather")
@@ -397,20 +398,21 @@ class VFDepthModel(nn.Module):
         are dense. The poses and the depth enter without gradient.
         ``rel_cam`` (the target cameras' rows of the neighbour indices) and
         ``src_k`` as ``compute_windows`` takes them."""
-        if not self.warp_window or self.warp_window_hw is None:
-            return None
-        if spatio_pose is None or st_pose is None:
-            return None
-        spatio_hw, st_hw = self.warp_window_hw
-        st_depth = (depth.detach() if self.st_window_mode == "actual"
-                    and depth is not None else None)
-        sources = {} if src_k is None else dict(src_k=src_k)
-        return compute_windows(
-            x["inv_K/0"], x["K/0"], spatio_pose.detach(), st_pose.detach(),
-            torch.clamp(rel_cam, min=0), rel_cam >= 0,
-            self.height, self.width, spatio_hw, st_hw, self.min_depth,
-            self.max_depth, self.focal_length_scale, st_depth=st_depth,
-            **sources)
+        with span("vf.geometry.windows"):
+            if not self.warp_window or self.warp_window_hw is None:
+                return None
+            if spatio_pose is None or st_pose is None:
+                return None
+            spatio_hw, st_hw = self.warp_window_hw
+            st_depth = (depth.detach() if self.st_window_mode == "actual"
+                        and depth is not None else None)
+            sources = {} if src_k is None else dict(src_k=src_k)
+            return compute_windows(
+                x["inv_K/0"], x["K/0"], spatio_pose.detach(),
+                st_pose.detach(), torch.clamp(rel_cam, min=0), rel_cam >= 0,
+                self.height, self.width, spatio_hw, st_hw, self.min_depth,
+                self.max_depth, self.focal_length_scale, st_depth=st_depth,
+                **sources)
 
     def _remat_for(self, net: nn.Module) -> bool:
         """Whether ``net``'s train-mode calls are checkpointed (JAX
@@ -460,10 +462,11 @@ class VFDepthModel(nn.Module):
         """The batch's arrays (those named by ``keys``, else all) as f32
         tensors on this model's device."""
         keys = batch.keys() if keys is None else keys & batch.keys()
-        x = {k: torch.as_tensor(batch[k]).to(self.device, torch.float32)
-             for k in keys}
-        if "extrinsics_inv" not in x:
-            x["extrinsics_inv"] = invert_pose(x["extrinsics"])
+        with span("vf.model.upload"):
+            x = {k: torch.as_tensor(batch[k]).to(self.device, torch.float32)
+                 for k in keys}
+            if "extrinsics_inv" not in x:
+                x["extrinsics_inv"] = invert_pose(x["extrinsics"])
         return x
 
     def _predict_pose_depth(self, x: Mapping[str, torch.Tensor],
@@ -485,47 +488,56 @@ class VFDepthModel(nn.Module):
 
         # time-ordered context pairs, group-major along batch (one BatchNorm
         # batch for all pairs, as in the JAX package)
-        curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"] for f in ctx])
-        nxts = torch.cat([x[f"color_aug/{0 if f < 0 else f}/0"] for f in ctx])
-        pose_feats = self._call(self.pose_net,
-                                self.pose_net.encode_aggregate, curs, nxts,
-                                n_ctx=n_ctx)
-        dfeats, depth_feats = self._call(self.depth_net,
-                                         self.depth_net.encode_aggregate,
-                                         x["color_aug/0/0"])
+        with span("vf.nets.encode"):
+            curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"]
+                              for f in ctx])
+            nxts = torch.cat([x[f"color_aug/{0 if f < 0 else f}/0"]
+                              for f in ctx])
+            pose_feats = self._call(self.pose_net,
+                                    self.pose_net.encode_aggregate, curs,
+                                    nxts, n_ctx=n_ctx)
+            dfeats, depth_feats = self._call(self.depth_net,
+                                             self.depth_net.encode_aggregate,
+                                             x["color_aug/0/0"])
 
         # ONE back-projection for both nets: their projected coordinates are
         # identical, so the feature maps concatenate on channels
         cp = pose_feats.shape[-1]
-        merged = torch.cat([pose_feats, depth_feats], dim=-1)
         grouped = self.grouped or rig is not None
-        if rig is not None:
-            feat, count = self._cam_group_backprojection(merged, x)
-        elif self.grouped:
-            feat, count = backproject_features_grouped(
-                merged, x["mask"], x[fk], x["extrinsics_inv"],
-                groups=self.groups, plain=self.plain_samplers, **self.voxel)
-        else:
-            feat, _, count = backproject_features(
-                merged, x["mask"], x[fk], x["extrinsics_inv"],
-                plain=self.plain_samplers, **self.voxel)
-        # the trailing rel-depth channel is shared by both branches. Autograd
-        # of these slices and this cat already gives the merged cotangent as
-        # the JAX package's custom VJP writes it (_split_merged_channels: one
-        # concat plus the rel-column add), so no Function is needed here.
-        feat_pose = torch.cat([feat[..., :cp], feat[..., -1:]], dim=-1)
-        feat_depth = feat[..., cp:]
+        with span("vf.nets.backproject"):
+            merged = torch.cat([pose_feats, depth_feats], dim=-1)
+            if rig is not None:
+                feat, count = self._cam_group_backprojection(merged, x)
+            elif self.grouped:
+                feat, count = backproject_features_grouped(
+                    merged, x["mask"], x[fk], x["extrinsics_inv"],
+                    groups=self.groups, plain=self.plain_samplers,
+                    **self.voxel)
+            else:
+                feat, _, count = backproject_features(
+                    merged, x["mask"], x[fk], x["extrinsics_inv"],
+                    plain=self.plain_samplers, **self.voxel)
+            # the trailing rel-depth channel is shared by both branches.
+            # Autograd of these slices and this cat already gives the merged
+            # cotangent as the JAX package's custom VJP writes it
+            # (_split_merged_channels: one concat plus the rel-column add),
+            # so no Function is needed here.
+            feat_pose = torch.cat([feat[..., :cp], feat[..., -1:]], dim=-1)
+            feat_depth = feat[..., cp:]
 
-        axisangle, translation = self._call(
-            self.pose_net, self.pose_net.pose_from_backprojection, feat_pose,
-            count, n_ctx=n_ctx, grouped=grouped)
-        skips = [dfeats[i] for i in range(self.fusion_level)]
-        disps = self._call(
-            self.depth_net, self.depth_net.decode_from_backprojection,
-            feat_depth, count, skips, x[fik], x["extrinsics"],
-            extrinsics_aug=extrinsics_aug, grouped=grouped,
-            plain=self.plain_samplers)
-        return self._cam_t_cam(axisangle, translation, x, bsz, rig), disps
+        with span("vf.nets.pose"):
+            axisangle, translation = self._call(
+                self.pose_net, self.pose_net.pose_from_backprojection,
+                feat_pose, count, n_ctx=n_ctx, grouped=grouped)
+            cam_t_cam = self._cam_t_cam(axisangle, translation, x, bsz, rig)
+        with span("vf.nets.depth"):
+            skips = [dfeats[i] for i in range(self.fusion_level)]
+            disps = self._call(
+                self.depth_net, self.depth_net.decode_from_backprojection,
+                feat_depth, count, skips, x[fik], x["extrinsics"],
+                extrinsics_aug=extrinsics_aug, grouped=grouped,
+                plain=self.plain_samplers)
+        return cam_t_cam, disps
 
     def _cam_group_backprojection(self, feats_agg: torch.Tensor,
                                   x: Mapping[str, torch.Tensor]
@@ -699,8 +711,10 @@ class VFDepthModel(nn.Module):
         if self._can_merge_backproject():
             cam_t_cam, out = self._predict_pose_depth(x, ext_aug, rig)
         else:
-            cam_t_cam = self.predict_pose(x, rig)
-            out = self.predict_depth(x, ext_aug, rig)
+            with span("vf.nets.pose"):
+                cam_t_cam = self.predict_pose(x, rig)
+            with span("vf.nets.depth"):
+                out = self.predict_depth(x, ext_aug, rig)
         disps = {s: out[f"disp/{s}"] for s in self.scales}
         disps_aug = ({s: out[f"disp/{s}/aug"] for s in self.scales}
                      if self.aug_depth else None)
@@ -720,17 +734,18 @@ class VFDepthModel(nn.Module):
         keys = {f"K/{lev}", f"inv_K/{lev}", "K/0", "mask", "extrinsics",
                 "extrinsics_inv",
                 *(f"color_aug/{f}/0" for f in self.frame_ids)}
-        x = self._to_device(batch, keys)
-        with self._bn_mode(False):
-            cam_t_cam, disps, disps_aug, _ = self._predict(x, aug_u)
-        outputs = {"cam_T_cam": cam_t_cam}
-        for s in self.scales:
-            outputs[f"disp/{s}"] = disps[s]
-            outputs[f"depth/{s}"] = self.to_depth(disps[s], x["K/0"])
-            if disps_aug is not None:
-                outputs[f"disp/{s}/aug"] = disps_aug[s]
-                outputs[f"depth/{s}/aug"] = self.to_depth(disps_aug[s],
-                                                          x["K/0"])
+        with span("vf.predict"):
+            x = self._to_device(batch, keys)
+            with self._bn_mode(False):
+                cam_t_cam, disps, disps_aug, _ = self._predict(x, aug_u)
+            outputs = {"cam_T_cam": cam_t_cam}
+            for s in self.scales:
+                outputs[f"disp/{s}"] = disps[s]
+                outputs[f"depth/{s}"] = self.to_depth(disps[s], x["K/0"])
+                if disps_aug is not None:
+                    outputs[f"disp/{s}/aug"] = disps_aug[s]
+                    outputs[f"depth/{s}/aug"] = self.to_depth(disps_aug[s],
+                                                              x["K/0"])
         return outputs
 
     def noise_shape(self, batch: Mapping) -> Tuple[int, ...]:
@@ -790,8 +805,10 @@ class VFDepthModel(nn.Module):
                       if disps_aug is not None else None)
         # the target cameras' poses and neighbour rows; the neighbours are
         # the rig's cameras
-        spatio_pose, st_pose = relative_cam_poses(
-            rig["extrinsics"], rig["extrinsics_inv"], cam_t_all, self.rel_cam)
+        with span("vf.geometry.poses"):
+            spatio_pose, st_pose = relative_cam_poses(
+                rig["extrinsics"], rig["extrinsics_inv"], cam_t_all,
+                self.rel_cam)
         cam_t_cam, spatio_pose, st_pose = (
             local_cameras(t, grid, self.num_cams)
             for t in (cam_t_all, spatio_pose, st_pose))
@@ -827,18 +844,20 @@ class VFDepthModel(nn.Module):
                 # depths: the rig's, gathered with their gradient
                 sources["src_depth"] = gather_cameras(
                     depths[s], grid, self.num_cams, "cam_depths")
-            rendered[s] = render_views(
-                colors, x["mask"], k0, x["inv_K/0"], depths[s], cam_t_cam,
-                spatio_pose, st_pose, rel_cam, self.frame_ids,
-                do_intensity_align=self.intensity_align,
-                spatio=self.loss_cfg.spatio,
-                spatio_temporal=self.loss_cfg.spatio_temporal,
-                aug_depth=self.aug_depth, extrinsics=rig["extrinsics"],
-                extrinsics_aug=ext_aug,
-                depth_aug=depths_aug[s] if depths_aug else None,
-                min_depth=self.min_depth, max_depth=self.max_depth,
-                windows=win, plain=self.plain_samplers, **sources)
-        with global_batch(train), camera_shard(grid, self.num_cams):
+            with span("vf.geometry.render"):
+                rendered[s] = render_views(
+                    colors, x["mask"], k0, x["inv_K/0"], depths[s],
+                    cam_t_cam, spatio_pose, st_pose, rel_cam, self.frame_ids,
+                    do_intensity_align=self.intensity_align,
+                    spatio=self.loss_cfg.spatio,
+                    spatio_temporal=self.loss_cfg.spatio_temporal,
+                    aug_depth=self.aug_depth, extrinsics=rig["extrinsics"],
+                    extrinsics_aug=ext_aug,
+                    depth_aug=depths_aug[s] if depths_aug else None,
+                    min_depth=self.min_depth, max_depth=self.max_depth,
+                    windows=win, plain=self.plain_samplers, **sources)
+        with span("vf.losses"), global_batch(train), \
+                camera_shard(grid, self.num_cams):
             loss, logs = total_loss(noise.to(self.device), self.loss_cfg, x,
                                     disps, depths, cam_t_all, rendered,
                                     disps_aug=disps_aug,

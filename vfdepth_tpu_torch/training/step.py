@@ -42,6 +42,7 @@ from .model import VFDepthModel
 from ..parallel.data_parallel import (average_gradients, broadcast_model,
                                       global_shape, local_slice)
 from ..parallel.mesh import local_cameras
+from ..utils.tracing import span
 
 
 def make_lr_schedule(learning_rate: float, scheduler_step_size: int,
@@ -175,23 +176,28 @@ def train_step(model: VFDepthModel, optimizer: torch.optim.Optimizer,
     the noise's cameras, axis 2, too); then the gradients are averaged
     over the ranks. Returns this rank's scalar logs, detached, on the
     model's device."""
-    for group in optimizer.param_groups:
-        group["lr"] = lr_at(group, step)
-    optimizer.zero_grad(set_to_none=True)
-    if noise is None:
-        noise = _draw_noise(noise_shape(model, batch), generator)
-    if aug_u is None:
-        aug_u = _draw_aug(model, aug_shape(model, batch), generator)
-    grid = model.cam_grid
-    noise = local_cameras(local_slice(noise, 1, grid), grid, model.num_cams,
-                          axis=2)
-    _, loss, logs = model(batch, step=step, noise=noise,
-                          aug_u=None if aug_u is None
-                          else local_slice(aug_u, 0, grid))
-    loss.backward()
-    average_gradients(model.parameters())
-    optimizer.step()
-    return _scalars(logs)
+    with span("vf.train_step"):
+        for group in optimizer.param_groups:
+            group["lr"] = lr_at(group, step)
+        optimizer.zero_grad(set_to_none=True)
+        if noise is None:
+            noise = _draw_noise(noise_shape(model, batch), generator)
+        if aug_u is None:
+            aug_u = _draw_aug(model, aug_shape(model, batch), generator)
+        grid = model.cam_grid
+        noise = local_cameras(local_slice(noise, 1, grid), grid,
+                              model.num_cams, axis=2)
+        with span("vf.step.forward"):
+            _, loss, logs = model(batch, step=step, noise=noise,
+                                  aug_u=None if aug_u is None
+                                  else local_slice(aug_u, 0, grid))
+        with span("vf.step.backward"):
+            loss.backward()
+        with span("vf.parallel.grad_average"):
+            average_gradients(model.parameters())
+        with span("vf.step.optimizer"):
+            optimizer.step()
+        return _scalars(logs)
 
 
 @torch.no_grad()

@@ -132,6 +132,11 @@ class Trainer:
         prefetch_depth = self.cfg.get("prefetch_depth", 2)
 
         start_time = time.time()
+        # the logged examples/s: the steps since the last log checkpoint over
+        # their wall time, read after reduce_logs (which waits for the
+        # device's work); the checkpoint's own validation and panels are
+        # left out
+        mark_time, mark_step = start_time, step
         # the running maximum of the overflow since the last log
         # checkpoint, on the device (read only at checkpoints)
         overflow_acc = None
@@ -143,7 +148,6 @@ class Trainer:
                 train_iter if epoch == 0 else train_loader,
                 size=prefetch_depth, device=device)
             for batch_idx, batch in enumerate(epoch_iter):
-                before = time.time()
                 noise = (noise_fn(step, noise_shape(model, batch))
                          if noise_fn is not None else None)
                 aug_u = (aug_fn(step, aug_shape(model, batch))
@@ -163,11 +167,12 @@ class Trainer:
                     # the global batch's logs, the overflow's maximum over
                     # the ranks among them: every rank notes the same
                     logs = reduce_logs(logs)
+                    step_s = (time.time() - mark_time) / (step + 1 - mark_step)
                     self._note_warp_overflow(
                         logs.get("warp_window_overflow", 0.0))
                     if self.is_main:
                         self.logger.log_time(
-                            epoch, batch_idx, time.time() - before,
+                            epoch, batch_idx, step_s,
                             logs.get("total_loss", float("nan")),
                             start_time)
                         self.logger.log_scalars("train", logs, step)
@@ -182,6 +187,7 @@ class Trainer:
                     if val_iter is not None and self.is_main:
                         val_iter = self._validate(val_loader, val_iter,
                                                   eval_gen, step)
+                    mark_time, mark_step = time.time(), step + 1
                 step += 1
                 if max_steps is not None and step >= max_steps:
                     break

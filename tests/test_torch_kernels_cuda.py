@@ -45,10 +45,20 @@ and 72, on rows 2- and 4-byte aligned, at batch 1, with a block of points
 whose every tap lies outside, and with a hot cell (4,300 points: more
 taps on each of its voxels than the backward's column kernel holds).
 
+The depth decode's frustum convolutions (``VFNet.reduce_dim_0``, then
+``reduce_dim_1`` one image a cuDNN call) at the serving shape, f32 with
+TF32 off: the forward launches no FFT or TF32 kernel and a few dozen
+kernels (the whole-batch ``reduce_dim_1`` took cuDNN's FFT tiling, 8,335),
+and its output and ``reduce_dim_1``'s gradients (without the activation,
+whose kink a rounding can cross) lie within 1e-5 of the largest magnitude
+of the same blocks in f64.
+
 Two checks of the data path on the card close the file, exact both:
 ``device_prefetch`` against the pageable route, and a checkpoint moved
 between the card and the CPU.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -874,6 +884,65 @@ def test_gather_bf16_backward_plan_and_bits(c, kind, offset):
         model = gather_bwd_in_plan_order(g.cpu(), coords.cpu(), shape)
         assert torch.equal(dvol.cpu().view(torch.int16),
                            model.view(torch.int16))
+
+
+def _device_kernels(fn):
+    """The names of the device ops ``fn`` launches, by the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_frustum_convs_run_no_fft():
+    _need_cuda()
+    from vfdepth_tpu_torch.models.blocks import ConvBlock
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        rd0 = ConvBlock(3200, 256, 3).cuda()
+        rd1 = ConvBlock(256, 128, 3, per_image=True).cuda()
+        sample = torch.randn(6, 48 * 80, 3200, device="cuda")
+
+        def frustum(blocks, dtype):
+            x = sample.to(dtype).reshape(6, 48, 80, 3200).permute(0, 3, 1, 2)
+            return blocks[1](blocks[0](x))
+
+        frustum((rd0, rd1), torch.float32)
+        torch.cuda.synchronize()
+        y, kernels = _device_kernels(
+            lambda: frustum((rd0, rd1), torch.float32))
+        assert kernels, "the profiler saw no device op"
+        bad = [k for k in kernels if any(m in k.lower()
+                                         for m in ("fft", "cf32", "tf32"))]
+        assert not bad, bad
+        assert len(kernels) < 40, len(kernels)
+        f64 = [copy.deepcopy(b).double() for b in (rd0, rd1)]
+        _within(y, frustum(f64, torch.float64), 1e-5, "frustum")
+        # rd1's gradients, without the activation's kink
+        rd1.nonlin = f64[1].nonlin = None
+        x = torch.randn(6, 256, 48, 80, device="cuda", requires_grad=True)
+        xd = x.detach().double().requires_grad_(True)
+        g = torch.randn(6, 128, 48, 80, device="cuda")
+        got = torch.autograd.grad(rd1(x), [x, rd1.conv.weight,
+                                           rd1.conv.bias], g)
+        want = torch.autograd.grad(f64[1](xd), [xd, f64[1].conv.weight,
+                                                f64[1].conv.bias], g.double())
+        for name, a, b in zip(("input", "weight", "bias"), got, want):
+            _within(a, b, 1e-5, f"{name} gradient")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _within(got, want, rel, what):
+    err = float((got.detach().double() - want).abs().max()
+                / want.abs().max())
+    assert err <= rel, (what, err)
 
 
 @pytest.mark.cuda

@@ -191,17 +191,35 @@ def batch_norm(num_features: int,
     return BatchNorm(num_features, dtype)
 
 
+def runs_cudnn(x: torch.Tensor) -> bool:
+    """Whether a convolution of ``x`` runs in cuDNN (on the card)."""
+    return x.is_cuda
+
+
 class ConvBlock(nn.Module):
     """Reflect-padded Conv2d + optional BatchNorm + activation (NCHW).
-    Bias unless ``norm``."""
+    Bias unless ``norm``.
+
+    ``per_image`` runs the convolution in cuDNN as one call an image (the
+    frustum's ``VFNet.reduce_dim_1``, 256 -> 128 channels at 48x80): on a
+    decode's 6 or 12 f32 images cuDNN's heuristics pick FFT tiling for it,
+    8,320 launches a call, where one image takes an implicit GEMM. The
+    padding and activation run on the whole batch. On the CPU the whole
+    batch is one call (a lone image's rounding there depends on the thread
+    count). ``ConvBlock.per_image_calls`` counts the forwards that take the
+    per-image route."""
+
+    per_image_calls = 0
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1,
                  nonlin: Optional[str] = "LRU", norm: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 per_image: bool = False):
         super().__init__()
         self.pad = ((kernel_size - 1) * dilation) // 2
         self.nonlin = nonlin
+        self.per_image = per_image
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
                            dilation=dilation, bias=not norm, dtype=dtype)
         self.bn = batch_norm(out_ch, dtype) if norm else None
@@ -209,7 +227,11 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pad:
             x = F.pad(x, (self.pad,) * 4, mode="reflect")
-        x = self.conv(x)
+        if self.per_image and runs_cudnn(x):
+            ConvBlock.per_image_calls += 1
+            x = torch.cat([self.conv(image) for image in x.split(1)])
+        else:
+            x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return activation(x, self.nonlin)

@@ -285,7 +285,7 @@ class VFNet(nn.Module):
             self.reduce_dim_0 = ConvBlock(proj_d_bins * voxel_pre_dim[-1],
                                           256, 3, stride=1, dtype=dtype)
             self.reduce_dim_1 = ConvBlock(256, feat_out_dim, 3, stride=1,
-                                          dtype=dtype)
+                                          dtype=dtype, per_image=True)
         else:
             self.reduce_dim_0 = BEVFold(256, feat_in_dim, vz, vy, vx,
                                         stride=2, dtype=dtype)

@@ -201,7 +201,7 @@ def check_train(cfg: Mapping, seed: int, run: Mapping, device
                 ) -> Dict[str, float]:
     """The reference follows the checked steps from the same weights,
     batches and draws -> the numbers compared."""
-    from .reference.model import RefModel, RefTrainer, noise_shape
+    from .reference.model import RefModel, RefTrainer, draw
     program.set_precision(cfg)
     ref = RefModel.on(cfg, device)
     weights_mod.load(ref, weights_mod.make(program.param_spec(cfg), seed,
@@ -213,9 +213,7 @@ def check_train(cfg: Mapping, seed: int, run: Mapping, device
     trainer = RefTrainer(ref, float(cfg["training"]["learning_rate"]))
     gen = torch.Generator(device).manual_seed(seed)
     for batch in run["check_batches"]:
-        noise = torch.randn(noise_shape(ref, batch), generator=gen,
-                            device=device)
-        trainer.step(batch, noise)
+        trainer.step(batch, **draw(ref, batch, gen))
     with torch.no_grad():
         change = {k: float((p - w0[k]).norm())
                   for k, p in ref.named_parameters()}

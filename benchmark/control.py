@@ -30,8 +30,7 @@ if str(ROOT) not in sys.path:
 
 from benchmark import cells, compare, program, scene  # noqa: E402
 from benchmark import weights as weights_mod  # noqa: E402
-from benchmark.reference.model import (RefModel, RefTrainer,  # noqa: E402
-                                       noise_shape)
+from benchmark.reference.model import RefModel, RefTrainer, draws  # noqa: E402
 from benchmark.run import cell_of, load_json  # noqa: E402
 
 
@@ -43,7 +42,8 @@ def _tf32(on: bool) -> None:
 def ref_steps(cfg, seed, batches, device, tf32=False, keep=None):
     """The reference's checked steps -> (losses, first gradient norms, the
     change's norms), as the program's run records them; ``keep`` takes
-    that many framesets of each batch (and the noise's)."""
+    that many framesets of each batch and of each draw, on its batch
+    axis."""
     _tf32(tf32)
     ref = RefModel.on(cfg, device)
     ref.checkpoint = batches[0]["color/0/0"].shape[0] > 2
@@ -53,12 +53,13 @@ def ref_steps(cfg, seed, batches, device, tf32=False, keep=None):
     trainer = RefTrainer(ref, float(cfg["training"]["learning_rate"]))
     gen = torch.Generator(device).manual_seed(seed)
     for batch in batches:
-        noise = torch.randn(noise_shape(ref, batch), generator=gen,
-                            device=device)
+        specs = draws(ref, batch)
+        drawn = {d.name: d.sample(gen) for d in specs}
         if keep:
             batch = {key: v[:keep] for key, v in batch.items()}
-            noise = noise[:, :keep]
-        trainer.step(batch, noise)
+            drawn = {d.name: drawn[d.name].narrow(d.batch_axis, 0, keep)
+                     for d in specs}
+        trainer.step(batch, **drawn)
     with torch.no_grad():
         change = {k: float((p - w0[k]).norm())
                   for k, p in ref.named_parameters()}

@@ -1,8 +1,9 @@
 """Analytic FLOPs of a cell's work, counted on the plain reference.
 
 ``torch.utils.flop_counter.FlopCounterMode`` walks the reference's
-training step (forward, loss and backward) or its serving forward on the
-meta device: every tensor has its shape and no data, so nothing is
+training step (forward, loss and backward; under ``aug_depth`` the
+rotated decode and its loss too) or its serving forward on the meta
+device: every tensor has its shape and no data, so nothing is
 computed and the count is that of the configuration's shapes. It counts
 the convolutions, their backward, and the matrix products (the fusion
 MLPs, the einsum resizes and projections); elementwise work, pooling and
@@ -16,7 +17,7 @@ from typing import Callable, Dict, Mapping
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference.model import RefModel, noise_shape
+from .reference.model import RefModel, draws
 
 CONV_OPS = ("convolution", "convolution_backward")
 
@@ -59,6 +60,6 @@ def count(cfg: Mapping, batch: int, train: bool) -> Dict[str, float]:
         model = RefModel(cfg)
         x = _meta_batch(cfg, batch)
         if train:
-            return of(lambda: model.loss(
-                x, torch.empty(noise_shape(model, x))).backward())
+            drawn = {d.name: torch.empty(d.shape) for d in draws(model, x)}
+            return of(lambda: model.loss(x, **drawn).backward())
         return of(lambda: model.predict(x))

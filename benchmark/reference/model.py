@@ -5,11 +5,17 @@ read from a configuration file of the benchmark.
 Two nets: the surround-fusion depth and pose nets (both back-project
 their features into one voxel grid, merged into one back-projection) or
 the per-camera fsm baselines. Float32 throughout; BatchNorm takes batch
-statistics in training and running statistics in serving.
+statistics in training and running statistics in serving. Under
+``training.aug_depth`` the training step adds depth synthesis
+(``synthesis.py``): a second decode at rotated extrinsics and its loss.
+
+``draws`` lists the random draws of the program's training step, in the
+order it takes them from its generator, so that the benchmark hands the
+same numbers to the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +25,7 @@ from .geometry import distribute, invert, pose_matrix, relative_poses, resize
 from .nets import (FusedDepthNet, FusedPoseNet, MonoDepthNet, MonoPoseNet,
                    VoxelSpec, backproject_grouped)
 from .render import render, total_loss
+from .synthesis import augment_extrinsics, decode_views, synthesis_loss
 
 CAMERA_NAMES = ["camera_01", "camera_05", "camera_06", "camera_07",
                 "camera_08", "camera_09"]
@@ -58,6 +65,13 @@ class RefModel(nn.Module):
                              spatio_temporal=bool(t["spatio_temporal"]),
                              pose_model=m["pose_model"], **cfg["loss"])
         self.align = bool(t["intensity_align"])
+        self.aug_depth = bool(t.get("aug_depth", False))
+        if self.aug_depth:
+            if not self.fusion:
+                raise ValueError("aug_depth needs the fusion nets")
+            self.aug_angle = tuple(float(a) for a in t["aug_angle"])
+            self.syn_coeffs = (float(cfg["loss"]["depth_con_coeff"]),
+                               float(cfg["loss"]["depth_sm_coeff"]))
         if self.fusion:
             self.spec = VoxelSpec(m, self.height, self.width)
             self.depth_net = FusedDepthNet(m, self.spec, self.scales)
@@ -88,8 +102,10 @@ class RefModel(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
-    def _predict(self, x: Dict[str, torch.Tensor]):
-        """(cam_T_cam [b, cams, n_ctx, 4, 4], {scale: disp})."""
+    def _predict(self, x: Dict[str, torch.Tensor],
+                 ext_aug: Optional[torch.Tensor] = None):
+        """(cam_T_cam [b, cams, n_ctx, 4, 4], {scale: disp}, and with
+        ``ext_aug`` the rotated views' {scale: disp}, else None)."""
         ctx = self.frame_ids[1:]
         b = x["color_aug/0/0"].shape[0]
         curs = torch.cat([x[f"color_aug/{f if f < 0 else 0}/0"] for f in ctx])
@@ -107,9 +123,15 @@ class RefModel(nn.Module):
             aa, tr = self.pose_net.pose(
                 torch.cat([feat[..., :cp], feat[..., -1:]], -1), count,
                 len(ctx))
-            disps = self._call(self.depth_net.decode, feat[..., cp:], count,
-                               dfeats[:self.lev], x[f"inv_K/{lev}"],
-                               x["extrinsics"])
+            if ext_aug is None:
+                disps = self._call(self.depth_net.decode, feat[..., cp:],
+                                   count, dfeats[:self.lev],
+                                   x[f"inv_K/{lev}"], x["extrinsics"])
+            else:
+                disps, disps_aug = decode_views(
+                    self.depth_net, self._call, feat[..., cp:], count,
+                    dfeats[:self.lev], x[f"inv_K/{lev}"],
+                    (x["extrinsics"], ext_aug))
         else:
             aa, tr = self._call(self.pose_net, curs.flatten(0, 1),
                                 nxts.flatten(0, 1))
@@ -125,7 +147,9 @@ class RefModel(nn.Module):
                         if self.fusion else
                         mat.reshape((b, self.cams) + mat.shape[1:]))
         return (torch.stack(mats, dim=2),
-                {s: disps[f"disp/{s}"] for s in self.scales})
+                {s: disps[f"disp/{s}"] for s in self.scales},
+                None if ext_aug is None else
+                {s: disps_aug[f"disp/{s}"] for s in self.scales})
 
     def to_depth(self, disp: torch.Tensor, k0: torch.Tensor) -> torch.Tensor:
         lo, hi = 1.0 / self.max_depth, 1.0 / self.min_depth
@@ -149,7 +173,7 @@ class RefModel(nn.Module):
         self.eval()
         try:
             x = self.inputs(batch, self.device)
-            cam_t_cam, disps = self._predict(x)
+            cam_t_cam, disps, _ = self._predict(x)
         finally:
             self.train(was)
         out = {"cam_T_cam": cam_t_cam}
@@ -157,15 +181,23 @@ class RefModel(nn.Module):
             out[f"depth/{s}"] = self.to_depth(disps[s], x["K/0"])
         return out
 
-    def loss(self, batch: Mapping, noise: torch.Tensor) -> torch.Tensor:
+    def loss(self, batch: Mapping, noise: torch.Tensor,
+             aug_u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The training forward (BatchNorm on batch statistics) and loss;
         ``noise`` [n_scales, b, cams, n_ctx, H, W, 1] breaks the identity
-        loss's ties. The finest scale's depth statistics are kept in
+        loss's ties, ``aug_u`` [b, cams, 3] (under ``aug_depth``) draws the
+        rotated views. The finest scale's depth statistics are kept in
         ``self.depth_stats`` (mean, max, min), as the program logs them."""
         self.train()
         x = self.inputs(batch, self.device)
         rel_cam = self.rel_cam_rows.to(self.device)
-        cam_t_cam, disps = self._predict(x)
+        ext_aug = None
+        if self.aug_depth:
+            if aug_u is None:
+                raise ValueError("aug_depth: the step needs aug_u")
+            ext_aug = augment_extrinsics(aug_u.to(self.device),
+                                         x["extrinsics"], self.aug_angle)
+        cam_t_cam, disps, disps_aug = self._predict(x, ext_aug)
         spatio, st = relative_poses(x["extrinsics"], x["extrinsics_inv"],
                                     cam_t_cam, rel_cam)
         colors = {f: x[f"color/{f}/0"] for f in self.frame_ids}
@@ -177,13 +209,51 @@ class RefModel(nn.Module):
                               depths[s], cam_t_cam, spatio, st, rel_cam,
                               self.frame_ids, self.align)
                     for s in self.scales}
-        return total_loss(noise, self.loss_cfg, x, disps, cam_t_cam,
+        loss = total_loss(noise, self.loss_cfg, x, disps, cam_t_cam,
                           rendered)
+        if not self.aug_depth:
+            return loss
+        depths_aug = {s: self.to_depth(disps_aug[s], x["K/0"])
+                      for s in self.scales}
+        return loss + synthesis_loss(x, depths, depths_aug, disps_aug,
+                                     ext_aug, rel_cam, self.syn_coeffs,
+                                     (self.min_depth, self.max_depth))
 
 
 def noise_shape(model: RefModel, batch: Mapping) -> Tuple[int, ...]:
     b, cams, h, w = batch["color/0/0"].shape[:4]
     return (len(model.scales), b, cams, len(model.frame_ids) - 1, h, w, 1)
+
+
+class Draw(NamedTuple):
+    """One random draw of the training step: the keyword it is handed in
+    as, uniform in [0, 1) or standard normal, its shape and its batch
+    axis."""
+    name: str
+    uniform: bool
+    shape: Tuple[int, ...]
+    batch_axis: int
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        fn = torch.rand if self.uniform else torch.randn
+        return fn(self.shape, generator=generator, device=generator.device)
+
+
+def draws(model: RefModel, batch: Mapping) -> List[Draw]:
+    """The draws the program's training step takes from its generator, in
+    its order: the identity loss's tie-break noise, then, under
+    ``aug_depth``, the rotated views' ``aug_u`` [b, cams, 3]."""
+    out = [Draw("noise", False, noise_shape(model, batch), 1)]
+    if model.aug_depth:
+        out.append(Draw("aug_u", True,
+                        tuple(batch["color/0/0"].shape[:2]) + (3,), 0))
+    return out
+
+
+def draw(model: RefModel, batch: Mapping,
+         generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """``draws``' numbers from ``generator``, by keyword."""
+    return {d.name: d.sample(generator) for d in draws(model, batch)}
 
 
 class RefTrainer:
@@ -201,9 +271,10 @@ class RefTrainer:
         self.depth_stats = []
         self.first_grad_norms: Optional[Dict[str, float]] = None
 
-    def step(self, batch: Mapping, noise: torch.Tensor) -> float:
+    def step(self, batch: Mapping, noise: torch.Tensor,
+             aug_u: Optional[torch.Tensor] = None) -> float:
         self.opt.zero_grad(set_to_none=True)
-        loss = self.model.loss(batch, noise)
+        loss = self.model.loss(batch, noise, aug_u)
         loss.backward()
         if self.first_grad_norms is None:
             self.first_grad_norms = {

@@ -397,8 +397,13 @@ class FusedDepthNet(nn.Module):
         return feats, _nhwc(agg).reshape((b, cams) + _nhwc(agg).shape[1:])
 
     def decode(self, feat, count, skips, inv_k, ext):
+        return self.decode_volume(self.fusion_net.fuse(feat, count), skips,
+                                  inv_k, ext)
+
+    def decode_volume(self, vfeat, skips, inv_k, ext):
+        """The fused voxels sampled along the frusta of the cameras at
+        ``ext`` and decoded -> {'disp/{s}': [b, cams, h, w, 1]}."""
         b, cams = inv_k.shape[:2]
-        vfeat = self.fusion_net.fuse(feat, count)
         proj = self.fusion_net.to_image(vfeat, inv_k, ext)
         dec = self.decoder(list(skips) + [proj])
         return {k: _nhwc(v).reshape((b, cams) + _nhwc(v).shape[1:])

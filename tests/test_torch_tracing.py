@@ -7,7 +7,9 @@ shared no-op, and the step's loss, gradients, updated parameters and the
 request's outputs are the same bits as under ``torch.profiler`` with CPU
 activity. Under the profiler the exported trace holds every span of the
 layers, each inside the span listed as its parent, as often as a step or
-a request opens it (``vf.geometry.render`` once per scale).
+a request opens it (``vf.geometry.render`` once per scale). Under depth
+synthesis the step also opens ``vf.nets.depth.aug``,
+``vf.geometry.warp_depth`` and ``vf.losses.synthesis``.
 """
 import collections
 import json
@@ -59,9 +61,23 @@ def _spans(events):
     return out
 
 
-def _run(cfg, tmp_path=None):
-    """One batch fed, one step and one request of a fresh seeded model;
-    under the profiler (``tmp_path`` given) with the trace's events."""
+def _aug_tree(n_scales):
+    """The spans of one batch fed and one step under depth synthesis: the
+    step's spans, the rotated view's decode inside the depth net's span,
+    its depth warp inside each scale's render and its loss terms inside
+    the losses' span, once a scale."""
+    step = [t for t in _tree(n_scales)
+            if "vf.predict" not in (t[0], t[1])]
+    return step + [("vf.nets.depth.aug", "vf.nets.depth", 1),
+                   ("vf.geometry.warp_depth", "vf.geometry.render",
+                    n_scales),
+                   ("vf.losses.synthesis", "vf.losses", n_scales)]
+
+
+def _run(cfg, tmp_path=None, serve=True):
+    """One batch fed, one step and (``serve``) one request of a fresh
+    seeded model; under the profiler (``tmp_path`` given) with the trace's
+    events."""
     model = VFDepthModel(cfg, device="cpu", seed=0)
     model.plain_samplers = True
     ds = FakeDataset(num_samples=1, num_cams=cfg.num_cams, height=cfg.height,
@@ -74,7 +90,7 @@ def _run(cfg, tmp_path=None):
     def work():
         batch = next(device_prefetch(iter([host]), device="cpu"))
         logs = train_step(model, opt, batch, 0, gen)
-        return logs, model.predict(host)
+        return logs, model.predict(host) if serve else {}
 
     with fixed_threads():
         if tmp_path is None:
@@ -121,6 +137,32 @@ def test_every_span_nested_and_counted(runs):
     got = collections.Counter(_spans(traced[4]))
     want = {(name, parent): n for name, parent, n in _tree(len(cfg.scales))}
     assert got == want
+
+
+@pytest.fixture(scope="module")
+def aug_runs(tmp_path_factory):
+    cfg = presets.micro_config(aug_depth=True)
+    plain = _run(cfg, serve=False)
+    traced = _run(cfg, tmp_path_factory.mktemp("aug_trace"), serve=False)
+    return cfg, plain, traced
+
+
+def test_depth_synthesis_spans_nested_and_counted(aug_runs):
+    """Under ``aug_depth`` the rotated decode, the depth warp and the
+    synthesis loss open their spans inside the ones that held them
+    before, so every reader of those attributes the same operations; the
+    traced step gives the same bits as the untraced one. (A fusion step
+    opens none of them: ``test_every_span_nested_and_counted``.)"""
+    cfg, plain, traced = aug_runs
+    got = collections.Counter(_spans(traced[4]))
+    want = {(name, parent): n
+            for name, parent, n in _aug_tree(len(cfg.scales))}
+    assert got == want
+    for a, b in zip(plain[:3], traced[:3]):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert "depth_con_loss" in plain[0] and plain[1]
 
 
 def test_unmerged_nets_open_one_pose_and_one_depth_span(tmp_path):

@@ -46,6 +46,7 @@ from .warp_window import BoxHW, WarpWindows
 from ..ops import ties
 from ..ops.grid_sample import grid_sample_2d
 from ..ops.warp import warp_image_mask
+from ..utils.tracing import span
 
 
 def warp_image(src_img: torch.Tensor, src_mask: torch.Tensor,
@@ -366,25 +367,26 @@ def render_views(colors: Dict[int, torch.Tensor], mask: torch.Tensor,
 
     tform_depth = tform_mask = None
     if aug_depth:
-        cams = depth.shape[1]
-        # sources: each camera's neighbours, then itself
-        self_idx = torch.arange(first_cam, first_cam + cams,
-                                device=rel_idx.device)[:, None]
-        src_idx = torch.cat([rel_idx, self_idx], dim=1)    # [cams, n_src]
-        src_valid = torch.cat([rel_cam >= 0, torch.ones_like(
-            self_idx, dtype=torch.bool)], dim=1)
-        n_src = src_idx.shape[1]
-        rel_pose = torch.einsum("bcij,bcnjk->bcnik",
-                                invert_pose(extrinsics_aug),
-                                extrinsics[:, src_idx])
-        tform_depth, tform_mask = warp_depth(
-            (depth if src_depth is None else src_depth)[:, src_idx],
-            (mask if src_mask is None else src_mask)[:, src_idx],
-            (inv_k if src_inv_k is None else src_inv_k)[:, src_idx],
-            (k if src_k is None else src_k)[:, src_idx],
-            _bcast(depth_aug, n_src), _bcast(inv_k, n_src), rel_pose,
-            min_depth, max_depth)
-        tform_mask = tform_mask * src_valid.to(depth.dtype)[
-            None, :, :, None, None, None]
+        with span("vf.geometry.warp_depth"):
+            cams = depth.shape[1]
+            # sources: each camera's neighbours, then itself
+            self_idx = torch.arange(first_cam, first_cam + cams,
+                                    device=rel_idx.device)[:, None]
+            src_idx = torch.cat([rel_idx, self_idx], dim=1)    # [cams, n_src]
+            src_valid = torch.cat([rel_cam >= 0, torch.ones_like(
+                self_idx, dtype=torch.bool)], dim=1)
+            n_src = src_idx.shape[1]
+            rel_pose = torch.einsum("bcij,bcnjk->bcnik",
+                                    invert_pose(extrinsics_aug),
+                                    extrinsics[:, src_idx])
+            tform_depth, tform_mask = warp_depth(
+                (depth if src_depth is None else src_depth)[:, src_idx],
+                (mask if src_mask is None else src_mask)[:, src_idx],
+                (inv_k if src_inv_k is None else src_inv_k)[:, src_idx],
+                (k if src_k is None else src_k)[:, src_idx],
+                _bcast(depth_aug, n_src), _bcast(inv_k, n_src), rel_pose,
+                min_depth, max_depth)
+            tform_mask = tform_mask * src_valid.to(depth.dtype)[
+                None, :, :, None, None, None]
     return RenderOutputs(t_img, t_mask, overlap_img, overlap_mask,
                          tform_depth, tform_mask)

@@ -57,6 +57,7 @@ from ..geometry.se3 import matrix_to_euler_angles_xyz
 from ..ops import ties
 from ..parallel.data_parallel import batch_mean
 from ..parallel.mesh import percam_mean, percam_sum
+from ..utils.tracing import span
 
 _EPSILON = 1e-5  # identity-loss tie-break noise scale
 
@@ -277,16 +278,17 @@ def total_loss(noise: torch.Tensor, cfg: LossConfig,
             if scale == 0:
                 logs["pose"] = pose_l.mean()
         if cfg.aug_depth:
-            con, sm = depth_synthesis_loss(depths_aug[scale], r.tform_depth,
-                                           r.tform_depth_mask,
-                                           disps_aug[scale])
-            scale_loss = (scale_loss + cfg.depth_con_coeff * con
-                          + cfg.depth_sm_coeff * sm)
-            if scale == 0:
-                logs["depth_con_loss"] = con.mean()
-                logs["depth_sm_loss"] = sm.mean()
-                logs["depth_loss"] = (cfg.depth_con_coeff * con
-                                      + cfg.depth_sm_coeff * sm).mean()
+            with span("vf.losses.synthesis"):
+                con, sm = depth_synthesis_loss(
+                    depths_aug[scale], r.tform_depth, r.tform_depth_mask,
+                    disps_aug[scale])
+                scale_loss = (scale_loss + cfg.depth_con_coeff * con
+                              + cfg.depth_sm_coeff * sm)
+                if scale == 0:
+                    logs["depth_con_loss"] = con.mean()
+                    logs["depth_sm_loss"] = sm.mean()
+                    logs["depth_loss"] = (cfg.depth_con_coeff * con
+                                          + cfg.depth_sm_coeff * sm).mean()
         cam_loss = cam_loss + scale_loss
 
         if scale == 0:

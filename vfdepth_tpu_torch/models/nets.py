@@ -39,6 +39,7 @@ from .vfnet import VFNet
 from ..geometry.se3 import axis_angle_to_matrix
 from ..ops import ties
 from ..ops.resize import resize_bilinear
+from ..utils.tracing import span
 
 
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -135,16 +136,20 @@ class FusedDepthNet(nn.Module):
         updates BatchNorm's statistics in the JAX package's order)."""
         b, cams = inv_k.shape[:2]
         voxel_feat = self.fusion_net.fuse_depth(feat, count, grouped=grouped)
-        outputs = {}
-        views = [(extrinsics, "")]
-        if extrinsics_aug is not None:
-            views.append((extrinsics_aug, "/aug"))
-        for ext, tag in views:
+
+        def decode(ext: torch.Tensor, tag: str) -> Dict[str, torch.Tensor]:
             proj = self.fusion_net.project_voxel_into_image(
                 voxel_feat, inv_k, ext, plain=plain)
             dec = self.decoder(list(skip_feats) + [proj])
-            outputs.update({k + tag: unpack_cam_feat(_to_nhwc(v), b, cams)
-                            for k, v in dec.items()})
+            return {k + tag: unpack_cam_feat(_to_nhwc(v), b, cams)
+                    for k, v in dec.items()}
+
+        outputs = decode(extrinsics, "")
+        if extrinsics_aug is not None:
+            # the rotated view's frustum sample (K3's second call) and its
+            # decoder pass
+            with span("vf.nets.depth.aug"):
+                outputs.update(decode(extrinsics_aug, "/aug"))
         return outputs
 
     def fuse_voxel(self, images: torch.Tensor, mask: torch.Tensor,
